@@ -1,0 +1,71 @@
+"""Build the port's state from dicts of numpy arrays.
+
+The port never sees a foreign framework's objects: state made elsewhere
+(for example by the JAX package, for the parity tests) is handed over as
+numpy arrays keyed by field name.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .data.cameras import Camera
+from .device import resolve_device
+from .models.flame.assets import FlameAssets
+from .models.flame.flame_model import FlameParams
+from .models.gaussians import GaussianAux, GaussianParams
+
+_CAMERA_META = ("fovx", "fovy", "width", "height", "timestep", "camera_id", "image_name")
+
+
+def _tensor(x, dev, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=dev, dtype=dtype)
+
+
+def gaussian_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, np.ndarray],
+                              device="cuda") -> tuple[GaussianParams, GaussianAux]:
+    """GaussianParams/GaussianAux from arrays keyed by their field names."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    p = GaussianParams(**{
+        k: _tensor(params[k], dev, f32)
+        for k in ("means", "log_scales", "quats", "sh_dc", "sh_rest", "logit_opacity")
+    })
+    a = GaussianAux(
+        alive=_tensor(aux["alive"], dev, torch.bool),
+        binding=_tensor(aux["binding"], dev, torch.int64),
+        grad_accum=_tensor(aux["grad_accum"], dev, f32),
+        denom=_tensor(aux["denom"], dev, f32),
+        max_radii2d=_tensor(aux["max_radii2d"], dev, f32),
+    )
+    return p, a
+
+
+def flame_assets_from_numpy(d: Mapping) -> FlameAssets:
+    """FlameAssets from arrays keyed by its field names (host numpy)."""
+    arrays = {k: np.array(d[k]) for k in FlameAssets._fields
+              if k not in ("n_shape", "vertex_masks")}
+    return FlameAssets(
+        **arrays, n_shape=int(d["n_shape"]),
+        vertex_masks={k: np.array(v) for k, v in d["vertex_masks"].items()},
+    )
+
+
+def flame_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> FlameParams:
+    """FlameParams from arrays keyed by its field names (None stays None)."""
+    dev = resolve_device(device)
+    return FlameParams(**{
+        k: None if d.get(k) is None else _tensor(d[k], dev, torch.float32)
+        for k in FlameParams._fields
+    })
+
+
+def camera_from_numpy(d: Mapping, device="cuda") -> Camera:
+    """Camera from its four matrices as arrays plus its metadata values."""
+    dev = resolve_device(device)
+    mats = {k: _tensor(d[k], dev, torch.float32)
+            for k in ("world_view", "proj", "full_proj", "camera_center")}
+    meta = {k: d[k] for k in _CAMERA_META if k in d}
+    return Camera(**mats, **meta)
