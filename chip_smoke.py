@@ -14,7 +14,10 @@ non-zero):
                 each, all started together;
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at a small scene (128×256, 4096 splats: multi-chunk walks
-                and early stops) and at the full-size frame's table;
+                and early stops) and at the full-size frame's table (also
+                the first training frame's table); the backward kernel with
+                fixed-seed cotangents, each row within 1e-4 of its largest
+                plain value and the plain version's zero slots exact;
   4. slice    — the benchmark scene at full width (802×550, 90,090 FLAME-
                 bound Gaussians, SH degree 3, 32×32 tiles, probed tier
                 budgets), rendered frame after frame through
@@ -22,7 +25,19 @@ non-zero):
                 compositor must launch once per frame; one full frame is
                 checked against the plain compositor and a small frame
                 against the dense ground truth;
-  5. numbers  — frames/s, per-stage milliseconds, peak memory.
+  5. numbers  — frames/s, per-stage milliseconds, peak memory;
+  6. train    — the FLAME-bound training step at the same full width
+                (`training.trainer.make_train_step`, SH degree 3, `Config`
+                defaults with 100 shape and 50 expression parameters, two
+                timesteps) towards a target rendered with the jaw moved
+                and the SH DC perturbed: 5 warm-up and 50 timed steps; each
+                compositor launches once per step, no budget overflow, the
+                loss finite and falling, every gradient and parameter
+                finite, dead slots unchanged bit for bit, and one step's
+                gradients equal to those with the plain backward compositor;
+  7. train numbers — steps/s, device ms per stage (torch.profiler ranges),
+                device busy share and ops per step, the backward kernel
+                against its plain version and its bound, peak memory.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
@@ -30,7 +45,9 @@ and exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,6 +70,23 @@ N_PROFILE_FRAMES = 20  # frames under torch.profiler
 STAGES = ("flame_binding", "projection_sh", "binning", "compositor")
 KERNEL_SOURCE = "gaussianavatars_torch/csrc/composite_pairs_fwd.cu"
 REPLACES = "gaussianavatars_tpu/ops/pallas/composite_pairs.py:236"
+BWD_KERNEL_SOURCE = "gaussianavatars_torch/csrc/composite_pairs_bwd.cu"
+BWD_REPLACES = "gaussianavatars_tpu/ops/pallas/composite_pairs.py:620"
+# Float operations per (pair, pixel) evaluation of composite_pairs_bwd.cu:
+# dx, dy (2); power (9); expf (1); op·e (1); the 0.99 clamp (1); gc (5);
+# 1 - alpha and T·(1 - alpha) (2); w (1); w·gc and the prefix q (2);
+# G - q (1); 1/(1 - alpha) (1); d_alpha (3); d_p (1); the products
+# d_p·{x, y, x², xy, y²} and w·g_c (8); one add of each of the nine sums
+# over the tile's pixels (9).
+BWD_FLOPS_PER_EVAL = 48
+BWD_REL_TOL = 1e-4       # per row: max |kernel - plain| <= 1e-4 · max |plain|
+N_TRAIN_WARMUP = 5
+N_TRAIN_STEPS = 50       # timed steps, as the JAX package's bench.py times
+N_PROFILE_STEPS = 10     # steps under torch.profiler
+TRAIN_TIMESTEPS = 2
+TRAIN_RANGES = ("train/geometry_fwd", "sort_gather/fwd", "train/image_fwd",
+                "train/image_bwd", "sort_gather/bwd", "train/densify_stats",
+                "train/geometry_bwd", "train/adam")
 
 
 def log(phase: str, **fields) -> None:
@@ -163,6 +197,19 @@ def compare_kernel(label: str, table) -> dict:
     return dict(res, outputs=(acc, tfin, stop))
 
 
+COMPOSITOR_KERNELS = ("composite_pairs_fwd_kernel", "composite_pairs_bwd_kernel")
+
+
+def range_device_us(e) -> float:
+    """Device microseconds of the kernels a host range owns (its own and
+    its child operators'), the compositor kernels left out. They are
+    launched through ctypes, so whether a range owns them depends on the
+    operator around the launch (an autograd Function's does, a bare range
+    does not); the callers count them by name instead, once."""
+    own = sum(k.duration for k in e.kernels if not any(n in k.name for n in COMPOSITOR_KERNELS))
+    return own + sum(range_device_us(c) for c in e.cpu_children)
+
+
 def profile_device(stages, renderer, poses, frames_per_s: float) -> dict:
     """Device time per frame from torch.profiler: per stage (the `stage/*`
     ranges of `stages`), and the kernels of `renderer.render`, whose sum
@@ -178,12 +225,11 @@ def profile_device(stages, renderer, poses, frames_per_s: float) -> dict:
     # The host-side range of each stage sums the device time of the kernels
     # launched inside it. Its device-side twin (same name) spans the stage on
     # the device timeline, idle gaps included, and is left out.
-    # The compositor kernel is launched through ctypes, not by a PyTorch
-    # operator, so no host range owns it: it is found by its name.
+    # The compositor kernel is counted by its name (see range_device_us).
     stage_dev = dict.fromkeys(STAGES, 0.0)
     for e in prof.events():
         if e.device_type == cpu and e.name.startswith("stage/"):
-            stage_dev[e.name[len("stage/"):]] += e.device_time_total / 1e3 / N_PROFILE_FRAMES
+            stage_dev[e.name[len("stage/"):]] += range_device_us(e) / 1e3 / N_PROFILE_FRAMES
         elif e.device_type == cuda and "composite_pairs_fwd_kernel" in e.name:
             stage_dev["compositor"] += e.time_range.elapsed_us() / 1e3 / N_PROFILE_FRAMES
     with profile(activities=acts) as prof:
@@ -227,6 +273,222 @@ def compositor_bound(starts, counts, stop, p: int) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def cotangents(nt: int, p: int, dev, seed: int):
+    """Fixed-seed cotangents (g_acc [NT, P, 3], g_t [NT, P]): the gradient
+    of Σ acc·w1 + Σ t_final·w2 with normal weights."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((nt, p, 3), generator=g).to(dev),
+            torch.randn((nt, p), generator=g).to(dev))
+
+
+def walked_pairs(starts, counts, stop) -> torch.Tensor:
+    """Pairs the backward walks per tile: min(count, max(stop) - head + 1)."""
+    head = starts.long() % 128
+    return torch.minimum(counts.long(), stop.long().max(dim=1).values - head + 1).clamp_min(0)
+
+
+def compare_bwd_kernel(label: str, table, fwd_outputs, seed: int) -> dict:
+    """Backward kernel vs its plain version on the same card tensors."""
+    from gaussianavatars_torch.ops.composite_pairs import (
+        bwd_call_pairs, bwd_call_pairs_reference,
+    )
+
+    dataT, starts, counts, th, tw, ntx = table
+    acc, tfin, stop = fwd_outputs
+    g_acc_t, g_t = cotangents(starts.shape[0], th * tw, dataT.device, seed)
+    args = (dataT, starts, counts, acc, tfin, stop, g_acc_t, g_t, th, tw, ntx)
+    d = bwd_call_pairs(*args)
+    torch.cuda.synchronize()
+    r = bwd_call_pairs_reference(*args)
+    row_err = (d[:9] - r[:9]).abs().amax(dim=1)
+    row_max = r[:9].abs().amax(dim=1)
+    rel = (row_err / row_max).tolist()
+    plain_zero = (r == 0).all(dim=0)
+    zeros_exact = not bool(d[:, plain_zero].any()) and not bool(d[9:].any())
+    walked = walked_pairs(starts, counts, stop)
+    res = dict(max_abs_err=float(row_err.max()), rel_err_per_row=rel,
+               zeros_exact=zeros_exact, zero_slots=int(plain_zero.sum()),
+               walked_pairs=int(walked.sum()), longest_walk=int(walked.max()),
+               walks_cut_by_stops=int((walked < counts.long()).sum()))
+    log(f"kernels/bwd_{label}", **res)
+    if not (max(rel) <= BWD_REL_TOL and zeros_exact):
+        raise AssertionError(f"composite_pairs_bwd disagrees with its plain version: {res}")
+    return dict(res, args=args)
+
+
+def bwd_bound(starts, counts, stop, p: int, n_cols=None) -> dict:
+    """Least time for this frame's backward compositing on an H100 SXM:
+    walked pairs × P pixel evaluations of BWD_FLOPS_PER_EVAL, against the
+    walked pairs' nine rows read, the per-pixel inputs (acc, t_final, stop
+    and the two cotangents: 9 words) and the output. With `n_cols`, the
+    wrapper's output: the whole [16, n_cols] table written once (its zero
+    fill); without, the kernel's own: nine rows of the walked pairs."""
+    pairs = int(walked_pairs(starts, counts, stop).sum())
+    nt = starts.shape[0]
+    ops = pairs * p * BWD_FLOPS_PER_EVAL
+    out_bytes = pairs * BYTES_PER_PAIR if n_cols is None else 16 * n_cols * 4
+    nbytes = pairs * BYTES_PER_PAIR + nt * 8 + nt * p * 9 * 4 + out_bytes
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return dict(walked_pairs=pairs, ops=ops, bytes=nbytes,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_train(step, state, gt, cam, bg, steps_per_s: float) -> dict:
+    """Device time per training step from torch.profiler, by stage.
+
+    The backward runs on the calling thread (autograd multithreading off
+    inside the window) so that the `train/*` and `sort_gather/*` ranges
+    hold the kernels of their stage; the two compositor kernels are
+    counted by name (see range_device_us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    with torch.autograd.set_multithreading_enabled(False), profile(activities=acts) as prof:
+        for i in range(N_PROFILE_STEPS):
+            state = step(state, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+        torch.cuda.synchronize()
+    rng = dict.fromkeys(TRAIN_RANGES, 0.0)
+    fwd_k = bwd_k = 0.0
+    kernels = []
+    for e in prof.events():
+        if e.device_type == cpu and e.name in rng:
+            rng[e.name] += range_device_us(e) / 1e3 / N_PROFILE_STEPS
+        elif e.device_type == cuda and not e.is_user_annotation:
+            kernels.append(e)
+            if "composite_pairs_fwd_kernel" in e.name:
+                fwd_k += e.time_range.elapsed_us() / 1e3 / N_PROFILE_STEPS
+            elif "composite_pairs_bwd_kernel" in e.name:
+                bwd_k += e.time_range.elapsed_us() / 1e3 / N_PROFILE_STEPS
+    if not kernels:
+        return {"device_time": "not measured: the profiler recorded no device events"}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / N_PROFILE_STEPS
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    stages = {
+        "geometry_fwd": rng["train/geometry_fwd"],
+        "binning": rng["sort_gather/fwd"],
+        "compositor_fwd": fwd_k,
+        # The image stage less the binning and the compositor kernels: the
+        # L1 + D-SSIM loss forward and backward and the raster's glue (the
+        # zero fills of the compositors' outputs included).
+        "loss": (rng["train/image_fwd"] - rng["sort_gather/fwd"]
+                 + rng["train/image_bwd"] - rng["sort_gather/bwd"]),
+        "compositor_bwd": bwd_k,
+        "sort_gather_bwd": rng["sort_gather/bwd"],
+        "densify_stats": rng["train/densify_stats"],
+        "geometry_bwd": rng["train/geometry_bwd"],
+        "adam": rng["train/adam"],
+    }
+    return dict(
+        stage_device_ms=stages,
+        device_busy_ms_per_step=busy_ms,
+        device_busy_share=busy_ms * steps_per_s / 1e3,
+        device_ops_per_step=len(kernels) / N_PROFILE_STEPS,
+        top_device_ms_per_step={k[:80]: v / 1e3 / N_PROFILE_STEPS for k, v in top},
+    )
+
+
+def leaf_errors(a, b) -> dict:
+    """Per field of two dataclasses of tensors: max |a - b| / max |b|."""
+    out = {}
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if y is not None:
+            out[f.name] = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+    return out
+
+
+def all_finite(obj) -> bool:
+    return all(bool(torch.isfinite(getattr(obj, f.name)).all())
+               for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None)
+
+
+def phase_train(dev, model, params, aux, fl, cam, tile_cfg, card) -> dict:
+    """The FLAME-bound training step at full width (phases 6 and 7)."""
+    from gaussianavatars_torch.config import Config
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.ops import rasterize_sorted as rs
+    from gaussianavatars_torch.render import AvatarRenderer
+    from gaussianavatars_torch.training.trainer import init_train_state, make_train_step
+
+    n_shape, n_expr = fl.shape.shape[0], fl.expr.shape[1]
+    cfg = Config()
+    g = torch.Generator().manual_seed(11)
+    p_gt = dataclasses.replace(
+        params, sh_dc=params.sh_dc + 0.3 * torch.randn(params.sh_dc.shape, generator=g).to(dev))
+    jaw = fl._replace(jaw=torch.tensor([[0.15, 0.0, 0.0]], device=dev))
+    gt = AvatarRenderer(model, p_gt, aux, cam, tile_cfg, device=dev).render(jaw).color.clone()
+    bg = torch.zeros(3, device=dev)
+    state0 = init_train_state(params, aux, cfg, num_timesteps=TRAIN_TIMESTEPS, n_expr=n_expr,
+                              n_shape=n_shape, num_verts=model.num_verts)
+    step = make_train_step(model, cfg, tile_cfg)
+
+    # One step's gradients (Adam's first moment from zero moments is 0.1·g)
+    # with the kernel and with the plain backward compositor.
+    out_k = step(state0, gt, cam, 0, bg, 3)
+    rs.bwd_call_pairs = cp.bwd_call_pairs_reference
+    try:
+        out_r = step(state0, gt, cam, 0, bg, 3)
+    finally:
+        rs.bwd_call_pairs = cp.bwd_call_pairs
+    grad_err = {**leaf_errors(out_k.state.adam.mu, out_r.state.adam.mu),
+                **{f"flame.{k}": v for k, v in
+                   leaf_errors(out_k.state.flame_adam.mu, out_r.state.flame_adam.mu).items()}}
+    log("train/kernel_vs_plain_gradients", rel_err_per_leaf=grad_err)
+    if not max(grad_err.values()) <= 1e-4:
+        raise AssertionError(f"train-step gradients differ with the plain backward: {grad_err}")
+
+    state = state0
+    for i in range(N_TRAIN_WARMUP):
+        state = step(state, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cp.fwd_call_pairs.launches = 0
+    cp.bwd_call_pairs.launches = 0
+    losses, overflow = [], torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for i in range(N_TRAIN_STEPS):
+        out = step(state, gt, cam, i % TRAIN_TIMESTEPS, bg, 3)
+        state = out.state
+        losses.append(out.metrics["loss"])
+        overflow = torch.maximum(overflow, out.metrics["budget_overflow"].to(torch.int64))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": cp.fwd_call_pairs.launches, "bwd": cp.bwd_call_pairs.launches}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    loss = torch.stack(losses).tolist()
+    dead = ~aux.alive
+    dead_same = all(torch.equal(getattr(state.params, f.name)[dead],
+                                getattr(params, f.name)[dead])
+                    for f in dataclasses.fields(params))
+    finite = dict(params=all_finite(state.params), flame=all_finite(state.flame),
+                  grads=all_finite(state.adam.mu) and all_finite(state.adam.nu)
+                  and all_finite(state.flame_adam.mu) and all_finite(state.flame_adam.nu))
+    res = dict(steps=N_TRAIN_STEPS, launches=launches, budget_overflow=int(overflow),
+               loss_first=loss[0], loss_last=loss[-1], loss_finite=all(map(math.isfinite, loss)),
+               finite=finite, dead_slots=int(dead.sum()), dead_slots_unchanged=dead_same,
+               psnr_last=float(out.metrics["psnr"]))
+    log("train", **res)
+    if launches != {"fwd": N_TRAIN_STEPS, "bwd": N_TRAIN_STEPS}:
+        raise AssertionError(f"compositor launches {launches} for {N_TRAIN_STEPS} steps")
+    if not (res["loss_finite"] and loss[-1] < loss[0] and int(overflow) == 0
+            and all(finite.values()) and dead_same):
+        raise AssertionError(f"training checks failed: {res}")
+
+    # --- 7. train numbers ----------------------------------------------------
+    steps_per_s = N_TRAIN_STEPS / wall_s
+    prof_res = profile_train(step, state, gt, cam, bg, steps_per_s)
+    log("train/numbers", card=card["nvidia_smi"], steps_per_s=steps_per_s,
+        ms_per_step=1e3 * wall_s / N_TRAIN_STEPS, resolution=f"{cam.width}x{cam.height}",
+        gaussians=int(aux.alive.sum()), peak_mem_mib=peak_mib,
+        bwd_launches_per_step=launches["bwd"] / N_TRAIN_STEPS, **prof_res)
+    return dict(res, steps_per_s=steps_per_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -256,6 +518,9 @@ def main() -> int:
     k_small = compare_kernel("parity_128x256", small_table)
     if not (k_small["stopped_pixel_share"] > 0 and k_small["walk_past_first_chunk"]):
         raise AssertionError("parity scene must exercise early stops and multi-chunk walks")
+    kb_small = compare_bwd_kernel("parity_128x256", small_table, k_small["outputs"], seed=21)
+    if not kb_small["longest_walk"] > 256:   # the kernel stages 256 pairs a chunk
+        raise AssertionError("parity scene must exercise multi-chunk backward walks")
 
     model, params, aux, fl, cam, n_g = build_scene(device=dev)
     cfg = probe_tile_config(model, params, aux, fl, cam)
@@ -297,6 +562,9 @@ def main() -> int:
     dataT0, plan0 = stages(fl)
     full_table = (dataT0, plan0.tile_starts, plan0.counts, th, tw, ntx)
     k_full = compare_kernel("full_802x550", full_table)
+    # The first training frame's table: the same avatar, camera and FLAME
+    # parameters as the training phase's step 0.
+    kb_full = compare_bwd_kernel("full_802x550", full_table, k_full["outputs"], seed=22)
     log("scene", gaussians=n_g, capacity=params.capacity, faces=model.num_faces,
         verts=model.num_verts, tiers=[cfg.base_budget, list(cfg.tiers)],
         expansion_slots=spec.expansion_size(params.capacity),
@@ -313,6 +581,30 @@ def main() -> int:
     plain_ms = 1e3 * (time.perf_counter() - t0)
     bound = compositor_bound(plan0.tile_starts, plan0.counts, k_full["outputs"][2], th * tw)
     log("kernels/timing_full_802x550", ms=kernel_ms, plain_ms=plain_ms, **bound,
+        card=card["nvidia_smi"])
+    bwd_args = kb_full.pop("args")
+    bwd_ms = cuda_ms(lambda: cp.bwd_call_pairs(*bwd_args), N_KERNEL_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp.bwd_call_pairs_reference(*bwd_args)
+    torch.cuda.synchronize()
+    bwd_plain_ms = 1e3 * (time.perf_counter() - t0)
+    b_bound = bwd_bound(plan0.tile_starts, plan0.counts, k_full["outputs"][2], th * tw,
+                        dataT0.shape[1])
+    # The kernel alone, into one zero-filled output (each launch stores the
+    # same values), against the bound of its own walked work.
+    dgrad = torch.zeros_like(dataT0)
+    bwd_kernel_ms = cuda_ms(lambda: cp._launch_bwd_cuda(dgrad, *bwd_args), N_KERNEL_REPS)
+    if not torch.equal(dgrad, cp.bwd_call_pairs(*bwd_args)):
+        raise AssertionError("composite_pairs_bwd: repeated launches changed the output")
+    del dgrad
+    k_bound = bwd_bound(plan0.tile_starts, plan0.counts, k_full["outputs"][2], th * tw)
+    log("kernels/bwd_timing_full_802x550", ms=bwd_ms, plain_ms=bwd_plain_ms, **b_bound,
+        note="ms: the wrapper, zero fill of the [16, M] output included",
+        kernel_ms=bwd_kernel_ms, kernel_bound_ms=k_bound["bound_ms"],
+        kernel_bound_by=k_bound["bound_by"], kernel_bytes=k_bound["bytes"],
+        kernel_note="kernel_ms: the launch alone, no zero fill; its bound: the walked "
+                    "pairs' nine rows written, not the [16, M] table",
         card=card["nvidia_smi"])
 
     # --- 4. the slice at full width ----------------------------------------
@@ -391,16 +683,26 @@ def main() -> int:
         stream_ms_per_frame=ev0.elapsed_time(ev1) / N_FRAMES, resolution=f"{WIDTH}x{HEIGHT}",
         gaussians=n_g, peak_mem_mib=peak_mib, stage_ms=stage_ms,
         stage_note="CUDA events between stages, synchronised per frame: host and device",
-        library_ms_note="no PyTorch call computes the pair compositor: library_ms is null")
+        library_ms_note="no PyTorch call computes either pair compositor: library_ms is null")
     log("numbers/profile", card=card["nvidia_smi"], **prof_res)
+
+    # --- 6./7. the training step at full width -----------------------------
+    torch.set_grad_enabled(True)
+    train = phase_train(dev, model, params, aux, fl, cam, cfg, card)
 
     print(json.dumps({"kernels": [{
         "name": "composite_pairs_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
+        "replaces": REPLACES, "launches": launches + train["launches"]["fwd"],
         "max_abs_err": max(k_small["max_abs_err_acc"], k_small["max_abs_err_t_final"],
                            k_full["max_abs_err_acc"], k_full["max_abs_err_t_final"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
+    }, {
+        "name": "composite_pairs_bwd", "route": "cuda", "source": BWD_KERNEL_SOURCE,
+        "replaces": BWD_REPLACES, "launches": train["launches"]["bwd"],
+        "max_abs_err": max(kb_small["max_abs_err"], kb_full["max_abs_err"]),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bound["bound_ms"],
+        "bound_by": b_bound["bound_by"], "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

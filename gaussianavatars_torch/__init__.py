@@ -10,9 +10,10 @@ The package imports nothing of JAX and nothing of `gaussianavatars_tpu`.
 Entry points default to ``device="cuda"`` and raise when there is no card;
 CPU tensors run each kernel's plain PyTorch version.
 
-This slice covers the forward render path: FLAME → binding → world
-Gaussians → projection + SH → sorted binning → pair compositor
-(`render.AvatarRenderer`).
+Ported so far: the render path, FLAME → binding → world Gaussians →
+projection + SH → sorted binning → pair compositor (`render.AvatarRenderer`),
+and the FLAME-bound training step over it, with the backward compositor
+kernel (`training.trainer.make_train_step`).
 """
 
 __version__ = "0.1.0"

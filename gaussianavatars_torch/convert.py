@@ -6,6 +6,7 @@ numpy arrays keyed by field name.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -16,6 +17,8 @@ from .device import resolve_device
 from .models.flame.assets import FlameAssets
 from .models.flame.flame_model import FlameParams
 from .models.gaussians import GaussianAux, GaussianParams
+from .training.optim import AdamState
+from .training.trainer import FlameStatic, FlameTrainable, TrainState
 
 _CAMERA_META = ("fovx", "fovy", "width", "height", "timestep", "camera_id", "image_name")
 
@@ -69,3 +72,41 @@ def camera_from_numpy(d: Mapping, device="cuda") -> Camera:
             for k in ("world_view", "proj", "full_proj", "camera_center")}
     meta = {k: d[k] for k in _CAMERA_META if k in d}
     return Camera(**mats, **meta)
+
+
+def _flame_trainable(d: Mapping[str, np.ndarray], dev) -> FlameTrainable:
+    return FlameTrainable(**{
+        k: None if d.get(k) is None else _tensor(d[k], dev, torch.float32)
+        for k in (f.name for f in dataclasses.fields(FlameTrainable))
+    })
+
+
+def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, np.ndarray],
+                           adam: Mapping, flame: Mapping[str, np.ndarray],
+                           flame_static: Mapping[str, np.ndarray], flame_adam: Mapping,
+                           device="cuda") -> TrainState:
+    """TrainState from arrays keyed by field name.
+
+    `adam` and `flame_adam` are {"mu": {...}, "nu": {...}, "step": int}
+    with the moments keyed like `params` and `flame`; fields that are None
+    (or missing) in `flame`/`flame_static` stay None.
+    """
+    dev = resolve_device(device)
+    p, a = gaussian_state_from_numpy(params, aux, device=dev)
+
+    def adam_state(d, like):
+        return AdamState(mu=like(d["mu"]), nu=like(d["nu"]),
+                         step=_tensor(d["step"], dev, torch.int32))
+
+    def gauss(d):
+        return gaussian_state_from_numpy(d, aux, device=dev)[0]
+
+    fl = _flame_trainable(flame, dev)
+    so = flame_static.get("static_offset")
+    return TrainState(
+        params=p, aux=a, adam=adam_state(adam, gauss), flame=fl,
+        flame_static=FlameStatic(shape=_tensor(flame_static["shape"], dev, torch.float32),
+                                 static_offset=None if so is None
+                                 else _tensor(so, dev, torch.float32)),
+        flame_adam=adam_state(flame_adam, lambda d: _flame_trainable(d, dev)),
+    )

@@ -4,7 +4,8 @@
 synthesis), moves them to the device as buffers, and runs the forward pass
 over a `FlameParams` tuple of tensors. The teeth (120 vertices in 8 rows of
 15, synthesised from the outer lip rings) are built exactly as in the JAX
-package.
+package. It also holds the region lookups and the laplacian regulariser
+of the train step.
 """
 from __future__ import annotations
 
@@ -177,6 +178,16 @@ def _build_teeth(assets: FlameAssets) -> tuple[FlameAssets, Dict[str, np.ndarray
     return out, new_masks
 
 
+def _uniform_laplacian(faces: np.ndarray, num_verts: int):
+    """Edge list [E, 2] (both directions, unique) and vertex degrees [V] of
+    the uniform graph laplacian L = I − D⁻¹A."""
+    edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    edges = np.concatenate([edges, edges[:, ::-1]])
+    edges = np.unique(edges, axis=0)
+    deg = np.bincount(edges[:, 0], minlength=num_verts).astype(np.float32)
+    return edges.astype(np.int64), deg
+
+
 class FlameModel(nn.Module):
     """FLAME with its static arrays as device buffers.
 
@@ -202,9 +213,36 @@ class FlameModel(nn.Module):
         self.register_buffer(
             "faces", torch.as_tensor(assets.faces.astype(np.int64), device=dev)
         )
+        lap_edges, lap_deg = _uniform_laplacian(assets.faces, assets.num_verts)
+        self.register_buffer("lap_edges", torch.as_tensor(lap_edges, device=dev))
+        self.register_buffer("lap_deg", torch.as_tensor(np.maximum(lap_deg, 1.0), device=dev))
 
-    def forward(self, params: FlameParams) -> torch.Tensor:
-        """FLAME forward for B timesteps → verts [B, V, 3]."""
+    # -- regions ------------------------------------------------------------
+    def vid_by_region(self, regions: list[str]) -> np.ndarray:
+        """Sorted unique vertex ids of the union of the named regions; ids
+        beyond this topology's vertex count (region tables are FLAME-5023
+        data) are dropped. No caller in the port yet: the region-adaptive
+        loss that uses it raises in `make_train_step` until it is ported."""
+        out = [self.assets.vertex_masks[r] for r in regions if r in self.assets.vertex_masks]
+        if not out:
+            return np.zeros((0,), np.int32)
+        vids = np.unique(np.concatenate(out))
+        return vids[vids < self.num_verts]
+
+    def fid_by_region(self, regions: list[str], min_verts: int = 3) -> np.ndarray:
+        """Faces with at least `min_verts` vertices inside the union of the
+        regions (the reference's voting rule, `flame_model/flame.py:822-838`).
+        No caller in the port yet, like `vid_by_region`."""
+        inside = np.zeros((self.num_verts,), bool)
+        inside[self.vid_by_region(regions)] = True
+        votes = inside[np.asarray(self.assets.faces)].sum(axis=1)
+        return np.nonzero(votes >= min_verts)[0].astype(np.int32)
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, params: FlameParams, return_verts_cano: bool = False):
+        """FLAME forward for B timesteps → verts [B, V, 3], or (verts,
+        verts_cano) with the shaped canonical vertices [B, V, 3] (before
+        posing) when `return_verts_cano`."""
         B = params.expr.shape[0]
         shape = params.shape[None, :].expand(B, params.shape.shape[0])
         betas = torch.cat([shape, params.expr], dim=1)
@@ -221,4 +259,17 @@ class FlameModel(nn.Module):
             full_pose, v_shaped, self.posedirs, self.j_regressor,
             self.parents, self.lbs_weights,
         )
-        return verts + params.translation[:, None, :]
+        verts = verts + params.translation[:, None, :]
+        return (verts, v_shaped) if return_verts_cano else verts
+
+    # -- regularisers -------------------------------------------------------
+    def laplacian_loss(self, verts: torch.Tensor, verts_ref: torch.Tensor) -> torch.Tensor:
+        """mean ‖L(verts) − L(verts_ref)‖² with the uniform graph laplacian
+        (`compute_laplacian_loss`, `scene/flame_gaussian_model.py:160-171`)."""
+        src, dst = self.lap_edges[:, 0], self.lap_edges[:, 1]
+
+        def lap(v):
+            nb = torch.zeros_like(v).index_add_(1, src, v[:, dst])
+            return v - nb / self.lap_deg[None, :, None]
+
+        return torch.mean((lap(verts) - lap(verts_ref)) ** 2)

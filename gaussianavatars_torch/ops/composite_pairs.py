@@ -1,4 +1,5 @@
-"""Forward pair compositor: the CUDA kernel's wrapper and its plain version.
+"""Pair compositor, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
 `fwd_call_pairs` replaces `fwd_call_pairs` of the JAX package
 (`gaussianavatars_tpu/ops/pallas/composite_pairs.py:913`), whose Pallas
@@ -7,8 +8,13 @@ signature and outputs: acc [NT, 3, P] premultiplied colour, t_final [NT, P]
 and stop [NT, P] in the TPU kernel's window-local ids (segment index +
 starts % 128; STOP_NEVER for pixels that never stopped).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs `fwd_call_pairs_reference`, the plain PyTorch version. There is no
+`bwd_call_pairs` replaces the JAX `bwd_call_pairs` (`:947`), whose Pallas
+kernel `_bwd_kernel_pairs_v3` becomes `csrc/composite_pairs_bwd.cu`: the
+pair-major gradient table [16, M] of the forward, rows 9..15 and every slot
+the walk never reaches exact zeros.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain PyTorch version (`*_reference`). There is no
 fallback from one to the other.
 """
 from __future__ import annotations
@@ -24,6 +30,7 @@ from .rasterize_dense import ALPHA_CUTOFF, ALPHA_MAX, T_EPS
 STOP_NEVER = 0x3FFFFFFF
 MAX_TILE_PIXELS = 1024  # one thread per pixel, one block per tile
 _KERNEL = "composite_pairs_fwd"
+_BWD_KERNEL = "composite_pairs_bwd"
 
 
 def _check(dataT, starts, counts, th, tw):
@@ -134,3 +141,157 @@ def fwd_call_pairs_reference(dataT, starts, counts, th: int, tw: int, ntx: int):
         acc = acc + w[:, None, :] * d[5:8].T[:, :, None]
         T = torch.where(contrib, test_t, T)
     return acc, T, stop
+
+
+def _check_bwd(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t, th, tw):
+    _check(dataT, starts, counts, th, tw)
+    nt, p = starts.shape[0], th * tw
+    shapes = {
+        "acc": (acc, torch.float32, (nt, 3, p)),
+        "t_final": (t_final, torch.float32, (nt, p)),
+        "stop": (stop, torch.int32, (nt, p)),
+        "g_acc_t": (g_acc_t, torch.float32, (nt, p, 3)),
+        "g_t": (g_t, torch.float32, (nt, p)),
+    }
+    for name, (x, dtype, shape) in shapes.items():
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != dataT.device:
+            raise ValueError(f"{name} is on {x.device}, dataT on {dataT.device}")
+
+
+@functools.cache
+def _bwd_kernel_fn():
+    """The backward kernel's C entry point, built and loaded at first use."""
+    fn = cuda_build.load(_BWD_KERNEL).composite_pairs_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
+                     th, tw, ntx):
+    """Launch the backward kernel into `dgrad` (dataT's shape and dtype),
+    which the caller zero-fills: the kernel writes rows 0..8 of the slots
+    its walks reach and nothing else."""
+    p = th * tw
+    if p > MAX_TILE_PIXELS or p % 32:
+        raise ValueError(f"tile of {p} pixels: the kernel takes a multiple of 32 up to "
+                         f"{MAX_TILE_PIXELS}")
+    args = (dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t)
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("bwd_call_pairs takes contiguous tensors")
+    fn = _bwd_kernel_fn()
+    with torch.cuda.device(dataT.device):
+        stream = torch.cuda.current_stream(dataT.device).cuda_stream
+        err = fn(dataT.data_ptr(), dataT.stride(0), starts.data_ptr(), counts.data_ptr(),
+                 acc.data_ptr(), t_final.data_ptr(), stop.data_ptr(), g_acc_t.data_ptr(),
+                 g_t.data_ptr(), starts.shape[0], th, tw, ntx, dgrad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{_BWD_KERNEL} launch failed with CUDA error {err}")
+    bwd_call_pairs.launches += 1
+
+
+def bwd_call_pairs(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
+                   th: int, tw: int, ntx: int, amp: bool = False):
+    """Run the backward pair compositor.
+
+    dataT, starts, counts: the forward's inputs; acc [NT, 3, P], t_final
+    [NT, P], stop [NT, P]: its outputs; g_acc_t [NT, P, 3] (pixel-major)
+    and g_t [NT, P]: the cotangents of acc and t_final. Returns the
+    pair-major gradient table, float32 of dataT's shape: rows d mx, d my,
+    d conic a/b/c, d rgb, d opacity; rows 9..15 and slots no walk reaches
+    exact zeros. `amp` (the TPU kernel's bf16 contraction) is not ported.
+    """
+    if amp:
+        raise NotImplementedError("bwd_call_pairs: amp=True (bf16 contraction) is not ported")
+    _check_bwd(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t, th, tw)
+    if dataT.device.type == "cuda":
+        dgrad = torch.zeros_like(dataT)
+        _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
+                         th, tw, ntx)
+        return dgrad
+    if dataT.device.type != "cpu":
+        raise ValueError(f"no compositor for device {dataT.device}")
+    return bwd_call_pairs_reference(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
+                                    th, tw, ntx)
+
+
+bwd_call_pairs.launches = 0  # kernel launches, for callers to check the path
+
+
+def bwd_call_pairs_reference(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
+                             th: int, tw: int, ntx: int):
+    """Plain PyTorch version of the backward kernel.
+
+    Walks slot s = 0, 1, ... of every tile's segment at once, up to the
+    tile's `needed` horizon, with the kernel's per-pixel arithmetic in the
+    same order (tile-local coordinates, the G − prefix form), and sums each
+    slot's nine values over the tile's pixels.
+    """
+    nt = starts.shape[0]
+    p = th * tw
+    dev = dataT.device
+    f32 = torch.float32
+    lin = torch.arange(p, device=dev)
+    x = (lin % tw).to(f32)
+    y = (lin // tw).to(f32)
+    basis = torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])   # [6, P]
+    tiles = torch.arange(nt, device=dev)
+    x0 = ((tiles % ntx) * tw).to(f32)[:, None]
+    y0 = ((tiles // ntx) * th).to(f32)[:, None]
+
+    g = g_acc_t.permute(0, 2, 1)                                          # [NT, 3, P]
+    g0, g1, g2 = g[:, 0], g[:, 1], g[:, 2]
+    big_g = g_t * t_final + g0 * acc[:, 0] + g1 * acc[:, 1] + g2 * acc[:, 2]
+    head = (starts % 128).long()
+    needed = torch.minimum(counts.long(), stop.long().max(dim=1).values - head + 1)
+
+    dgrad = torch.zeros_like(dataT)
+    T = torch.ones((nt, p), dtype=f32, device=dev)
+    qsum = torch.zeros((nt, p), dtype=f32, device=dev)
+    last = dataT.shape[1] - 1
+    n_slots = int(needed.max()) if nt else 0
+    for s in range(n_slots):
+        live = needed > s                                                 # [NT]
+        cols = torch.clamp_max(starts.long() + s, last)
+        d = dataT[:9, cols]                                               # [9, NT]
+        mx, my, ca, cb, cc, r, gg, b, op = (v[:, None] for v in d)
+        mxl = mx - x0
+        myl = my - y0
+        dx = x[None] - mxl
+        dy = y[None] - myl
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+        contrib = ((power <= 0.0) & (alpha >= ALPHA_CUTOFF)
+                   & ((head + s)[:, None] < stop) & live[:, None])
+        alpha_eff = torch.where(contrib, alpha, torch.zeros_like(alpha))
+        gc = r * g0 + gg * g1 + b * g2
+        t_before = T
+        T = T * (1.0 - alpha_eff)
+        w = alpha_eff * t_before
+        qsum = qsum + w * gc
+        d_alpha = t_before * gc - (1.0 / (1.0 - alpha)) * (big_g - qsum)
+        d_p = torch.where(contrib & (alpha < ALPHA_MAX), d_alpha * alpha,
+                          torch.zeros_like(alpha))
+        mom = (d_p[:, None, :] * basis[None]).sum(dim=2)                  # [NT, 6]
+        dl = (w[:, None, :] * g).sum(dim=2)                               # [NT, 3]
+        m1, mmx, mmy, mxx, mxy, myy = mom.unbind(1)
+        mxl, myl = mxl[:, 0], myl[:, 0]
+        ca, cb, cc, op = ca[:, 0], cb[:, 0], cc[:, 0], op[:, 0]
+        s1 = mmx - mxl * m1
+        s2 = mmy - myl * m1
+        sxx = mxx - 2.0 * mxl * mmx + mxl * mxl * m1
+        sxy = mxy - mxl * mmy - myl * mmx + mxl * myl * m1
+        syy = myy - 2.0 * myl * mmy + myl * myl * m1
+        rows = torch.stack([
+            ca * s1 + cb * s2, cc * s2 + cb * s1, -0.5 * sxx, -sxy, -0.5 * syy,
+            dl[:, 0], dl[:, 1], dl[:, 2], m1 / torch.clamp_min(op, 1e-12),
+        ])                                                                # [9, NT]
+        dgrad[:9, cols[live]] = rows[:, live]
+    return dgrad

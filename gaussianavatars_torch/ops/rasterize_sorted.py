@@ -1,4 +1,4 @@
-"""Sorted-data rasterization pipeline (forward), PyTorch.
+"""Sorted-data rasterization pipeline, PyTorch, with its backward.
 
   binning:    footprint sort → tiered expansion → (tile, depth) pair sort
               → param-major [16, M + PAIR_CHUNK] table, segment starts/counts
@@ -6,32 +6,42 @@
   compositing: the pair compositor kernel over that table
               (`composite_sorted` → `ops/composite_pairs.fwd_call_pairs`).
 
+Both are `torch.autograd.Function`s, as the JAX package's are custom VJPs:
+
+  `composite_sorted` backward: the backward compositor kernel
+              (`bwd_call_pairs`) from the forward's saved acc/t_final/stop;
+  `sort_gather` backward: un-permute the pair sort by the saved `pos` →
+              per-Gaussian sums (`reduce_expansion`) → un-permute the
+              footprint sort by the saved `gidx_fp`. Both un-permutes are
+              one scatter of a permutation (`index_copy`), deterministic on
+              the card; autograd never runs back through the forward's
+              gathers.
+
 Semantics are those of the JAX package's `ops/rasterize_sorted.py`: exact
 (tile, depth)-keyed front-to-back order, 1/255 cutoff, 0.99 clamp,
-T < 1e-4 early stop. Forward only: the backward of `sort_gather` and
-`composite_sorted` is not ported yet.
+T < 1e-4 early stop. The binning's forward and backward are
+`torch.profiler` ranges (`sort_gather/fwd`, `sort_gather/bwd`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
-from .composite_pairs import fwd_call_pairs
+from .composite_pairs import bwd_call_pairs, fwd_call_pairs
 from .sort_binning import (
     ALIGN,
     PAIR_CHUNK,
     SortPlan,
     TierSpec,
     bbox_tiles,
+    reduce_expansion,
     segment_bounds,
     sort_bin_forward,
 )
 
 
-def sort_gather(geom, mean2d, conic, colors, opacity, ints):
-    """geom = (nt, ntx, TierSpec); ints = (tminx, tminy, bw, ntiles_eff,
-    depth_bits). Returns (dataT [16, M + PAIR_CHUNK] param-major sorted pair
-    table, SortPlan)."""
+def _sort_gather_forward(geom, mean2d, conic, colors, opacity, ints):
     nt, ntx, spec = geom
     tminx, tminy, bw, ntiles_eff, depth_bits = ints
     # Dead rows get finite (zero) data before the sort, so NaNs of culled
@@ -71,12 +81,70 @@ def sort_gather(geom, mean2d, conic, colors, opacity, ints):
     return dataT, plan
 
 
+class _SortGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, geom, mean2d, conic, colors, opacity, *ints):
+        with record_function("sort_gather/fwd"):
+            dataT, plan = _sort_gather_forward(geom, mean2d, conic, colors, opacity, ints)
+        ctx.spec = geom[2]
+        ctx.n_out = mean2d.shape[0]
+        ctx.save_for_backward(plan.pos, plan.gidx_fp)
+        ctx.mark_non_differentiable(*plan)
+        return (dataT, *plan)
+
+    @staticmethod
+    def backward(ctx, d_dataT, *_d_plan):
+        pos, gidx_fp = ctx.saved_tensors
+        m = pos.shape[0]
+        with record_function("sort_gather/bwd"):
+            d_cols = d_dataT[:9, :m]
+            # 1. un-permute the pair sort to the column-major expansion layout.
+            r = torch.empty_like(d_cols).index_copy_(1, pos.long(), d_cols)
+            # 2. reduce the tier blocks: contiguous slice adds.
+            acc = reduce_expansion(r, gidx_fp.shape[0], ctx.spec)
+            # 3. un-permute the footprint order back to Gaussian order.
+            g = torch.empty_like(acc).index_copy_(1, gidx_fp.long(), acc)[:, :ctx.n_out]
+        d_mean2d = g[0:2].T
+        d_conic = g[2:5].T
+        d_colors = g[5:8].T
+        d_opacity = g[8]
+        return (None, d_mean2d, d_conic, d_colors, d_opacity) + (None,) * 5
+
+
+def sort_gather(geom, mean2d, conic, colors, opacity, ints):
+    """geom = (nt, ntx, TierSpec); ints = (tminx, tminy, bw, ntiles_eff,
+    depth_bits), which take no gradient. Returns (dataT [16, M + PAIR_CHUNK]
+    param-major sorted pair table, SortPlan). Differentiable with respect
+    to mean2d, conic, colors and opacity."""
+    dataT, *plan = _SortGather.apply(geom, mean2d, conic, colors, opacity, *ints)
+    return dataT, SortPlan(*plan)
+
+
+class _CompositeSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dataT, starts, counts, th, tw, ntx):
+        acc, t_final, stop = fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
+        ctx.geom = (th, tw, ntx)
+        ctx.save_for_backward(dataT, starts, counts, acc, t_final, stop)
+        return acc.transpose(1, 2), t_final
+
+    @staticmethod
+    def backward(ctx, g_acc_t, g_t):
+        dataT, starts, counts, acc, t_final, stop = ctx.saved_tensors
+        if g_acc_t is None:
+            g_acc_t = torch.zeros_like(acc).transpose(1, 2)
+        if g_t is None:
+            g_t = torch.zeros_like(t_final)
+        d_dataT = bwd_call_pairs(dataT, starts, counts, acc, t_final, stop,
+                                 g_acc_t.contiguous(), g_t.contiguous(), *ctx.geom)
+        return d_dataT, None, None, None, None, None
+
+
 def composite_sorted(geom, dataT, starts, counts):
     """geom = (tile_h, tile_w, ntx). Returns (acc [NT, P, 3] premultiplied
-    colour, t_final [NT, P])."""
+    colour, t_final [NT, P]). Differentiable with respect to dataT."""
     th, tw, ntx = geom[:3]
-    acc, t_final, _stop = fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
-    return acc.transpose(1, 2), t_final
+    return _CompositeSorted.apply(dataT, starts, counts, th, tw, ntx)
 
 
 def depth_key(depth: torch.Tensor) -> torch.Tensor:
@@ -98,17 +166,20 @@ def rasterize_sorted(
 ):
     """Bin with the data-carrying sort and composite.
 
-    Returns (color [H, W, 3], alpha [H, W], plan).
+    Differentiable with respect to proj.mean2d, proj.conic, colors and
+    opacity; the bboxes and depth keys take no gradient. Returns
+    (color [H, W, 3], alpha [H, W], plan).
     """
     nty = -(-height // tile_h)
     ntx = -(-width // tile_w)
     nt = nty * ntx
 
+    proj_sg = proj._replace(**{k: v.detach() for k, v in proj._asdict().items()})
     tminx, tminy, bw, ntiles, _nty, _ntx = bbox_tiles(
-        proj, height, width, tile_h, tile_w, opacity=opacity
+        proj_sg, height, width, tile_h, tile_w, opacity=opacity.detach()
     )
-    ntiles_eff = torch.where(proj.mask, ntiles, torch.zeros_like(ntiles))
-    ints = (tminx, tminy, bw, ntiles_eff, depth_key(proj.depth))
+    ntiles_eff = torch.where(proj_sg.mask, ntiles, torch.zeros_like(ntiles))
+    ints = (tminx, tminy, bw, ntiles_eff, depth_key(proj_sg.depth))
 
     dataT, plan = sort_gather(
         (nt, ntx, spec), proj.mean2d, proj.conic, colors, opacity, ints

@@ -10,6 +10,9 @@ The same pipeline as the JAX package's `ops/sort_binning.py`:
      riding along as payload.
   4. Segment starts/counts per tile by `searchsorted`.
 
+The backward's `reduce_expansion` sums the expansion's gradients back to
+one row per Gaussian.
+
 PyTorch has no multi-operand sort: each sort orders one key with
 `torch.sort(stable=True)` and gathers the payload columns by the returned
 permutation. JAX's `lax.sort` is not stable, so ties in the footprint
@@ -284,3 +287,26 @@ def segment_bounds(s_tile: torch.Tensor, nt: int):
     counts = ends - starts
     total = ends[-1] if nt > 0 else torch.zeros((), dtype=torch.int32, device=s_tile.device)
     return starts, counts, total
+
+
+def reduce_expansion(x: torch.Tensor, n: int, spec: TierSpec) -> torch.Tensor:
+    """Transpose of the tiered expansion: column-major expansion gradients
+    [C, M] → per-Gaussian sums [C, N] (footprint order).
+
+    Every block of `spec.blocks(n)` is `j1 - j0` contiguous runs of its
+    `n_sel` rows; they are added run by run, 128-aligned slices in the
+    order of the JAX package's `reduce_expansion`, so the float32 sums are
+    the same to the bit.
+    """
+    acc = None
+    off = 0
+    for n_sel, j0, j1 in spec.blocks(n):
+        blk = x[:, off:off + n_sel]
+        for j in range(1, j1 - j0):
+            blk = blk + x[:, off + j * n_sel:off + (j + 1) * n_sel]
+        if acc is None:
+            acc = blk.clone()   # blk may be a view of x
+        else:
+            acc[:, :n_sel] += blk
+        off += n_sel * (j1 - j0)
+    return acc

@@ -1,0 +1,298 @@
+"""The FLAME-bound training step: one function over a `TrainState` of
+tensors.
+
+The port of the JAX package's `training/trainer.make_train_step` on the
+sorted-data pipeline (the reference's train loop body, `train.py:174-290`).
+The step runs in two differentiable stages joined by an explicit
+screen-space seam:
+
+    geometry: (GaussianParams, FlameTrainable) → (mean2d, conic, colors, α)
+              and the binding regularisers (xyz, scale, dynamic offsets,
+              laplacian), under autograd;
+    image:    the screen-space values, detached into leaves that require
+              grad → rasterize → L1 + D-SSIM, whose gradient with respect to
+              those leaves (`g_screen`) comes from `torch.autograd.grad`.
+
+∂loss/∂mean2d (`g_screen[0]`) feeds the densification statistics, then one
+backward of [*screen, reg_total] with [*g_screen, 1] takes the image and
+regulariser gradients into the Gaussian parameters and the FLAME leaves
+together, and per-group Adam (the exponential xyz schedule included)
+updates both. The innovations, AMP and the padded-table pipeline are not
+ported: their flags raise. Each stage is a `torch.profiler` range
+(`train/*`), so a profile splits the step's device time by stage.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+from torch.profiler import record_function
+
+from ..config import Config
+from ..data.cameras import Camera
+from ..models.binding import face_frames
+from ..models.densify import add_densification_stats
+from ..models.flame.flame_model import FlameModel, FlameParams
+from ..models.gaussians import GaussianAux, GaussianParams, world_gaussians
+from ..ops.projection import project_from_params
+from ..ops.rasterize_sorted import rasterize_sorted
+from ..ops.rasterize_tiled import TileConfig, view_colors
+from .loss import l1_loss, psnr, safe_norm, ssim
+from .optim import AdamState, adam_init, adam_update, expon_lr
+
+
+@dataclasses.dataclass
+class FlameTrainable:
+    """Per-timestep FLAME parameters under optimisation
+    (`FlameGaussianModel.training_setup`, `scene/flame_gaussian_model.py:173-216`)."""
+
+    expr: torch.Tensor         # [T, E]
+    rotation: torch.Tensor     # [T, 3]
+    neck: torch.Tensor         # [T, 3]
+    jaw: torch.Tensor          # [T, 3]
+    eyes: torch.Tensor         # [T, 6]
+    translation: torch.Tensor  # [T, 3]
+    # Per-timestep vertex offsets [T, V, 3] for the dynamic-offset
+    # regularisers; not an optimiser group in the reference (lr 0).
+    dynamic_offset: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class FlameStatic:
+    shape: torch.Tensor                     # [S]
+    static_offset: Optional[torch.Tensor]   # [V, 3] or None
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: GaussianParams
+    aux: GaussianAux
+    adam: AdamState
+    flame: FlameTrainable
+    flame_static: FlameStatic
+    flame_adam: AdamState
+
+
+class StepOutput(NamedTuple):
+    state: TrainState
+    metrics: dict
+    image: torch.Tensor
+
+
+def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
+                     num_timesteps: int, n_expr: int = 100, n_shape: int = 300,
+                     num_verts: int = 0, flame_init: Optional[dict] = None) -> TrainState:
+    """Fresh Adam moments and FLAME leaves (zeros, or `flame_init`'s tensors)
+    on the device of `params`."""
+    dev = params.means.device
+    fi = flame_init or {}
+
+    def get(name, shape):
+        v = fi.get(name)
+        if v is None:
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    t = num_timesteps
+    dyn = fi.get("dynamic_offset")
+    if dyn is None and num_verts > 0 and (
+            cfg.opt.lambda_dynamic_offset != 0 or cfg.opt.lambda_dynamic_offset_std != 0):
+        dyn = torch.zeros((t, num_verts, 3))
+    flame = FlameTrainable(
+        expr=get("expr", (t, n_expr)), rotation=get("rotation", (t, 3)),
+        neck=get("neck", (t, 3)), jaw=get("jaw", (t, 3)), eyes=get("eyes", (t, 6)),
+        translation=get("translation", (t, 3)),
+        dynamic_offset=None if dyn is None else torch.as_tensor(
+            dyn, dtype=torch.float32, device=dev),
+    )
+    static_offset = None
+    if "static_offset" in fi or num_verts:
+        static_offset = get("static_offset", (num_verts, 3))
+    flame_static = FlameStatic(shape=get("shape", (n_shape,)), static_offset=static_offset)
+    return TrainState(params=params, aux=aux, adam=adam_init(params), flame=flame,
+                      flame_static=flame_static, flame_adam=adam_init(flame))
+
+
+def gaussian_lr_tree(params: GaussianParams, step, cfg: Config,
+                     spatial_lr_scale: float) -> GaussianParams:
+    """Per-field learning rates (`training_setup`, `scene/gaussian_model.py:214-232`)."""
+    o = cfg.opt
+    pos_lr = expon_lr(step, o.position_lr_init * spatial_lr_scale,
+                      o.position_lr_final * spatial_lr_scale,
+                      lr_delay_mult=o.position_lr_delay_mult,
+                      max_steps=o.position_lr_max_steps)
+    return GaussianParams(means=pos_lr, log_scales=o.scaling_lr, quats=o.rotation_lr,
+                          sh_dc=o.feature_lr, sh_rest=o.feature_lr / 20.0,
+                          logit_opacity=o.opacity_lr)
+
+
+def flame_lr_tree(cfg: Config, flame: Optional[FlameTrainable] = None) -> FlameTrainable:
+    o = cfg.opt
+    return FlameTrainable(
+        expr=o.flame_expr_lr, rotation=o.flame_pose_lr, neck=o.flame_pose_lr,
+        jaw=o.flame_pose_lr, eyes=o.flame_pose_lr, translation=o.flame_trans_lr,
+        # Not optimised in the reference (`scene/flame_gaussian_model.py:213-216`):
+        # lr 0, so the buffer never moves.
+        dynamic_offset=None if flame is None or flame.dynamic_offset is None else 0.0,
+    )
+
+
+def _check_supported(model, cfg: Config) -> None:
+    o = cfg.opt
+    if model is None:
+        raise NotImplementedError("make_train_step: only the FLAME-bound step is ported")
+    if not (cfg.pipeline.use_sorted and cfg.pipeline.use_pallas):
+        raise NotImplementedError("make_train_step: only the sorted pipeline is ported")
+    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg",
+                 "use_amp"):
+        if getattr(o, flag):
+            raise NotImplementedError(f"make_train_step: {flag} is not ported")
+
+
+def _leaves(obj):
+    """A copy of a dataclass of tensors whose tensors are fresh leaves that
+    require grad (None fields stay None)."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).detach().requires_grad_()
+        for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None
+    })
+
+
+def _grads(leaves):
+    """The leaves' gradients, zeros where none reached a leaf."""
+    return dataclasses.replace(leaves, **{
+        f.name: (torch.zeros_like(x) if x.grad is None else x.grad)
+        for f in dataclasses.fields(leaves) for x in [getattr(leaves, f.name)] if x is not None
+    })
+
+
+def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
+                    spatial_lr_scale: float = 1.0):
+    """Build the FLAME-bound train step.
+
+    Call: step(state, gt_image [H, W, 3], camera, timestep (int), bg_color [3],
+    sh_degree) → StepOutput(new state, metrics (0-dim tensors), image). The
+    given state is not modified.
+    """
+    _check_supported(model, cfg)
+    o = cfg.opt
+    faces = model.faces
+
+    def geometry(state: TrainState, params: GaussianParams, flame: FlameTrainable, ts: int,
+                 camera: Camera, sh_degree: int):
+        fp = FlameParams(
+            shape=state.flame_static.shape,
+            expr=flame.expr[ts][None], rotation=flame.rotation[ts][None],
+            neck=flame.neck[ts][None], jaw=flame.jaw[ts][None], eyes=flame.eyes[ts][None],
+            translation=flame.translation[ts][None],
+            static_offset=state.flame_static.static_offset,
+            dynamic_offset=None if flame.dynamic_offset is None
+            else flame.dynamic_offset[ts][None],
+        )
+        verts, verts_cano = model(fp, return_verts_cano=True)
+        frames = face_frames(verts[0], faces)
+        wg = world_gaussians(params, state.aux, frames)
+        proj = project_from_params(wg.means, wg.scales, wg.quats, camera, alive=wg.alive)
+        colors = view_colors(wg.means, wg.sh, camera, sh_degree)
+        opac_eff = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
+        screen = (proj.mean2d, proj.conic, colors, opac_eff)
+
+        # Binding regularisers (`train.py:229-243`).
+        reg_terms = {}
+        visible = proj.radius > 0
+        nvis = torch.clamp_min(visible.sum(), 1)
+        zero = torch.zeros((), dtype=torch.float32, device=visible.device)
+        fs = frames.scaling[state.aux.binding]            # [N, 1]
+        if o.metric_xyz:
+            xyz_excess = safe_norm(torch.relu(params.means * fs - o.threshold_xyz), dim=1)
+        else:
+            xyz_excess = torch.relu(safe_norm(params.means, dim=1) - o.threshold_xyz)
+        reg_terms["xyz"] = torch.where(visible, xyz_excess, zero).sum() / nvis * o.lambda_xyz
+        if o.lambda_scale != 0:
+            scale_val = torch.exp(params.log_scales)
+            if o.metric_scale:
+                scale_val = scale_val * fs
+            sc_norm = safe_norm(torch.relu(scale_val - o.threshold_scale), dim=1)
+            reg_terms["scale"] = (torch.where(visible, sc_norm, zero).sum() / nvis
+                                  * o.lambda_scale)
+        if flame.dynamic_offset is not None and o.lambda_dynamic_offset != 0:
+            reg_terms["dy_off"] = (safe_norm(flame.dynamic_offset[ts], dim=-1).mean()
+                                   * o.lambda_dynamic_offset)
+        if flame.dynamic_offset is not None and o.lambda_dynamic_offset_std != 0:
+            reg_terms["dynamic_offset_std"] = (
+                torch.std(flame.dynamic_offset, dim=0, correction=1).mean()
+                * o.lambda_dynamic_offset_std)
+        if o.lambda_laplacian != 0:
+            reg_terms["lap"] = model.laplacian_loss(verts, verts_cano) * o.lambda_laplacian
+        reg_total = sum(reg_terms.values())
+        return screen, reg_total, proj, reg_terms
+
+    def image_loss(screen, proj, gt_image, camera, bg_color):
+        mean2d, conic, colors, opac = screen
+        img, _alpha, plan = rasterize_sorted(
+            proj._replace(mean2d=mean2d, conic=conic), colors, opac,
+            camera.height, camera.width, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
+            tile_cfg.tier_spec(mean2d.shape[0]))
+        losses = {"l1": l1_loss(img, gt_image) * (1.0 - o.lambda_dssim)}
+        chw = img.permute(2, 0, 1)
+        gt_chw = gt_image.permute(2, 0, 1)
+        losses["ssim"] = (1.0 - ssim(chw, gt_chw)) * o.lambda_dssim
+        return sum(losses.values()), losses, img, plan
+
+    def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep: int,
+                   bg_color: torch.Tensor, sh_degree: int) -> StepOutput:
+        ts = int(timestep)
+        params = _leaves(state.params)
+        flame = _leaves(state.flame)
+
+        # ---- stage 1: geometry and regularisers, under autograd
+        with torch.enable_grad():
+            with record_function("train/geometry_fwd"):
+                screen, reg_total, proj, reg_terms = geometry(
+                    state, params, flame, ts, camera, sh_degree)
+            proj_sg = proj._replace(**{k: v.detach() for k, v in proj._asdict().items()})
+
+            # ---- stage 2: the image loss from detached screen-space leaves
+            screen_in = [x.detach().requires_grad_() for x in screen]
+            with record_function("train/image_fwd"):
+                img_total, loss_terms, img, plan = image_loss(
+                    screen_in, proj_sg, gt_image, camera, bg_color)
+            with record_function("train/image_bwd"):
+                g_screen = torch.autograd.grad(img_total, screen_in)
+            # ∂loss/∂mean2d → densification statistics.
+            with record_function("train/densify_stats"):
+                aux_new = add_densification_stats(state.aux, g_screen[0], proj_sg.radius,
+                                                  camera.width, camera.height)
+            # One backward: screen cotangents and a unit cotangent on the
+            # regularisers, into the Gaussian parameters and FLAME.
+            with record_function("train/geometry_bwd"):
+                torch.autograd.backward([*screen, reg_total],
+                                        [*g_screen, torch.ones_like(reg_total)])
+
+        with record_function("train/adam"):
+            lr_tree = gaussian_lr_tree(state.params, state.adam.step + 1, cfg, spatial_lr_scale)
+            new_params, new_adam = adam_update(state.params, _grads(params), state.adam,
+                                               lr_tree)
+            new_flame, new_flame_adam = adam_update(state.flame, _grads(flame),
+                                                    state.flame_adam,
+                                                    flame_lr_tree(cfg, state.flame))
+        img = img.detach()
+        metrics = {
+            "loss": (img_total + reg_total).detach(),
+            "psnr": psnr(img, gt_image),
+            "num_visible": (proj_sg.radius > 0).sum(),
+            "budget_overflow": plan.budget_overflow,
+            "max_footprint": plan.max_footprint,
+            **{k: v.detach() for k, v in {**loss_terms, **reg_terms}.items()},
+        }
+        new_state = TrainState(params=new_params, aux=aux_new, adam=new_adam, flame=new_flame,
+                               flame_static=state.flame_static, flame_adam=new_flame_adam)
+        return StepOutput(state=new_state, metrics=metrics, image=img)
+
+    return train_step
+
+
+def active_sh_degree(iteration: int, max_degree: int = 3) -> int:
+    """SH warm-up: one more band every 1000 iterations (`train.py:176-177`)."""
+    return min(iteration // 1000, max_degree)

@@ -9,12 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from gaussianavatars_torch.config import Config
 from gaussianavatars_torch.data.cameras import look_at_camera
 from gaussianavatars_torch.ops import composite_pairs as tcp
 from gaussianavatars_torch.ops.projection import project_from_params
 from gaussianavatars_torch.ops.rasterize_sorted import depth_key, sort_gather
 from gaussianavatars_torch.ops.sort_binning import TierSpec, bbox_tiles
 from gaussianavatars_torch.render import AvatarRenderer, build_scene, probe_tile_config
+from gaussianavatars_torch.training.trainer import init_train_state, make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -97,3 +99,61 @@ def test_renderer_on_card_matches_cpu(cuda_device):
     a, b = out["cpu"], out[str(cuda_device)]
     torch.testing.assert_close(b.color.cpu(), a.color, atol=5e-4, rtol=0)
     torch.testing.assert_close(b.alpha.cpu(), a.alpha, atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_bwd_kernel_matches_plain(case, cuda_device):
+    """The backward kernel against its plain version on the same card
+    tensors, with fixed-seed cotangents. Per-pixel values are the same
+    float32 operations in the same order; the sums over a tile's pixels are
+    added in another order, so each row is held at max |kernel - plain| <=
+    1e-4 · max |plain| of the row. Rows 9..15 and every slot that is zero
+    in the plain version (nothing reached it) are exact zeros."""
+    dataT, starts, counts, ntx = _table(*CASES[case], device=cuda_device)
+    th, tw = CASES[case][4:6]
+    acc, tfin, stop = tcp.fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
+    g = torch.Generator().manual_seed(7)
+    nt, p = starts.shape[0], th * tw
+    g_acc_t = torch.randn((nt, p, 3), generator=g).to(cuda_device)
+    g_t = torch.randn((nt, p), generator=g).to(cuda_device)
+    args = (dataT, starts, counts, acc, tfin, stop, g_acc_t, g_t, th, tw, ntx)
+    before = tcp.bwd_call_pairs.launches
+    d = tcp.bwd_call_pairs(*args)
+    torch.cuda.synchronize()
+    assert tcp.bwd_call_pairs.launches == before + 1
+    r = tcp.bwd_call_pairs_reference(*args)
+    err = (d[:9] - r[:9]).abs().amax(dim=1)
+    assert (err <= 1e-4 * r[:9].abs().amax(dim=1)).all(), err
+    assert not d[9:].any()
+    assert not d[:, (r == 0).all(dim=0)].any()
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One FLAME-bound train step of a small bench-scene avatar on the card
+    and on the CPU, from the same state. The loss at rtol 1e-4; each
+    gradient leaf (Adam's first moment after one step, 0.1·g) within
+    1e-2 · max |CPU| of the leaf: the devices' float32 libm and summation
+    orders differ by ulps, which can move a pixel's T < 1e-4 stop by one
+    splat and so the gradients of the splats at that pixel."""
+    out, cfg_tile = {}, None
+    for dev in ("cpu", cuda_device):
+        model, params, aux, fl, cam, _n = build_scene(per_face=1, width=160, height=96,
+                                                      device=dev)
+        cfg_tile = cfg_tile or probe_tile_config(model, params, aux, fl, cam)
+        cfg = Config()
+        gt = torch.full((cam.height, cam.width, 3), 0.3, device=dev)
+        state = init_train_state(params, aux, cfg, num_timesteps=2, n_expr=fl.expr.shape[1],
+                                 n_shape=fl.shape.shape[0], num_verts=model.num_verts)
+        step = make_train_step(model, cfg, cfg_tile)
+        before = tcp.bwd_call_pairs.launches
+        out[str(dev)] = step(state, gt, cam, 1, torch.zeros(3, device=dev), 3)
+        assert tcp.bwd_call_pairs.launches == before + (dev != "cpu")
+    a, b = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(b.metrics["loss"].cpu(), a.metrics["loss"], rtol=1e-4, atol=0)
+    for mu_a, mu_b in ((a.state.adam.mu, b.state.adam.mu),
+                       (a.state.flame_adam.mu, b.state.flame_adam.mu)):
+        for name, x in vars(mu_a).items():
+            if x is None:
+                continue
+            y = getattr(mu_b, name).cpu()
+            assert float((y - x).abs().max()) <= 1e-2 * float(x.abs().max()), name
