@@ -37,9 +37,27 @@ non-zero):
                 gradients equal to those with the plain backward compositor;
   7. train numbers — steps/s, device ms per stage (torch.profiler ranges),
                 device busy share and ops per step, the backward kernel
-                against its plain version and its bound, peak memory.
+                against its plain version and its bound, peak memory;
+  8. variants — in phase 3, on both tables: the other implementations'
+                kernels (v2 forward, v2 and v4 backward) and the three
+                backward kernels' `amp` entry points against their plain
+                versions (the v2 forward bit for bit; each backward row
+                within 1e-4 of its largest plain value, zero slots exact),
+                and each entry point's time, plain time and bound;
+  9. ab       — the kernel A/B entry point (`tools/kernel_ab.main`) over v2,
+                v3 and v4 at the benchmark frame, float32 and `--amp`: each
+                implementation's own entry points must launch;
+ 10. train amp — the training step with `use_amp` at the same full width:
+                one step from one state in both modes held to
+                `tests/test_amp.py`'s criteria (on a textured target,
+                uniform noise in [0, 1]; two more targets measured), then
+                5 warm-up and 30 timed
+                steps (loss finite and falling, every parameter finite, the
+                `amp` backward launched once a step), steps/s of both modes
+                in alternating blocks, device ms per stage, peak memory.
 
-The last two lines are the kernels' JSON record and
+The last two lines are the kernels' JSON record (every C entry point of the
+compositor, the `amp` ones marked) and
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
 and exits non-zero.
 """
@@ -68,10 +86,32 @@ FLOPS_PER_EVAL = 24
 BYTES_PER_PAIR = 36     # nine float32 rows of the pair table
 N_PROFILE_FRAMES = 20  # frames under torch.profiler
 STAGES = ("flame_binding", "projection_sh", "binning", "compositor")
-KERNEL_SOURCE = "gaussianavatars_torch/csrc/composite_pairs_fwd.cu"
-REPLACES = "gaussianavatars_tpu/ops/pallas/composite_pairs.py:236"
-BWD_KERNEL_SOURCE = "gaussianavatars_torch/csrc/composite_pairs_bwd.cu"
-BWD_REPLACES = "gaussianavatars_tpu/ops/pallas/composite_pairs.py:620"
+# The line of each TPU kernel that a C entry point replaces, by (direction,
+# implementation), in gaussianavatars_tpu/ops/pallas/composite_pairs.py.
+TPU_KERNEL_LINE = {("fwd", "v2"): 90, ("fwd", "v3"): 236, ("bwd", "v2"): 407,
+                   ("bwd", "v3"): 620, ("bwd", "v4"): 880}
+
+
+def compositor_entries() -> dict:
+    """Every C entry point of the compositor, named as the wrapper module
+    names them: name → (direction, implementation, amp, source, the TPU
+    kernel it replaces). v4's forward is v3's, so it is listed once."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    out = {}
+    for kind, impl, amp in [("fwd", i, False) for i in ("v3", "v2")] + [
+            ("bwd", i, a) for i in ("v3", "v2", "v4") for a in (False, True)]:
+        lib, name = cp.fwd_entry(impl) if kind == "fwd" else cp.bwd_entry(impl, amp)
+        out[name] = (kind, impl, amp, f"gaussianavatars_torch/csrc/{lib}.cu",
+                     f"gaussianavatars_tpu/ops/pallas/composite_pairs.py:"
+                     f"{TPU_KERNEL_LINE[kind, impl]}")
+    return out
+
+
+N_AB_ITERS = 20          # calls per A/B timing (best of three)
+N_AMP_STEPS = 30         # timed `use_amp` steps
+N_AMP_BLOCK = 10         # steps per block of the float32/amp alternation
+UPDATE_KEYS = ("means", "log_scales", "logit_opacity", "sh_dc")   # tests/test_amp.py
 # Float operations per (pair, pixel) evaluation of composite_pairs_bwd.cu:
 # dx, dy (2); power (9); expf (1); op·e (1); the 0.99 clamp (1); gc (5);
 # 1 - alpha and T·(1 - alpha) (2); w (1); w·gc and the prefix q (2);
@@ -194,10 +234,11 @@ def compare_kernel(label: str, table) -> dict:
     log(f"kernels/{label}", **res)
     if not (err_acc <= 1e-5 and err_t <= 1e-5 and tile_max_equal):
         raise AssertionError(f"composite_pairs_fwd disagrees with its plain version: {res}")
-    return dict(res, outputs=(acc, tfin, stop))
+    return dict(res, outputs=(acc, tfin, stop), plain=(r_acc, r_tfin, r_stop))
 
 
-COMPOSITOR_KERNELS = ("composite_pairs_fwd_kernel", "composite_pairs_bwd_kernel")
+COMPOSITOR_KERNELS = ("composite_pairs_fwd_kernel", "composite_pairs_bwd_kernel",
+                      "composite_pairs_fwd_v2_kernel", "composite_pairs_bwd_v2_kernel")
 
 
 def range_device_us(e) -> float:
@@ -313,7 +354,131 @@ def compare_bwd_kernel(label: str, table, fwd_outputs, seed: int) -> dict:
     log(f"kernels/bwd_{label}", **res)
     if not (max(rel) <= BWD_REL_TOL and zeros_exact):
         raise AssertionError(f"composite_pairs_bwd disagrees with its plain version: {res}")
-    return dict(res, args=args)
+    return dict(res, args=args, plain=r, out=d)
+
+
+def reset_launches() -> None:
+    """Every launch counter of the compositor to 0."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    for k in cp.LAUNCHES:
+        cp.LAUNCHES[k] = 0
+
+
+def with_impl(impl: str, fn):
+    """fn() with the compositor's implementation switch on `impl`."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    cp._FWD_IMPL = cp._BWD_IMPL = impl
+    try:
+        return fn()
+    finally:
+        cp._FWD_IMPL = cp._BWD_IMPL = "v3"
+
+
+def bwd_errors(d, r) -> dict:
+    """Kernel output d against plain output r: per-row relative error, and
+    whether rows 9..15 and the plain version's zero slots are exact zeros."""
+    row_err = (d[:9] - r[:9]).abs().amax(dim=1)
+    rel = (row_err / r[:9].abs().amax(dim=1)).tolist()
+    plain_zero = (r == 0).all(dim=0)
+    zeros_exact = not bool(d[:, plain_zero].any()) and not bool(d[9:].any())
+    return dict(max_abs_err=float(row_err.max()), rel_err_per_row=rel, zeros_exact=zeros_exact)
+
+
+def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
+    """The v2 forward, the v2 and v4 backward and the three `amp` backward
+    entry points against their plain versions on the same card tensors.
+
+    The v2 forward must equal the plain forward bit for bit (acc, t_final,
+    per-tile max of stop), as the v3 kernel does. Each backward kernel is
+    held to the v3 kernel's bound, per row max |kernel − plain| <= 1e-4 ·
+    max |plain|, with exact zeros. For `amp` that bound holds for the same
+    reason: each pixel's float32 values are operation for operation the
+    plain version's, so the bf16 roundings of d_p, w, the basis and g_c are
+    the same and their products exact; only the order of the sums over a
+    tile's pixels differs, as in float32."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    out = {}
+    acc, tfin, stop = with_impl("v2", lambda: cp.fwd_call_pairs(*table))
+    torch.cuda.synchronize()
+    r_acc, r_tfin, r_stop = k_res["plain"]
+    res = dict(bit_equal_acc=bool(torch.equal(acc, r_acc)),
+               bit_equal_t_final=bool(torch.equal(tfin, r_tfin)),
+               stop_tile_max_equal=bool(torch.equal(stop.max(dim=1).values,
+                                                    r_stop.max(dim=1).values)),
+               stop_elements_differing=int((stop != r_stop).sum()),
+               max_abs_err=max(float((acc - r_acc).abs().max()),
+                               float((tfin - r_tfin).abs().max())))
+    log(f"kernels/fwd_v2_{label}", **res)
+    if not (res["bit_equal_acc"] and res["bit_equal_t_final"] and res["stop_tile_max_equal"]):
+        raise AssertionError(f"composite_pairs_fwd_v2 disagrees with its plain version: {res}")
+    out["composite_pairs_fwd_v2"] = res
+
+    args, r32 = kb_res["args"], kb_res["plain"]
+    r16 = cp.bwd_call_pairs_reference(*args, amp=True)
+    amp_moves = ((r16[:9] - r32[:9]).abs().amax(dim=1) / r32[:9].abs().amax(dim=1)).tolist()
+    for name, (kind, impl, amp, _src, _rep) in compositor_entries().items():
+        if kind != "bwd" or name == "composite_pairs_bwd":
+            continue
+        d = with_impl(impl, lambda: cp.bwd_call_pairs(*args, amp=amp))
+        torch.cuda.synchronize()
+        res = bwd_errors(d, r16 if amp else r32)
+        if impl == "v4":   # v4 against the v3 kernel of the same mode
+            v3 = kb_res["out"] if not amp else cp.bwd_call_pairs(*args, amp=True)
+            res["bit_equal_to_v3"] = bool(torch.equal(d, v3))
+        log(f"kernels/{name.replace('composite_pairs_', '')}_{label}", **res)
+        if not (max(res["rel_err_per_row"]) <= BWD_REL_TOL and res["zeros_exact"]):
+            raise AssertionError(f"{name} disagrees with its plain version: {res}")
+        out[name] = res
+    log(f"kernels/amp_vs_f32_plain_{label}", rel_diff_per_row=amp_moves,
+        note="how far the bf16 contraction moves the plain gradient, per row")
+    return out
+
+
+def time_entries(table, fwd_outputs, bwd_args, n_cols: int) -> dict:
+    """Per new entry point at the full frame: ms (CUDA events; a backward's
+    wrapper with its zero fill, as row 2 is timed), the backward kernel
+    alone, the plain version's time (once), and the bound of the same work
+    (`compositor_bound`/`bwd_bound`: every implementation does row 1's or
+    row 2's work)."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    dataT, starts, counts, th, tw, _ntx = table
+    stop = fwd_outputs[2]
+    out = {}
+    for name, (kind, impl, amp, _src, _rep) in compositor_entries().items():
+        if name in ("composite_pairs_fwd", "composite_pairs_bwd"):
+            continue
+        if kind == "fwd":
+            ms = with_impl(impl, lambda: cuda_ms(lambda: cp.fwd_call_pairs(*table),
+                                                 N_KERNEL_REPS))
+            plain = plain_ms(lambda: cp.fwd_call_pairs_reference(*table))
+            res = dict(ms=ms, plain_ms=plain, **compositor_bound(starts, counts, stop, th * tw))
+        else:
+            ms = with_impl(impl, lambda: cuda_ms(lambda: cp.bwd_call_pairs(*bwd_args, amp=amp),
+                                                 N_KERNEL_REPS))
+            dgrad = torch.zeros_like(dataT)
+            kernel_ms = with_impl(impl, lambda: cuda_ms(
+                lambda: cp._launch_bwd_cuda(dgrad, *bwd_args, amp=amp), N_KERNEL_REPS))
+            del dgrad
+            plain = plain_ms(lambda: cp.bwd_call_pairs_reference(*bwd_args, amp=amp))
+            k_bound = bwd_bound(starts, counts, stop, th * tw)
+            res = dict(ms=ms, plain_ms=plain, kernel_ms=kernel_ms,
+                       kernel_bound_ms=k_bound["bound_ms"],
+                       **bwd_bound(starts, counts, stop, th * tw, n_cols))
+        out[name] = res
+    return out
+
+
+def plain_ms(fn) -> float:
+    """Milliseconds of one call on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
 
 
 def bwd_bound(starts, counts, stop, p: int, n_cols=None) -> dict:
@@ -407,13 +572,13 @@ def all_finite(obj) -> bool:
                for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None)
 
 
-def phase_train(dev, model, params, aux, fl, cam, tile_cfg, card) -> dict:
-    """The FLAME-bound training step at full width (phases 6 and 7)."""
+def train_setup(dev, model, params, aux, fl, cam, tile_cfg):
+    """The training phases' target, background and first state: a target
+    rendered with the jaw at 0.15 and the SH DC perturbed (σ 0.3), `Config`
+    defaults, two timesteps."""
     from gaussianavatars_torch.config import Config
-    from gaussianavatars_torch.ops import composite_pairs as cp
-    from gaussianavatars_torch.ops import rasterize_sorted as rs
     from gaussianavatars_torch.render import AvatarRenderer
-    from gaussianavatars_torch.training.trainer import init_train_state, make_train_step
+    from gaussianavatars_torch.training.trainer import init_train_state
 
     n_shape, n_expr = fl.shape.shape[0], fl.expr.shape[1]
     cfg = Config()
@@ -425,6 +590,17 @@ def phase_train(dev, model, params, aux, fl, cam, tile_cfg, card) -> dict:
     bg = torch.zeros(3, device=dev)
     state0 = init_train_state(params, aux, cfg, num_timesteps=TRAIN_TIMESTEPS, n_expr=n_expr,
                               n_shape=n_shape, num_verts=model.num_verts)
+    return cfg, gt, bg, state0
+
+
+def phase_train(model, params, aux, cam, tile_cfg, card, setup) -> dict:
+    """The FLAME-bound training step at full width (phases 6 and 7)."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.ops import rasterize_sorted as rs
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    cfg, gt, bg, state0 = setup
+    dev = gt.device
     step = make_train_step(model, cfg, tile_cfg)
 
     # One step's gradients (Adam's first moment from zero moments is 0.1·g)
@@ -447,8 +623,7 @@ def phase_train(dev, model, params, aux, fl, cam, tile_cfg, card) -> dict:
         state = step(state, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cp.fwd_call_pairs.launches = 0
-    cp.bwd_call_pairs.launches = 0
+    reset_launches()
     losses, overflow = [], torch.zeros((), dtype=torch.int64, device=dev)
     t0 = time.perf_counter()
     for i in range(N_TRAIN_STEPS):
@@ -458,7 +633,9 @@ def phase_train(dev, model, params, aux, fl, cam, tile_cfg, card) -> dict:
         overflow = torch.maximum(overflow, out.metrics["budget_overflow"].to(torch.int64))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"fwd": cp.fwd_call_pairs.launches, "bwd": cp.bwd_call_pairs.launches}
+    entry_launches = dict(cp.LAUNCHES)
+    launches = {"fwd": entry_launches["composite_pairs_fwd"],
+                "bwd": entry_launches["composite_pairs_bwd"]}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     loss = torch.stack(losses).tolist()
     dead = ~aux.alive
@@ -486,7 +663,161 @@ def phase_train(dev, model, params, aux, fl, cam, tile_cfg, card) -> dict:
         ms_per_step=1e3 * wall_s / N_TRAIN_STEPS, resolution=f"{cam.width}x{cam.height}",
         gaussians=int(aux.alive.sum()), peak_mem_mib=peak_mib,
         bwd_launches_per_step=launches["bwd"] / N_TRAIN_STEPS, **prof_res)
-    return dict(res, steps_per_s=steps_per_s)
+    return dict(res, steps_per_s=steps_per_s, entry_launches=entry_launches)
+
+
+def phase_ab(card) -> tuple[dict, dict]:
+    """Phase 9: the kernel A/B entry point over v2, v3 and v4, float32 and
+    `--amp`, at the benchmark frame. Each run's launches are counted from 0;
+    every entry point of the run's implementations must have launched."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.tools import kernel_ab
+
+    impls = ("v2", "v3", "v4")
+    results, launches = {}, dict.fromkeys(cp.LAUNCHES, 0)
+    for amp in (False, True):
+        reset_launches()
+        args = ["--impls", ",".join(impls), "--iters", str(N_AB_ITERS)] + (["--amp"] * amp)
+        results[amp] = kernel_ab.main(args)
+        own = {cp.fwd_entry(i)[1] for i in impls} | {cp.bwd_entry(i, amp)[1] for i in impls}
+        missing = [e for e in own if cp.LAUNCHES[e] == 0]
+        stray = [e for e, k in cp.LAUNCHES.items() if k and e not in own]
+        if missing or stray or (cp._FWD_IMPL, cp._BWD_IMPL) != ("v3", "v3"):
+            raise AssertionError(f"A/B (amp={amp}): entry points not launched {missing}, "
+                                 f"launched but not asked for {stray}, switch left on "
+                                 f"{cp._FWD_IMPL}/{cp._BWD_IMPL}")
+        for e, k in cp.LAUNCHES.items():
+            launches[e] += k
+    for impl in impls:
+        log(f"ab/{impl}", **results[False][impl], amp=results[True][impl], iters=N_AB_ITERS,
+            card=card["nvidia_smi"])
+    return results, launches
+
+
+def update_stats(before, after_32, after_16) -> dict:
+    """Per UPDATE_KEYS leaf: the cosine of the two steps' parameter updates
+    and the ratio of their norms (amp over float32)."""
+    out = {}
+    for name in UPDATE_KEYS:
+        u32 = getattr(after_32.params, name) - getattr(before.params, name)
+        u16 = getattr(after_16.params, name) - getattr(before.params, name)
+        n32, n16 = float(u32.norm()), float(u16.norm())
+        out[name] = dict(cosine=float((u32 * u16).sum()) / (n32 * max(n16, 1e-12)),
+                         norm_ratio=n16 / n32)
+    return out
+
+
+def one_step_vs_f32(step32, step16, state0, gt, cam, bg) -> dict:
+    """One float32 and one `amp` step from one state: the loss and SSIM of
+    each, and `update_stats` of their parameter updates."""
+    o32 = step32(state0, gt, cam, 0, bg, 3)
+    o16 = step16(state0, gt, cam, 0, bg, 3)
+    l32, l16 = float(o32.metrics["loss"]), float(o16.metrics["loss"])
+    # The metric holds (1 - SSIM) · lambda_dssim.
+    return dict(loss_f32=l32, loss_amp=l16, loss_rel_diff=abs(l32 - l16) / max(abs(l32), 1e-9),
+                dssim_term_f32=float(o32.metrics["ssim"]),
+                dssim_term_amp=float(o16.metrics["ssim"]),
+                updates=update_stats(state0, o32.state, o16.state))
+
+
+def phase_train_amp(model, aux, cam, tile_cfg, card, setup) -> dict:
+    """Phase 10: the training step with `use_amp` at full width.
+
+    `tests/test_amp.py`'s criteria hold where the bf16 blur policy (the
+    JAX package's, ported as it is) is well conditioned: SSIM's variance
+    terms are differences of bf16-rounded moments, so they are only as good
+    as bf16 resolves them against the window's variances. The phase's
+    target is textured, as `tests/test_amp.py`'s is: uniform noise in
+    [0, 1] (seeded). Two more targets are measured and logged, not held:
+    `tests/test_amp.py`'s own noise range [0.25, 0.75], where the
+    benchmark avatar's smooth render leaves the loss criterion at its edge,
+    and the smooth rendered target of phase 6, where the policy cannot
+    track float32 at all."""
+    from gaussianavatars_torch.config import Config
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    cfg32, gt_rendered, bg, state0 = setup
+    dev = gt_rendered.device
+    noise = torch.rand(gt_rendered.shape, generator=torch.Generator().manual_seed(12)).to(dev)
+    gt = noise
+    step32 = make_train_step(model, cfg32, tile_cfg)
+    step16 = make_train_step(model, Config(opt=dataclasses.replace(cfg32.opt, use_amp=True)),
+                             tile_cfg)
+
+    for label, target in (("rendered_target", gt_rendered),
+                          ("noise_0.25_0.75", noise * 0.5 + 0.25)):
+        log(f"train_amp/one_step_vs_f32_{label}",
+            **one_step_vs_f32(step32, step16, state0, target, cam, bg),
+            note="measured, not held to tests/test_amp.py's criteria")
+    # tests/test_amp.py's criteria.
+    one = one_step_vs_f32(step32, step16, state0, gt, cam, bg)
+    log("train_amp/one_step_vs_f32", **one, target="uniform noise in [0, 1], seed 12")
+    if not (one["loss_rel_diff"] < 1e-2 and all(
+            u["cosine"] > 0.98 and abs(u["norm_ratio"] - 1.0) < 0.1
+            for u in one["updates"].values())):
+        raise AssertionError(f"the amp step does not track the float32 step: {one}")
+
+    state = state0
+    for i in range(N_TRAIN_WARMUP):
+        state = step16(state, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, overflow = [], torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for i in range(N_AMP_STEPS):
+        out = step16(state, gt, cam, i % TRAIN_TIMESTEPS, bg, 3)
+        state = out.state
+        losses.append(out.metrics["loss"])
+        overflow = torch.maximum(overflow, out.metrics["budget_overflow"].to(torch.int64))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(cp.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    loss = torch.stack(losses).tolist()
+    finite = dict(params=all_finite(state.params), flame=all_finite(state.flame),
+                  grads=all_finite(state.adam.mu) and all_finite(state.flame_adam.mu))
+    res = dict(steps=N_AMP_STEPS, launches={k: v for k, v in launches.items() if v},
+               budget_overflow=int(overflow), loss_first=loss[0], loss_last=loss[-1],
+               loss_finite=all(map(math.isfinite, loss)), finite=finite,
+               psnr_last=float(out.metrics["psnr"]))
+    log("train_amp", **res)
+    if res["launches"] != {"composite_pairs_fwd": N_AMP_STEPS,
+                           "composite_pairs_bwd_amp": N_AMP_STEPS}:
+        raise AssertionError(f"amp training launches {res['launches']} for {N_AMP_STEPS} steps")
+    if not (res["loss_finite"] and loss[-1] < loss[0] and int(overflow) == 0
+            and all(finite.values())):
+        raise AssertionError(f"amp training checks failed: {res}")
+
+    # Steps/s of both modes in alternating blocks (float32, amp, amp,
+    # float32), each continuing its own state.
+    # Each block's peak memory is read over the same live set.
+    states = {False: state0, True: state}
+    block_s = {False: [], True: []}
+    block_peak = {False: 0.0, True: 0.0}
+    for amp in (False, True, True, False):
+        st, step = states[amp], (step16 if amp else step32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(N_AMP_BLOCK):
+            st = step(st, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+        torch.cuda.synchronize()
+        block_s[amp].append(time.perf_counter() - t0)
+        block_peak[amp] = max(block_peak[amp], torch.cuda.max_memory_allocated() / 2**20)
+        states[amp] = st
+    rate = {amp: N_AMP_BLOCK * len(b) / sum(b) for amp, b in block_s.items()}
+    prof_res = profile_train(step16, state, gt, cam, bg, N_AMP_STEPS / wall_s)
+    log("train_amp/numbers", card=card["nvidia_smi"], steps_per_s=N_AMP_STEPS / wall_s,
+        ms_per_step=1e3 * wall_s / N_AMP_STEPS, peak_mem_mib=peak_mib,
+        alternating_steps_per_s={"f32": rate[False], "amp": rate[True]},
+        alternating_peak_mem_mib={"f32": block_peak[False], "amp": block_peak[True]},
+        alternating_block_ms_per_step={
+            "f32": [1e3 * b / N_AMP_BLOCK for b in block_s[False]],
+            "amp": [1e3 * b / N_AMP_BLOCK for b in block_s[True]]},
+        **prof_res)
+    return dict(res, one_step=one, entry_launches=launches, steps_per_s=N_AMP_STEPS / wall_s)
 
 
 def main() -> int:
@@ -519,8 +850,9 @@ def main() -> int:
     if not (k_small["stopped_pixel_share"] > 0 and k_small["walk_past_first_chunk"]):
         raise AssertionError("parity scene must exercise early stops and multi-chunk walks")
     kb_small = compare_bwd_kernel("parity_128x256", small_table, k_small["outputs"], seed=21)
-    if not kb_small["longest_walk"] > 256:   # the kernel stages 256 pairs a chunk
+    if not kb_small["longest_walk"] > 512:   # v3 stages 256 pairs a chunk, v2 512
         raise AssertionError("parity scene must exercise multi-chunk backward walks")
+    var_small = compare_variants("parity_128x256", small_table, k_small, kb_small)
 
     model, params, aux, fl, cam, n_g = build_scene(device=dev)
     cfg = probe_tile_config(model, params, aux, fl, cam)
@@ -565,6 +897,11 @@ def main() -> int:
     # The first training frame's table: the same avatar, camera and FLAME
     # parameters as the training phase's step 0.
     kb_full = compare_bwd_kernel("full_802x550", full_table, k_full["outputs"], seed=22)
+    var_full = compare_variants("full_802x550", full_table, k_full, kb_full)
+    for res in (k_small, kb_small, k_full, kb_full):   # free the card copies
+        res.pop("plain")
+    kb_small.pop("out")
+    kb_full.pop("out")
     log("scene", gaussians=n_g, capacity=params.capacity, faces=model.num_faces,
         verts=model.num_verts, tiers=[cfg.base_budget, list(cfg.tiers)],
         expansion_slots=spec.expansion_size(params.capacity),
@@ -606,6 +943,9 @@ def main() -> int:
         kernel_note="kernel_ms: the launch alone, no zero fill; its bound: the walked "
                     "pairs' nine rows written, not the [16, M] table",
         card=card["nvidia_smi"])
+    var_timing = time_entries(full_table, k_full["outputs"], bwd_args, dataT0.shape[1])
+    for name, res in var_timing.items():
+        log(f"kernels/timing_full_802x550/{name}", **res, card=card["nvidia_smi"])
 
     # --- 4. the slice at full width ----------------------------------------
     renderer = AvatarRenderer(model, params, aux, cam, cfg, device=dev)
@@ -621,7 +961,7 @@ def main() -> int:
     finite = torch.ones((), dtype=torch.bool, device=dev)
     coverage = torch.zeros((), device=dev)
     first = last = None
-    cp.fwd_call_pairs.launches = 0
+    reset_launches()
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     ev0.record()
@@ -636,7 +976,8 @@ def main() -> int:
     ev1.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = cp.fwd_call_pairs.launches
+    path_launches = dict(cp.LAUNCHES)
+    launches = path_launches["composite_pairs_fwd"]
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     img_diff = float((first - last).abs().max())
     slice_res = dict(frames=N_FRAMES, launches=launches, finite=bool(finite),
@@ -688,22 +1029,39 @@ def main() -> int:
 
     # --- 6./7. the training step at full width -----------------------------
     torch.set_grad_enabled(True)
-    train = phase_train(dev, model, params, aux, fl, cam, cfg, card)
+    setup = train_setup(dev, model, params, aux, fl, cam, cfg)
+    train = phase_train(model, params, aux, cam, cfg, card, setup)
 
+    # --- 9. the kernel A/B entry point ---------------------------------------
+    _ab, ab_launches = phase_ab(card)
+
+    # --- 10. the training step with use_amp ----------------------------------
+    train_amp = phase_train_amp(model, aux, cam, cfg, card, setup)
+
+    # Launches per entry point over the main paths: serving, training,
+    # the A/B (float32 and amp) and amp training.
+    for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"]):
+        for e, k in run.items():
+            path_launches[e] += k
+    numbers = dict(var_timing)
+    numbers["composite_pairs_fwd"] = dict(ms=kernel_ms, plain_ms=plain_ms, **bound)
+    numbers["composite_pairs_bwd"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, **b_bound)
+    errors = {name: max(var_small[name]["max_abs_err"], var_full[name]["max_abs_err"])
+              for name in var_small}
+    errors["composite_pairs_fwd"] = max(
+        k_small["max_abs_err_acc"], k_small["max_abs_err_t_final"],
+        k_full["max_abs_err_acc"], k_full["max_abs_err_t_final"])
+    errors["composite_pairs_bwd"] = max(kb_small["max_abs_err"], kb_full["max_abs_err"])
+    not_launched = [e for e, k in path_launches.items() if k == 0]
+    if not_launched:
+        raise AssertionError(f"entry points no main path launched: {not_launched}")
     print(json.dumps({"kernels": [{
-        "name": "composite_pairs_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches + train["launches"]["fwd"],
-        "max_abs_err": max(k_small["max_abs_err_acc"], k_small["max_abs_err_t_final"],
-                           k_full["max_abs_err_acc"], k_full["max_abs_err_t_final"]),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"], "library_ms": None,
-    }, {
-        "name": "composite_pairs_bwd", "route": "cuda", "source": BWD_KERNEL_SOURCE,
-        "replaces": BWD_REPLACES, "launches": train["launches"]["bwd"],
-        "max_abs_err": max(kb_small["max_abs_err"], kb_full["max_abs_err"]),
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": b_bound["bound_ms"],
-        "bound_by": b_bound["bound_by"], "library_ms": None,
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": src, "replaces": rep, "amp": amp,
+        "launches": path_launches[name], "max_abs_err": errors[name],
+        "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
+        "bound_ms": numbers[name]["bound_ms"], "bound_by": numbers[name]["bound_by"],
+        "library_ms": None,
+    } for name, (_kind, _impl, amp, src, rep) in compositor_entries().items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

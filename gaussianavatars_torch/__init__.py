@@ -13,7 +13,9 @@ CPU tensors run each kernel's plain PyTorch version.
 Ported so far: the render path, FLAME → binding → world Gaussians →
 projection + SH → sorted binning → pair compositor (`render.AvatarRenderer`),
 and the FLAME-bound training step over it, with the backward compositor
-kernel (`training.trainer.make_train_step`).
+kernel (`training.trainer.make_train_step`), in float32 or with `use_amp`;
+every implementation of the compositor kernels (v2, v3, v4) and the A/B of
+them (`tools.kernel_ab`).
 """
 
 __version__ = "0.1.0"

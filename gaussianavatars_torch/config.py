@@ -5,7 +5,7 @@ Same dataclass and knob names and the same defaults (those of the
 reference's argparse groups, `arguments/__init__.py:69-144`), as frozen
 dataclasses. Only knobs that `training.trainer` reads are here: the
 learning rates, the loss weights and the regularisers' thresholds and
-metric flags, plus the pipeline and innovation flags that
+metric flags, `use_amp`, plus the pipeline and innovation flags that
 `make_train_step` rejects when set. The model's sizes (`n_shape`,
 `n_expr`, SH degree) are arguments of `init_train_state` and of the step,
 and the tile geometry is the step's `TileConfig`; the knobs of parts not
@@ -54,9 +54,11 @@ class OptimizationConfig:
     lambda_dynamic_offset: float = 0.0
     lambda_laplacian: float = 0.0
     lambda_dynamic_offset_std: float = 0.0
+    # Mixed precision: the compositor backward's bf16 contraction and SSIM's
+    # bf16 blur operands (float32 accumulation in both).
+    use_amp: bool = False
 
     # Not ported: `make_train_step` raises when any of these is set.
-    use_amp: bool = False
     use_region_adaptive_loss: bool = False
     use_color_calibration: bool = False
     use_contrastive_reg: bool = False

@@ -31,17 +31,15 @@
 //     alignment, the window-local offset only renames the stop ids.
 // Built with --fmad=false and `expf` (not `__expf`) so that the arithmetic
 // is operation for operation that of the plain PyTorch version
-// (`fwd_call_pairs_reference`). Chunk double buffering (cp.async / TMA) is
+// (`fwd_call_pairs_reference`); the per-pixel step is `fwd_pair` of
+// composite_pairs_common.cuh, shared with the v2 schedule
+// (composite_pairs_fwd_v2.cu). Chunk double buffering (cp.async / TMA) is
 // not done here.
-#include <cuda_runtime.h>
+#include "composite_pairs_common.cuh"
 
 namespace {
 
-constexpr float kAlphaCutoff = (float)(1.0 / 255.0);
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr int kStopNever = 0x3FFFFFFF;
-constexpr int kRows = 9;  // used rows of the pair table
+using namespace cpk;
 
 __global__ void composite_pairs_fwd_kernel(
     const float* __restrict__ dataT, long long ld,
@@ -75,29 +73,11 @@ __global__ void composite_pairs_fwd_kernel(
     __syncthreads();
     if (!done) {
       for (int j = 0; j < n; ++j) {
-        const float mx = chunk[j];
-        const float my = chunk[p + j];
-        const float ca = chunk[2 * p + j];
-        const float cbx = chunk[3 * p + j];
-        const float cc = chunk[4 * p + j];
-        const float op = chunk[8 * p + j];
-        const float dx = px - mx;
-        const float dy = py - my;
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cbx * dx * dy;
-        const float v = op * expf(power);
-        const float alpha = v > kAlphaMax ? kAlphaMax : v;
-        if (!(power <= 0.0f) || !(alpha >= kAlphaCutoff)) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (!(test_t >= kTEps)) {
+        if (!fwd_pair(chunk + j, p, px, py, T, cr, cg, cb)) {
           stop = base + j + head;
           done = true;
           break;
         }
-        const float w = alpha * T;
-        cr = cr + w * chunk[5 * p + j];
-        cg = cg + w * chunk[6 * p + j];
-        cb = cb + w * chunk[7 * p + j];
-        T = test_t;
       }
     }
     // Barrier before the next chunk overwrites shared memory, and the

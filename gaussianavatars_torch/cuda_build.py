@@ -3,8 +3,9 @@
 Each source `csrc/<name>.cu` exposes a plain C interface. At first use it is
 compiled with `nvcc` for `sm_90a` into a shared library under
 `build/torch_kernels/` of the checkout and loaded with ctypes. The library's
-file name carries a digest of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing is built when the
+file name carries a digest of the source, the shared headers `csrc/*.cuh`
+and the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. Nothing is built when the
 module is imported.
 """
 from __future__ import annotations
@@ -52,9 +53,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of kernel `name`; its digest covers the source, every
+    header under csrc/ (the sources include them) and the flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] | None = None) -> dict[str, dict]:

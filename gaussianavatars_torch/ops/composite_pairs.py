@@ -2,16 +2,30 @@
 their plain versions.
 
 `fwd_call_pairs` replaces `fwd_call_pairs` of the JAX package
-(`gaussianavatars_tpu/ops/pallas/composite_pairs.py:913`), whose Pallas
-kernel `_fwd_kernel_pairs_v3` becomes `csrc/composite_pairs_fwd.cu`. Same
-signature and outputs: acc [NT, 3, P] premultiplied colour, t_final [NT, P]
-and stop [NT, P] in the TPU kernel's window-local ids (segment index +
-starts % 128; STOP_NEVER for pixels that never stopped).
+(`gaussianavatars_tpu/ops/pallas/composite_pairs.py:913`). Same signature
+and outputs: acc [NT, 3, P] premultiplied colour, t_final [NT, P] and stop
+[NT, P] in the TPU kernel's window-local ids (segment index + starts % 128;
+STOP_NEVER for pixels that never stopped).
 
-`bwd_call_pairs` replaces the JAX `bwd_call_pairs` (`:947`), whose Pallas
-kernel `_bwd_kernel_pairs_v3` becomes `csrc/composite_pairs_bwd.cu`: the
-pair-major gradient table [16, M] of the forward, rows 9..15 and every slot
-the walk never reaches exact zeros.
+`bwd_call_pairs` replaces the JAX `bwd_call_pairs` (`:947`): the pair-major
+gradient table [16, M] of the forward, rows 9..15 and every slot the walk
+never reaches exact zeros; `amp=True` is the TPU kernels' bf16 contraction
+(`:684-685`, `:790-798`).
+
+Each Pallas kernel of the JAX module has its CUDA kernel under `csrc/`,
+chosen by the implementation switch `_FWD_IMPL`/`_BWD_IMPL`, as in the JAX
+module (`:888-891`):
+
+    "v2"  `_fwd_kernel_pairs_v2` → composite_pairs_fwd_v2.cu
+          `_bwd_kernel_pairs_v2` → composite_pairs_bwd_v2.cu
+    "v3"  `_fwd_kernel_pairs_v3` → composite_pairs_fwd.cu
+          `_bwd_kernel_pairs_v3` → composite_pairs_bwd.cu
+    "v4"  the v3 forward (`:885`)
+          `_bwd_kernel_pairs_v4` → composite_pairs_bwd.cu (`gc_vpu`)
+
+The switch is flipped only by the A/B entry point (`tools/kernel_ab.py`)
+and by tests: it is no configuration knob. All implementations compute the
+same function, so one plain version serves them all.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version (`*_reference`). There is no
@@ -29,8 +43,40 @@ from .rasterize_dense import ALPHA_CUTOFF, ALPHA_MAX, T_EPS
 
 STOP_NEVER = 0x3FFFFFFF
 MAX_TILE_PIXELS = 1024  # one thread per pixel, one block per tile
-_KERNEL = "composite_pairs_fwd"
-_BWD_KERNEL = "composite_pairs_bwd"
+
+# The implementation switch (see the module docstring).
+_FWD_IMPL = "v3"
+_BWD_IMPL = "v3"
+IMPLS = ("v2", "v3", "v4")
+
+# Kernel launches per C entry point, for callers to check which kernel ran.
+LAUNCHES = dict.fromkeys((
+    "composite_pairs_fwd", "composite_pairs_fwd_v2",
+    "composite_pairs_bwd", "composite_pairs_bwd_amp",
+    "composite_pairs_bwd_v2", "composite_pairs_bwd_v2_amp",
+    "composite_pairs_bwd_v4", "composite_pairs_bwd_v4_amp",
+), 0)
+
+
+def fwd_entry(impl: str) -> tuple[str, str]:
+    """(source under csrc/, C entry point) of forward implementation `impl`."""
+    if impl == "v2":
+        return "composite_pairs_fwd_v2", "composite_pairs_fwd_v2"
+    if impl in ("v3", "v4"):
+        return "composite_pairs_fwd", "composite_pairs_fwd"
+    raise ValueError(f"unknown forward implementation {impl!r}; expected one of {IMPLS}")
+
+
+def bwd_entry(impl: str, amp: bool) -> tuple[str, str]:
+    """(source under csrc/, C entry point) of backward implementation `impl`
+    in float32 or `amp` mode."""
+    entries = {"v2": ("composite_pairs_bwd_v2", "composite_pairs_bwd_v2"),
+               "v3": ("composite_pairs_bwd", "composite_pairs_bwd"),
+               "v4": ("composite_pairs_bwd", "composite_pairs_bwd_v4")}
+    if impl not in entries:
+        raise ValueError(f"unknown backward implementation {impl!r}; expected one of {IMPLS}")
+    lib, sym = entries[impl]
+    return lib, sym + ("_amp" if amp else "")
 
 
 def _check(dataT, starts, counts, th, tw):
@@ -48,9 +94,9 @@ def _check(dataT, starts, counts, th, tw):
 
 
 @functools.cache
-def _kernel_fn():
-    """The C entry point, built and loaded at first use, with its signature."""
-    fn = cuda_build.load(_KERNEL).composite_pairs_fwd
+def _fwd_kernel_fn(lib: str, sym: str):
+    """A forward C entry point, built and loaded at first use, with its signature."""
+    fn = getattr(cuda_build.load(lib), sym)
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -60,13 +106,13 @@ def _kernel_fn():
     return fn
 
 
-def _launch_cuda(dataT, starts, counts, th, tw, ntx):
+def _launch_cuda(dataT, starts, counts, th, tw, ntx, entry):
     p = th * tw
     if p > MAX_TILE_PIXELS:
         raise ValueError(f"tile of {p} pixels exceeds the kernel's {MAX_TILE_PIXELS}")
     if not (dataT.is_contiguous() and starts.is_contiguous() and counts.is_contiguous()):
         raise ValueError("dataT, starts and counts must be contiguous")
-    fn = _kernel_fn()
+    fn = _fwd_kernel_fn(*entry)
     nt = starts.shape[0]
     dev = dataT.device
     acc = torch.empty((nt, 3, p), dtype=torch.float32, device=dev)
@@ -78,27 +124,26 @@ def _launch_cuda(dataT, starts, counts, th, tw, ntx):
                  nt, th, tw, ntx, acc.data_ptr(), t_final.data_ptr(), stop.data_ptr(),
                  stream)
     if err != 0:
-        raise RuntimeError(f"{_KERNEL} launch failed with CUDA error {err}")
-    fwd_call_pairs.launches += 1
+        raise RuntimeError(f"{entry[1]} launch failed with CUDA error {err}")
+    LAUNCHES[entry[1]] += 1
     return acc, t_final, stop
 
 
 def fwd_call_pairs(dataT, starts, counts, th: int, tw: int, ntx: int):
-    """Run the forward pair compositor.
+    """Run the forward pair compositor (the `_FWD_IMPL` kernel).
 
     dataT: [16, M] float32 param-major pair table; starts, counts: [NT]
     int32 segment bounds per tile. Returns (acc [NT, 3, P], t_final [NT, P],
     stop [NT, P] int32).
     """
+    entry = fwd_entry(_FWD_IMPL)
     _check(dataT, starts, counts, th, tw)
     if dataT.device.type == "cuda":
-        return _launch_cuda(dataT, starts, counts, th, tw, ntx)
+        return _launch_cuda(dataT, starts, counts, th, tw, ntx, entry)
     if dataT.device.type != "cpu":
         raise ValueError(f"no compositor for device {dataT.device}")
     return fwd_call_pairs_reference(dataT, starts, counts, th, tw, ntx)
 
-
-fwd_call_pairs.launches = 0  # kernel launches, for callers to check the path
 
 
 def fwd_call_pairs_reference(dataT, starts, counts, th: int, tw: int, ntx: int):
@@ -161,9 +206,9 @@ def _check_bwd(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t, th, tw):
 
 
 @functools.cache
-def _bwd_kernel_fn():
-    """The backward kernel's C entry point, built and loaded at first use."""
-    fn = cuda_build.load(_BWD_KERNEL).composite_pairs_bwd
+def _bwd_kernel_fn(lib: str, sym: str):
+    """A backward C entry point, built and loaded at first use, with its signature."""
+    fn = getattr(cuda_build.load(lib), sym)
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -175,10 +220,11 @@ def _bwd_kernel_fn():
 
 
 def _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
-                     th, tw, ntx):
-    """Launch the backward kernel into `dgrad` (dataT's shape and dtype),
-    which the caller zero-fills: the kernel writes rows 0..8 of the slots
-    its walks reach and nothing else."""
+                     th, tw, ntx, amp: bool = False):
+    """Launch the `_BWD_IMPL` backward kernel into `dgrad` (dataT's shape and
+    dtype), which the caller zero-fills: the kernel writes rows 0..8 of the
+    slots its walks reach and nothing else."""
+    entry = bwd_entry(_BWD_IMPL, amp)
     p = th * tw
     if p > MAX_TILE_PIXELS or p % 32:
         raise ValueError(f"tile of {p} pixels: the kernel takes a multiple of 32 up to "
@@ -186,53 +232,63 @@ def _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, 
     args = (dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t)
     if not all(x.is_contiguous() for x in args):
         raise ValueError("bwd_call_pairs takes contiguous tensors")
-    fn = _bwd_kernel_fn()
+    fn = _bwd_kernel_fn(*entry)
     with torch.cuda.device(dataT.device):
         stream = torch.cuda.current_stream(dataT.device).cuda_stream
         err = fn(dataT.data_ptr(), dataT.stride(0), starts.data_ptr(), counts.data_ptr(),
                  acc.data_ptr(), t_final.data_ptr(), stop.data_ptr(), g_acc_t.data_ptr(),
                  g_t.data_ptr(), starts.shape[0], th, tw, ntx, dgrad.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{_BWD_KERNEL} launch failed with CUDA error {err}")
-    bwd_call_pairs.launches += 1
+        raise RuntimeError(f"{entry[1]} launch failed with CUDA error {err}")
+    LAUNCHES[entry[1]] += 1
 
 
 def bwd_call_pairs(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
                    th: int, tw: int, ntx: int, amp: bool = False):
-    """Run the backward pair compositor.
+    """Run the backward pair compositor (the `_BWD_IMPL` kernel).
 
     dataT, starts, counts: the forward's inputs; acc [NT, 3, P], t_final
     [NT, P], stop [NT, P]: its outputs; g_acc_t [NT, P, 3] (pixel-major)
     and g_t [NT, P]: the cotangents of acc and t_final. Returns the
     pair-major gradient table, float32 of dataT's shape: rows d mx, d my,
     d conic a/b/c, d rgb, d opacity; rows 9..15 and slots no walk reaches
-    exact zeros. `amp` (the TPU kernel's bf16 contraction) is not ported.
+    exact zeros. `amp`: the per-pair sums take bf16-rounded operands (see
+    `bwd_call_pairs_reference`).
     """
-    if amp:
-        raise NotImplementedError("bwd_call_pairs: amp=True (bf16 contraction) is not ported")
+    bwd_entry(_BWD_IMPL, amp)
     _check_bwd(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t, th, tw)
     if dataT.device.type == "cuda":
         dgrad = torch.zeros_like(dataT)
         _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
-                         th, tw, ntx)
+                         th, tw, ntx, amp)
         return dgrad
     if dataT.device.type != "cpu":
         raise ValueError(f"no compositor for device {dataT.device}")
     return bwd_call_pairs_reference(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
-                                    th, tw, ntx)
+                                    th, tw, ntx, amp)
 
 
-bwd_call_pairs.launches = 0  # kernel launches, for callers to check the path
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to the nearest bfloat16, kept as float32."""
+    return x.to(torch.bfloat16).float()
 
 
 def bwd_call_pairs_reference(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
-                             th: int, tw: int, ntx: int):
-    """Plain PyTorch version of the backward kernel.
+                             th: int, tw: int, ntx: int, amp: bool = False):
+    """Plain PyTorch version of the backward kernels.
 
     Walks slot s = 0, 1, ... of every tile's segment at once, up to the
-    tile's `needed` horizon, with the kernel's per-pixel arithmetic in the
+    tile's `needed` horizon, with the kernels' per-pixel arithmetic in the
     same order (tile-local coordinates, the G − prefix form), and sums each
     slot's nine values over the tile's pixels.
+
+    `amp` follows the TPU kernels' bf16 contraction (`composite_pairs.py:684-685`,
+    `:790-798`): its left operand (d_p and w) and its right operand (the
+    moment basis {1, x, y, x², xy, y²} and the three g_acc channels) are
+    rounded to bf16; the products of two bf16 values are exact in float32,
+    and the sums, gc, G, the T and q chains and all that follows the sums
+    stay float32. At 32×32 tiles the basis itself rounds (x² = 961 → 960).
     """
     nt = starts.shape[0]
     p = th * tw
@@ -248,6 +304,8 @@ def bwd_call_pairs_reference(dataT, starts, counts, acc, t_final, stop, g_acc_t,
 
     g = g_acc_t.permute(0, 2, 1)                                          # [NT, 3, P]
     g0, g1, g2 = g[:, 0], g[:, 1], g[:, 2]
+    # The contraction's right operand: the basis and g_c.
+    basis, right_g = (_bf16(basis), _bf16(g)) if amp else (basis, g)
     big_g = g_t * t_final + g0 * acc[:, 0] + g1 * acc[:, 1] + g2 * acc[:, 2]
     head = (starts % 128).long()
     needed = torch.minimum(counts.long(), stop.long().max(dim=1).values - head + 1)
@@ -279,8 +337,9 @@ def bwd_call_pairs_reference(dataT, starts, counts, acc, t_final, stop, g_acc_t,
         d_alpha = t_before * gc - (1.0 / (1.0 - alpha)) * (big_g - qsum)
         d_p = torch.where(contrib & (alpha < ALPHA_MAX), d_alpha * alpha,
                           torch.zeros_like(alpha))
-        mom = (d_p[:, None, :] * basis[None]).sum(dim=2)                  # [NT, 6]
-        dl = (w[:, None, :] * g).sum(dim=2)                               # [NT, 3]
+        left_dp, left_w = (_bf16(d_p), _bf16(w)) if amp else (d_p, w)
+        mom = (left_dp[:, None, :] * basis[None]).sum(dim=2)              # [NT, 6]
+        dl = (left_w[:, None, :] * right_g).sum(dim=2)                    # [NT, 3]
         m1, mmx, mmy, mxx, mxy, myy = mom.unbind(1)
         mxl, myl = mxl[:, 0], myl[:, 0]
         ca, cb, cc, op = ca[:, 0], cb[:, 0], cc[:, 0], op[:, 0]

@@ -9,7 +9,8 @@
 Both are `torch.autograd.Function`s, as the JAX package's are custom VJPs:
 
   `composite_sorted` backward: the backward compositor kernel
-              (`bwd_call_pairs`) from the forward's saved acc/t_final/stop;
+              (`bwd_call_pairs`) from the forward's saved acc/t_final/stop,
+              in its bf16-contraction mode when `amp` is set;
   `sort_gather` backward: un-permute the pair sort by the saved `pos` →
               per-Gaussian sums (`reduce_expansion`) → un-permute the
               footprint sort by the saved `gidx_fp`. Both un-permutes are
@@ -122,9 +123,10 @@ def sort_gather(geom, mean2d, conic, colors, opacity, ints):
 
 class _CompositeSorted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dataT, starts, counts, th, tw, ntx):
+    def forward(ctx, dataT, starts, counts, th, tw, ntx, amp):
         acc, t_final, stop = fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
         ctx.geom = (th, tw, ntx)
+        ctx.amp = amp
         ctx.save_for_backward(dataT, starts, counts, acc, t_final, stop)
         return acc.transpose(1, 2), t_final
 
@@ -136,15 +138,19 @@ class _CompositeSorted(torch.autograd.Function):
         if g_t is None:
             g_t = torch.zeros_like(t_final)
         d_dataT = bwd_call_pairs(dataT, starts, counts, acc, t_final, stop,
-                                 g_acc_t.contiguous(), g_t.contiguous(), *ctx.geom)
-        return d_dataT, None, None, None, None, None
+                                 g_acc_t.contiguous(), g_t.contiguous(), *ctx.geom,
+                                 amp=ctx.amp)
+        return d_dataT, None, None, None, None, None, None
 
 
 def composite_sorted(geom, dataT, starts, counts):
-    """geom = (tile_h, tile_w, ntx). Returns (acc [NT, P, 3] premultiplied
-    colour, t_final [NT, P]). Differentiable with respect to dataT."""
+    """geom = (tile_h, tile_w, ntx[, amp]), as the JAX package's; `amp` (default
+    False) selects the backward's bf16 contraction. Returns (acc [NT, P, 3]
+    premultiplied colour, t_final [NT, P]). Differentiable with respect to
+    dataT."""
     th, tw, ntx = geom[:3]
-    return _CompositeSorted.apply(dataT, starts, counts, th, tw, ntx)
+    amp = bool(geom[3]) if len(geom) > 3 else False
+    return _CompositeSorted.apply(dataT, starts, counts, th, tw, ntx, amp)
 
 
 def depth_key(depth: torch.Tensor) -> torch.Tensor:
@@ -163,12 +169,14 @@ def rasterize_sorted(
     tile_h: int,
     tile_w: int,
     spec: TierSpec,
+    amp: bool = False,
 ):
     """Bin with the data-carrying sort and composite.
 
     Differentiable with respect to proj.mean2d, proj.conic, colors and
-    opacity; the bboxes and depth keys take no gradient. Returns
-    (color [H, W, 3], alpha [H, W], plan).
+    opacity; the bboxes and depth keys take no gradient. `amp` runs the
+    compositor's backward with its bf16 contraction (the `use_amp` policy).
+    Returns (color [H, W, 3], alpha [H, W], plan).
     """
     nty = -(-height // tile_h)
     ntx = -(-width // tile_w)
@@ -185,7 +193,7 @@ def rasterize_sorted(
         (nt, ntx, spec), proj.mean2d, proj.conic, colors, opacity, ints
     )
     acc, t_final = composite_sorted(
-        (tile_h, tile_w, ntx), dataT, plan.tile_starts, plan.counts
+        (tile_h, tile_w, ntx, amp), dataT, plan.tile_starts, plan.counts
     )
     out = acc + t_final[..., None] * bg_color[None, None, :]
 

@@ -69,9 +69,12 @@ def render_tiled(
     scale_modifier: float = 1.0,
     alive: Optional[torch.Tensor] = None,
     cfg: TileConfig = TileConfig(),
+    amp: bool = False,
 ) -> RenderOutput:
     """Render one view through the sorted-data pipeline (same semantics as
-    `render_dense`). Either `sh` [N,K,3] or `colors` [N,3]."""
+    `render_dense`). Either `sh` [N,K,3] or `colors` [N,3]. `amp` selects
+    the bf16 contraction of the compositor's backward (the `use_amp`
+    policy)."""
     proj = project_from_params(means3d, scales, quats, camera, scale_modifier, alive=alive)
     if colors is None:
         if sh is None:
@@ -80,7 +83,7 @@ def render_tiled(
     opac_eff = torch.where(proj.mask, opacity, torch.zeros_like(opacity))
     img, alpha, _plan = rasterize_sorted(
         proj, colors, opac_eff, camera.height, camera.width, bg_color,
-        cfg.tile_h, cfg.tile_w, cfg.tier_spec(means3d.shape[0]),
+        cfg.tile_h, cfg.tile_w, cfg.tier_spec(means3d.shape[0]), amp=amp,
     )
     return RenderOutput(
         color=img, alpha=alpha, radii=proj.radius, visibility=proj.radius > 0

@@ -4,8 +4,9 @@ regularisers (PyTorch).
 Equivalents of the JAX package's `training/loss.py`. SSIM uses the same
 11×11 Gaussian window (σ = 1.5) as the reference, as two banded-matrix
 matmuls in float32 (the JAX package runs them at `Precision.HIGHEST`
-outside any kernel). Nothing here switches TF32 on: a float32 `matmul` on
-the card stays float32 unless the caller enables TF32.
+outside any kernel), or with `amp` on operands rounded to bf16 and float32
+accumulation. Nothing here switches TF32 on: a float32 `matmul` on the card
+stays float32 unless the caller enables TF32.
 """
 from __future__ import annotations
 
@@ -68,8 +69,15 @@ def _band_matrix(n: int, window: int, sigma: float, device: torch.device) -> tor
     return torch.as_tensor(_band_matrix_np(n, window, sigma), device=device)
 
 
-def _depthwise_blur(img: torch.Tensor, window: int, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur of [C, H, W] with SAME (zero) padding."""
+def _depthwise_blur(img: torch.Tensor, window: int, sigma: float,
+                    amp: bool = False) -> torch.Tensor:
+    """Separable Gaussian blur of [C, H, W] with SAME (zero) padding.
+
+    `amp` follows the JAX package's mixed-precision blur (`loss.py:97-102`):
+    both banded matmuls take operands rounded to bf16 (the band matrices,
+    the image and the first product) and accumulate in float32. The
+    rounding is `x.to(bfloat16).float()`, so autograd rounds the operands'
+    gradients to bf16 too, as JAX's casts do."""
     c, h, w = img.shape
     if max(h, w) > _BLUR_MATMUL_MAX:
         g = torch.as_tensor(_gaussian_window(window, sigma), device=img.device)
@@ -81,15 +89,20 @@ def _depthwise_blur(img: torch.Tensor, window: int, sigma: float) -> torch.Tenso
         return x[0]
     gh = _band_matrix(h, window, sigma, img.device)
     gw = _band_matrix(w, window, sigma, img.device)
+    if amp:
+        bf = torch.bfloat16
+        y = torch.matmul(gh.to(bf).float(), img.to(bf).float())
+        return torch.matmul(y.to(bf).float(), gw.T.to(bf).float())
     return torch.matmul(torch.matmul(gh, img), gw.T)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window: int = SSIM_WINDOW,
-         sigma: float = SSIM_SIGMA) -> torch.Tensor:
+         sigma: float = SSIM_SIGMA, amp: bool = False) -> torch.Tensor:
     """Mean SSIM of two [C, H, W] images in [0, 1] (`utils/loss_utils.py:33-63`);
-    the five blurs are one pair of banded matmuls over the channel stack."""
+    the five blurs are one pair of banded matmuls over the channel stack
+    (bf16 operands, float32 accumulation with `amp`)."""
     stack = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=0)
-    b = _depthwise_blur(stack, window, sigma)
+    b = _depthwise_blur(stack, window, sigma, amp=amp)
     mu1, mu2, s1r, s2r, s12r = torch.chunk(b, 5, dim=0)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     s1 = s1r - mu1_sq

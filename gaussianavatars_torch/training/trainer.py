@@ -17,8 +17,10 @@ screen-space seam:
 backward of [*screen, reg_total] with [*g_screen, 1] takes the image and
 regulariser gradients into the Gaussian parameters and the FLAME leaves
 together, and per-group Adam (the exponential xyz schedule included)
-updates both. The innovations, AMP and the padded-table pipeline are not
-ported: their flags raise. Each stage is a `torch.profiler` range
+updates both. `use_amp` runs the compositor's backward with its bf16
+contraction and SSIM's blurs on bf16 operands, as the JAX step does. The
+innovations and the padded-table pipeline are not ported: their flags
+raise. Each stage is a `torch.profiler` range
 (`train/*`), so a profile splits the step's device time by stage.
 """
 from __future__ import annotations
@@ -144,8 +146,7 @@ def _check_supported(model, cfg: Config) -> None:
         raise NotImplementedError("make_train_step: only the FLAME-bound step is ported")
     if not (cfg.pipeline.use_sorted and cfg.pipeline.use_pallas):
         raise NotImplementedError("make_train_step: only the sorted pipeline is ported")
-    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg",
-                 "use_amp"):
+    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg"):
         if getattr(o, flag):
             raise NotImplementedError(f"make_train_step: {flag} is not ported")
 
@@ -233,11 +234,11 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
         img, _alpha, plan = rasterize_sorted(
             proj._replace(mean2d=mean2d, conic=conic), colors, opac,
             camera.height, camera.width, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
-            tile_cfg.tier_spec(mean2d.shape[0]))
+            tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
         losses = {"l1": l1_loss(img, gt_image) * (1.0 - o.lambda_dssim)}
         chw = img.permute(2, 0, 1)
         gt_chw = gt_image.permute(2, 0, 1)
-        losses["ssim"] = (1.0 - ssim(chw, gt_chw)) * o.lambda_dssim
+        losses["ssim"] = (1.0 - ssim(chw, gt_chw, amp=o.use_amp)) * o.lambda_dssim
         return sum(losses.values()), losses, img, plan
 
     def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep: int,

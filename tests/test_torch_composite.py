@@ -124,7 +124,7 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         tcp.fwd_call_pairs(t(dataT), t(starts), t(counts)[:-1], TILE_H, TILE_W, ntx)
     # The plain version runs for CPU tensors and launches nothing.
-    before = tcp.fwd_call_pairs.launches
+    before = dict(tcp.LAUNCHES)
     tcp.fwd_call_pairs(t(dataT), t(starts), t(counts), TILE_H, TILE_W, ntx)
-    assert tcp.fwd_call_pairs.launches == before
+    assert tcp.LAUNCHES == before
 

@@ -5,6 +5,8 @@ only PyTorch is installed:
 
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -67,10 +69,10 @@ def test_cuda_kernel_matches_plain(case, cuda_device):
     acc/t_final at atol 1e-5."""
     dataT, starts, counts, ntx = _table(*CASES[case], device=cuda_device)
     th, tw = CASES[case][4:6]
-    before = tcp.fwd_call_pairs.launches
+    before = tcp.LAUNCHES["composite_pairs_fwd"]
     acc, tfin, stop = tcp.fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
     torch.cuda.synchronize()
-    assert tcp.fwd_call_pairs.launches == before + 1
+    assert tcp.LAUNCHES["composite_pairs_fwd"] == before + 1
     r_acc, r_tfin, r_stop = tcp.fwd_call_pairs_reference(dataT, starts, counts, th, tw, ntx)
     torch.testing.assert_close(acc, r_acc, atol=1e-5, rtol=0)
     torch.testing.assert_close(tfin, r_tfin, atol=1e-5, rtol=0)
@@ -117,15 +119,86 @@ def test_cuda_bwd_kernel_matches_plain(case, cuda_device):
     g_acc_t = torch.randn((nt, p, 3), generator=g).to(cuda_device)
     g_t = torch.randn((nt, p), generator=g).to(cuda_device)
     args = (dataT, starts, counts, acc, tfin, stop, g_acc_t, g_t, th, tw, ntx)
-    before = tcp.bwd_call_pairs.launches
+    before = tcp.LAUNCHES["composite_pairs_bwd"]
     d = tcp.bwd_call_pairs(*args)
     torch.cuda.synchronize()
-    assert tcp.bwd_call_pairs.launches == before + 1
+    assert tcp.LAUNCHES["composite_pairs_bwd"] == before + 1
     r = tcp.bwd_call_pairs_reference(*args)
     err = (d[:9] - r[:9]).abs().amax(dim=1)
     assert (err <= 1e-4 * r[:9].abs().amax(dim=1)).all(), err
     assert not d[9:].any()
     assert not d[:, (r == 0).all(dim=0)].any()
+
+
+@pytest.mark.parametrize("impl", ["v2", "v3", "v4"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_variant_kernels_match_plain(case, impl, cuda_device, monkeypatch):
+    """Each implementation's entry points against the plain versions on the
+    same card tensors: the forward of `impl` equal to the plain forward bit
+    for bit (acc, t_final, stop); the backward of `impl` in float32 and in
+    `amp` mode at the float32 kernel's bound (per row max |kernel - plain|
+    <= 1e-4 · max |plain|, exact zeros). Under `amp` each pixel's float32
+    values, and so their bf16 roundings, are the plain version's; only the
+    order of the sums over a tile's pixels differs."""
+    dataT, starts, counts, ntx = _table(*CASES[case], device=cuda_device)
+    th, tw = CASES[case][4:6]
+    monkeypatch.setattr(tcp, "_FWD_IMPL", impl)
+    monkeypatch.setattr(tcp, "_BWD_IMPL", impl)
+    fwd_entry = tcp.fwd_entry(impl)[1]
+    before = tcp.LAUNCHES[fwd_entry]
+    acc, tfin, stop = tcp.fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
+    torch.cuda.synchronize()
+    assert tcp.LAUNCHES[fwd_entry] == before + 1
+    r_acc, r_tfin, r_stop = tcp.fwd_call_pairs_reference(dataT, starts, counts, th, tw, ntx)
+    assert torch.equal(acc, r_acc) and torch.equal(tfin, r_tfin) and torch.equal(stop, r_stop)
+    g = torch.Generator().manual_seed(7)
+    nt, p = starts.shape[0], th * tw
+    g_acc_t = torch.randn((nt, p, 3), generator=g).to(cuda_device)
+    g_t = torch.randn((nt, p), generator=g).to(cuda_device)
+    args = (dataT, starts, counts, acc, tfin, stop, g_acc_t, g_t, th, tw, ntx)
+    for amp in (False, True):
+        entry = tcp.bwd_entry(impl, amp)[1]
+        before = tcp.LAUNCHES[entry]
+        d = tcp.bwd_call_pairs(*args, amp=amp)
+        torch.cuda.synchronize()
+        assert tcp.LAUNCHES[entry] == before + 1
+        r = tcp.bwd_call_pairs_reference(*args, amp=amp)
+        err = (d[:9] - r[:9]).abs().amax(dim=1)
+        assert (err <= 1e-4 * r[:9].abs().amax(dim=1)).all(), (amp, err)
+        assert not d[9:].any()
+        assert not d[:, (r == 0).all(dim=0)].any()
+
+
+def test_amp_train_step_on_card_matches_cpu(cuda_device):
+    """One `use_amp` train step of a small bench-scene avatar on the card and
+    on the CPU, from the same state, towards a textured target (seeded
+    uniform noise, where the bf16 SSIM is well conditioned). The loss at
+    rtol 1e-3 and each gradient leaf within 1e-2 · max |CPU| of the leaf:
+    the float32 tolerances of the float32 test, with the loss loosened
+    because a one-ulp difference between the devices can flip a bf16
+    rounding of an SSIM moment."""
+    out, cfg_tile = {}, None
+    noise = torch.rand((96, 160, 3), generator=torch.Generator().manual_seed(3))
+    for dev in ("cpu", cuda_device):
+        model, params, aux, fl, cam, _n = build_scene(per_face=1, width=160, height=96,
+                                                      device=dev)
+        cfg_tile = cfg_tile or probe_tile_config(model, params, aux, fl, cam)
+        cfg = Config(opt=dataclasses.replace(Config().opt, use_amp=True))
+        state = init_train_state(params, aux, cfg, num_timesteps=2, n_expr=fl.expr.shape[1],
+                                 n_shape=fl.shape.shape[0], num_verts=model.num_verts)
+        step = make_train_step(model, cfg, cfg_tile)
+        before = tcp.LAUNCHES["composite_pairs_bwd_amp"]
+        out[str(dev)] = step(state, noise.to(dev), cam, 1, torch.zeros(3, device=dev), 3)
+        assert tcp.LAUNCHES["composite_pairs_bwd_amp"] == before + (dev != "cpu")
+    a, b = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(b.metrics["loss"].cpu(), a.metrics["loss"], rtol=1e-3, atol=0)
+    for mu_a, mu_b in ((a.state.adam.mu, b.state.adam.mu),
+                       (a.state.flame_adam.mu, b.state.flame_adam.mu)):
+        for name, x in vars(mu_a).items():
+            if x is None:
+                continue
+            y = getattr(mu_b, name).cpu()
+            assert float((y - x).abs().max()) <= 1e-2 * float(x.abs().max()), name
 
 
 def test_train_step_on_card_matches_cpu(cuda_device):
@@ -145,9 +218,9 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         state = init_train_state(params, aux, cfg, num_timesteps=2, n_expr=fl.expr.shape[1],
                                  n_shape=fl.shape.shape[0], num_verts=model.num_verts)
         step = make_train_step(model, cfg, cfg_tile)
-        before = tcp.bwd_call_pairs.launches
+        before = tcp.LAUNCHES["composite_pairs_bwd"]
         out[str(dev)] = step(state, gt, cam, 1, torch.zeros(3, device=dev), 3)
-        assert tcp.bwd_call_pairs.launches == before + (dev != "cpu")
+        assert tcp.LAUNCHES["composite_pairs_bwd"] == before + (dev != "cpu")
     a, b = out["cpu"], out[str(cuda_device)]
     torch.testing.assert_close(b.metrics["loss"].cpu(), a.metrics["loss"], rtol=1e-4, atol=0)
     for mu_a, mu_b in ((a.state.adam.mu, b.state.adam.mu),

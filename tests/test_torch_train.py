@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from gaussianavatars_tpu import config as jconfig
+from gaussianavatars_tpu.models import binding as jbinding
 from gaussianavatars_tpu.models import densify as jdensify
 from gaussianavatars_tpu.models import gaussians as jg
 from gaussianavatars_tpu.models.flame import flame_model as jfm
@@ -43,6 +44,7 @@ from gaussianavatars_torch import config as tconfig
 from gaussianavatars_torch.convert import (
     camera_from_numpy, flame_assets_from_numpy, train_state_from_numpy,
 )
+from gaussianavatars_torch.models import binding as tbinding
 from gaussianavatars_torch.models import densify as tdensify
 from gaussianavatars_torch.models.flame import flame_model as tfm
 from gaussianavatars_torch.models.gaussians import GaussianAux
@@ -344,6 +346,31 @@ def test_three_step_trajectory_matches_jax(avatar):
 # --------------------------------------------------------------- FLAME
 
 
+def test_face_frames_rejects_out_of_range_faces(tmp_path):
+    """A difference by design (ROADMAP queue C). `tiny_sphere_obj`'s
+    bottom-cap faces name one vertex past the last. The JAX `face_frames`
+    gathers it clamped to the last vertex without a word, the
+    out-of-bounds gather the JAX trainer itself treats as a hazard
+    (`training/trainer.py:231-233`); the port raises."""
+    obj = tmp_path / "sphere.obj"
+    fa.tiny_sphere_obj(str(obj))
+    assets = fa.synthetic_assets(n_shape=fa.N_SHAPE, n_expr=fa.N_EXPR, seed=0,
+                                 template_obj=str(obj))
+    faces = np.asarray(assets.faces)
+    verts = np.asarray(assets.v_template, np.float32)
+    assert faces.max() == assets.num_verts              # one past the last vertex
+    with pytest.raises(IndexError):
+        tbinding.face_frames(t(verts), torch.as_tensor(faces))
+    clamped = np.minimum(faces, assets.num_verts - 1)
+    want = jbinding.face_frames(jnp.asarray(verts), jnp.asarray(clamped))
+    got = jbinding.face_frames(jnp.asarray(verts), jnp.asarray(faces))
+    np.testing.assert_array_equal(np.asarray(got.center), np.asarray(want.center))
+    # With the faces the mesh means, the two packages agree.
+    t_frames = tbinding.face_frames(t(verts), torch.as_tensor(clamped))
+    np.testing.assert_allclose(n(t_frames.center), np.asarray(want.center), atol=1e-6)
+
+
+
 def test_laplacian_and_verts_cano_match_jax(avatar):
     jmodel = avatar[0]
     tmodel = tfm.FlameModel(flame_assets_from_numpy(jmodel.assets._asdict()),
@@ -384,8 +411,7 @@ def test_unported_options_raise(avatar):
                             tfm.FlameConfig(fa.N_SHAPE, fa.N_EXPR, add_teeth=False),
                             device="cpu")
     tile = TileConfig(tile_h=TH, tile_w=TW)
-    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg",
-                 "use_amp"):
+    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg"):
         cfg = tconfig.Config(opt=tconfig.OptimizationConfig(**{flag: True}))
         with pytest.raises(NotImplementedError, match=flag):
             ttrainer.make_train_step(tmodel, cfg, tile)
