@@ -820,6 +820,295 @@ def phase_train_amp(model, aux, cam, tile_cfg, card, setup) -> dict:
     return dict(res, one_step=one, entry_launches=launches, steps_per_s=N_AMP_STEPS / wall_s)
 
 
+PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
+MICRO_REL_TOL = 1e-5       # every slot, each micro-reduce kernel against its plain version
+N_LIBRARY_REPS = 20
+
+
+def micro_reduce_entries() -> dict:
+    """The four C entry points of csrc/micro_reduce.cu: name → (formulation,
+    the TPU kernel it replaces)."""
+    lines = {"a": 46, "b": 62, "c": 76, "d": 99}
+    return {f"micro_reduce_{k}": (k, f"scripts/micro_reduce_bench.py:{line}")
+            for k, line in lines.items()}
+
+
+def micro_reduce_bound(nt: int) -> dict:
+    """Least time for the micro-benchmark's work on an H100 SXM: NT·C·9·1024
+    multiply-adds (every formulation does the same work) and the table read
+    and written once."""
+    from gaussianavatars_torch.tools import micro_reduce_bench as mr
+
+    flops = 2 * nt * mr.C * mr.NRED * mr.ROWS * mr.LANES
+    nbytes = 2 * nt * mr.C * 4
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms_tf32=1e3 * flops / PEAK_TF32_FLOPS,
+                bound_ms_3xtf32=3e3 * flops / PEAK_TF32_FLOPS)
+
+
+def phase_micro_reduce(card) -> dict:
+    """Phase 11: `tools/micro_reduce_bench.main` at NT = 468 (the main path:
+    each kernel's warm-up and 50 chained launches), then each kernel against
+    its plain version on the same input, the plain versions' times, the
+    `torch.matmul` yardstick and the bounds."""
+    from gaussianavatars_torch.tools import micro_reduce_bench as mr
+
+    for k in mr.LAUNCHES:
+        mr.LAUNCHES[k] = 0
+    res = mr.main(["--nt", str(mr.NT), "--iters", "50"])
+    launches = dict(mr.LAUNCHES)
+    x = torch.rand((mr.NT, mr.C, 1), generator=torch.Generator().manual_seed(0)).to("cuda")
+    # The yardstick: the materialised [NT·C, 1024] plane (built outside the
+    # timed window) times the [1024, 9] basis, TF32 off (phase 1). It
+    # computes the 9 per-slot sums; their 9-column sum is left out.
+    plane = x.reshape(-1, 1).expand(-1, mr.ROWS * mr.LANES).contiguous()
+    basis = torch.arange(1, mr.NRED + 1, dtype=torch.float32, device="cuda").expand(
+        mr.ROWS * mr.LANES, mr.NRED).contiguous()
+    library_ms = cuda_ms(lambda: torch.matmul(plane, basis), N_LIBRARY_REPS)
+    del plane
+    bound = micro_reduce_bound(mr.NT)
+    out = {}
+    for name, (k, rep) in micro_reduce_entries().items():
+        got = mr.reduce_slots(k, x)
+        torch.cuda.synchronize()
+        want = mr.PLAIN[k](x)
+        rel = mr.relative_error(got, want)
+        r = dict(ms=res[k]["ms"], plain_ms=plain_ms(lambda: mr.PLAIN[k](x)),
+                 library_ms=library_ms, max_abs_err=float((got - want).abs().max()),
+                 max_rel_err=rel, max_rel_err_vs_46080x=mr.relative_error(got, 46080.0 * x),
+                 launches=launches[name], replaces=rep, **bound)
+        if k in ("a", "b"):
+            r.pop("bound_ms_tf32"), r.pop("bound_ms_3xtf32")
+        log(f"micro_reduce/{k}", **r, card=card["nvidia_smi"])
+        if not rel <= MICRO_REL_TOL:
+            raise AssertionError(f"{name} disagrees with its plain version: {r}")
+        out[name] = r
+    missing = [e for e, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"micro_reduce entry points not launched: {missing}")
+    log("micro_reduce/yardstick", library_ms=library_ms, card=card["nvidia_smi"],
+        note="torch.matmul of the [NT*C, 1024] plane by the [1024, 9] basis, TF32 off; "
+             "the sum over the 9 columns is left out")
+    return out
+
+
+LOOP_FLAGS = ("--width", "802", "--height", "550", "--capacity", "131072", "--per_face", "2",
+              "--timesteps", "12", "--cameras", "8", "--iterations", "800",
+              "--log_every", "100", "--eval_every", "400", "--checkpoint_every", "400",
+              "--opacity_reset_interval", "600")
+LOOP_WORKDIR = os.path.join("build", "chip_smoke", "train_synthetic")
+N_LOOP_AB = 30          # steps per block of the loop/bare-step alternation
+
+
+def sync_count(fn) -> int:
+    """Synchronising CUDA calls that fn() makes (torch's sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def train_view_overflow(harness) -> int:
+    """Budget overflow of the final state on every training view with the
+    loop's last tile budgets (the overflow the loop leaves unhandled)."""
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.projection import project_from_params
+    from gaussianavatars_torch.ops.rasterize_sorted import rasterize_sorted
+    from gaussianavatars_torch.ops.rasterize_tiled import view_colors
+    from gaussianavatars_torch.training.loop import _flame_params
+
+    st, model, tcfg = harness.state, harness.model, harness.live_tile_config
+    worst = 0
+    with torch.no_grad():
+        for cam in harness.scene.cameras("train"):
+            verts = model(_flame_params(st, cam.timestep))
+            wg = world_gaussians(st.params, st.aux, face_frames(verts[0], model.faces))
+            proj = project_from_params(wg.means, wg.scales, wg.quats, cam, alive=wg.alive)
+            colors = view_colors(wg.means, wg.sh, cam, 0)
+            opac = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
+            _img, _a, plan = rasterize_sorted(proj, colors, opac, cam.height, cam.width,
+                                              torch.zeros(3, device=opac.device), tcfg.tile_h,
+                                              tcfg.tile_w, tcfg.tier_spec(st.params.capacity))
+            worst = max(worst, int(plan.budget_overflow))
+    return worst
+
+
+def phase_loop(card) -> dict:
+    """Phase 12: the host loop at full width through `tools/train_synthetic`
+    (dataset, untrained eval, 800 iterations with a densify event at 750,
+    an opacity reset at 600, evals and checkpoints at 400 and 800, a PLY
+    save at 800, final eval), then a resume from the 400 checkpoint."""
+    import shutil
+
+    from gaussianavatars_torch.config import from_json
+    from gaussianavatars_torch.data import pipeline as pipe
+    from gaussianavatars_torch.models.flame.assets import load_assets
+    from gaussianavatars_torch.models.flame.flame_model import FlameConfig, FlameModel
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.tools import train_synthetic as ts
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.training.checkpoint import (
+        GENERATOR_KEY, flatten_state, load_train_state,
+    )
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    shutil.rmtree(LOOP_WORKDIR, ignore_errors=True)
+    args = ts.parse_args([*LOOP_FLAGS, "--workdir", LOOP_WORKDIR])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Earlier phases' tensors still held: the loop's own peak is above this.
+    start_mib = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    harness, result = ts.run(args)
+    torch.cuda.synchronize()
+    launches = dict(cp.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    logs, events = result["logs"], harness.events
+    iters = args.iterations
+
+    # Launches: the backward once per training step; the forward once per
+    # step, per dataset view rendered and per eval view.
+    eval_views = sum(e["n"] for e in events if e["kind"] == "eval")
+    eval_views += sum(result[k]["n"] for k in result if k.startswith("eval_"))
+    n_views = args.timesteps * args.cameras
+    expect = {"composite_pairs_fwd": iters + n_views + eval_views, "composite_pairs_bwd": iters}
+    got = {k: launches[k] for k in expect}
+    stray = {k: v for k, v in launches.items() if v and k not in expect}
+    densify = [e for e in events if e["kind"] == "densify"]
+    points = {r["iteration"]: r["num_points"] for r in logs}
+    model_dir = os.path.join(LOOP_WORKDIR, "model")
+    ckpts = ts.checkpoint_iterations(args)
+    artifacts = ["cfg_args.json", "cameras.json", "flame_assets.npz",
+                 f"point_cloud/iteration_{iters}/point_cloud.ply",
+                 f"point_cloud/iteration_{iters}/flame_param.npz",
+                 *(f"chkpnt{i}.npz" for i in ckpts)]
+    missing = [a for a in artifacts if not os.path.exists(os.path.join(model_dir, a))]
+    overflow_left = train_view_overflow(harness)
+    psnr = {s: (result[f"eval_untrained_{s}"]["psnr"], result[f"eval_{s}"]["psnr"])
+            for s in ("val", "test")}
+    res = dict(launches=got, expected_launches=expect, stray_launches=stray,
+               densify=densify, points_by_log=points,
+               loss_by_log=[r["loss"] for r in logs], psnr_untrained_vs_trained=psnr,
+               missing_artifacts=missing, tier_growths=[e for e in events
+                                                        if e["kind"] == "grow_tiers"],
+               train_view_budget_overflow=overflow_left)
+    log("loop", **res)
+    # Live Gaussians at the logs around the densify event.
+    d_it = densify[0]["iteration"] if densify else None
+    around = [points[max(i for i in points if i < d_it)],
+              points[min(i for i in points if i > d_it)]] if densify else []
+    res["points_around_densify"] = around
+    checks = {
+        "launches": got == expect and not stray,
+        "densify": (len(densify) == 1 and densify[0]["cloned"] + densify[0]["split"] > 0
+                    and around[0] != around[1]),
+        "loss": all(map(math.isfinite, res["loss_by_log"])) and logs[-1]["loss"] < logs[0]["loss"],
+        "psnr": all(math.isfinite(b) and b > a for a, b in psnr.values()),
+        "artifacts": not missing,
+        "overflow": overflow_left == 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"loop checks failed: {checks}")
+
+    # --- numbers ---------------------------------------------------------
+    elapsed = {r["iteration"]: r["elapsed_s"] for r in logs}
+    first_event = min(e["iteration"] for e in events if e["kind"] not in ("gt_cache",))
+    before = max(i for i in elapsed if i <= first_event)
+    by_kind: dict[str, list] = {}
+    for e in events:
+        by_kind.setdefault(e["kind"], []).append(e["ms"])
+    gt = next(e for e in events if e["kind"] == "gt_cache")
+    log("loop/numbers", card=card["nvidia_smi"], resolution=f"{args.width}x{args.height}",
+        steps_per_s_whole_loop=iters / result["train_s"],
+        steps_per_s_100_before_first_event=100.0 / (elapsed[before] - elapsed[before - 100]),
+        window=[before - 100, before],
+        event_host_ms=by_kind, dataset_write_s=result["dataset_write_s"],
+        gt_cache_views=gt["views"], images_decoded_per_s=gt["views"] / (gt["ms"] / 1e3),
+        gt_cache_mib=gt["views"] * args.width * args.height * 3 / 2**20,
+        peak_mem_mib=peak_mib,
+        peak_mem_above_start_mib=peak_mib - start_mib,
+        live_gaussians_final=logs[-1]["num_points"], capacity=args.capacity,
+        eval={k: v for k, v in result.items() if k.startswith("eval_")})
+
+    # --- resume from the first checkpoint -----------------------------------
+    cfg = from_json(open(os.path.join(model_dir, "cfg_args.json")).read())
+    model = FlameModel(load_assets(os.path.join(model_dir, "flame_assets.npz")),
+                       FlameConfig(n_shape=args.n_shape, n_expr=args.n_expr, add_teeth=False),
+                       device="cuda")
+    start = ckpts[0]
+    ckpt = os.path.join(model_dir, f"chkpnt{start}.npz")
+    h2 = loop.build_harness(cfg, model=model, start_checkpoint=ckpt, device="cuda")
+    saved = np.load(ckpt)
+    leaves = flatten_state(h2.state)
+    unequal = [k for k, v in leaves.items()
+               if not torch.equal(v.cpu(), torch.as_tensor(saved[k]).to(v.dtype))]
+    gen_equal = torch.equal(h2.state.generator.get_state(),
+                            torch.as_tensor(saved[GENERATOR_KEY]))
+    if h2.start_iteration != start or unequal or not gen_equal or set(leaves) != (
+            set(saved.files) - {"__iteration__", "key", GENERATOR_KEY}):
+        raise AssertionError(f"resume: state differs from the checkpoint: {unequal}")
+    # 10 then 20 steps: the loop's own synchronising calls per step must be
+    # the bare step's (it reads device values only at the log cadence).
+    reset_launches()
+    s10 = sync_count(lambda: loop.train(h2, iterations=start + 10, log_every=1000,
+                                        eval_every=0))
+    s30 = sync_count(lambda: loop.train(dataclasses.replace(h2, start_iteration=start + 10),
+                                        iterations=start + 30, log_every=1000, eval_every=0))
+    st = h2.state
+    step = make_train_step(model, cfg, h2.live_tile_config,
+                           spatial_lr_scale=h2.spatial_lr_scale)
+    cam = h2.scene.cameras("train")[0]
+    gt0 = torch.from_numpy(pipe.load_view(h2.scene.records("train")[0], cam)).cuda()
+    bg = torch.zeros(3, device="cuda")
+    step(st, gt0, cam, cam.timestep, bg, 0)
+    s_step = sync_count(lambda: [step(st, gt0, cam, cam.timestep, bg, 0) for _ in range(5)])
+    resumed = dict(start_iteration=h2.start_iteration, leaves=len(leaves),
+                   generator_restored=gen_equal, launches=dict(cp.LAUNCHES),
+                   syncs_10_steps=s10, syncs_20_steps=s30, syncs_per_bare_step=s_step / 5,
+                   loop_syncs_per_step=(s30 - s10) / 10)
+    log("loop/resume", **resumed)
+    if cp.LAUNCHES["composite_pairs_bwd"] != 30 + 6:
+        raise AssertionError(f"resume: backward launches {cp.LAUNCHES}")
+    if (s30 - s10) / 10 != s_step / 5:
+        raise AssertionError(f"the loop adds host synchronisations per step: {resumed}")
+
+    # The loop against the bare step on the same state, in turns (loop, bare,
+    # bare, loop; N_LOOP_AB steps each): what the loop itself costs a step.
+    rates = {"loop": [], "bare": []}
+    it0 = start + 30
+    for kind in ("loop", "bare", "bare", "loop"):
+        if kind == "loop":
+            h3 = dataclasses.replace(h2, start_iteration=it0)
+            lg = loop.train(h3, iterations=it0 + 2 * N_LOOP_AB, log_every=N_LOOP_AB,
+                            eval_every=0)
+            h2.state, it0 = h3.state, it0 + 2 * N_LOOP_AB
+            # The logs fall on multiples of log_every, not on it0 + N_LOOP_AB.
+            rates["loop"].append((lg[-1]["iteration"] - lg[0]["iteration"])
+                                 / (lg[-1]["elapsed_s"] - lg[0]["elapsed_s"]))
+        else:
+            st = h2.state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(N_LOOP_AB):
+                st = step(st, gt0, cam, cam.timestep, bg, 0).state
+            torch.cuda.synchronize()
+            rates["bare"].append(N_LOOP_AB / (time.perf_counter() - t0))
+    log("loop/vs_bare_step", card=card["nvidia_smi"], steps=N_LOOP_AB, steps_per_s=rates,
+        note="loop: the steps between its first and last log; bare: make_train_step on "
+             "the same state, one view")
+    return dict(res, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1038,9 +1327,16 @@ def main() -> int:
     # --- 10. the training step with use_amp ----------------------------------
     train_amp = phase_train_amp(model, aux, cam, cfg, card, setup)
 
+    # --- 11. the micro-reduce kernels ----------------------------------------
+    micro = phase_micro_reduce(card)
+
+    # --- 12. the host loop ---------------------------------------------------
+    loop_res = phase_loop(card)
+
     # Launches per entry point over the main paths: serving, training,
-    # the A/B (float32 and amp) and amp training.
-    for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"]):
+    # the A/B (float32 and amp), amp training and the loop.
+    for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
+                loop_res["launches"]):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)
@@ -1055,13 +1351,22 @@ def main() -> int:
     not_launched = [e for e, k in path_launches.items() if k == 0]
     if not_launched:
         raise AssertionError(f"entry points no main path launched: {not_launched}")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep, "amp": amp,
         "launches": path_launches[name], "max_abs_err": errors[name],
         "ms": numbers[name]["ms"], "plain_ms": numbers[name]["plain_ms"],
         "bound_ms": numbers[name]["bound_ms"], "bound_by": numbers[name]["bound_by"],
         "library_ms": None,
-    } for name, (_kind, _impl, amp, src, rep) in compositor_entries().items()]}), flush=True)
+    } for name, (_kind, _impl, amp, src, rep) in compositor_entries().items()]
+    for name, r in micro.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gaussianavatars_torch/csrc/micro_reduce.cu",
+            "replaces": r["replaces"], "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("bound_ms_tf32", "bound_ms_3xtf32") if k in r},
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,30 +1,68 @@
-"""Typed configuration of the training step: the part of the JAX package's
-`config.py` that the port reads.
+"""Typed configuration: the part of the JAX package's `config.py` that the
+port reads.
 
 Same dataclass and knob names and the same defaults (those of the
-reference's argparse groups, `arguments/__init__.py:69-144`), as frozen
-dataclasses. Only knobs that `training.trainer` reads are here: the
-learning rates, the loss weights and the regularisers' thresholds and
-metric flags, `use_amp`, plus the pipeline and innovation flags that
-`make_train_step` rejects when set. The model's sizes (`n_shape`,
-`n_expr`, SH degree) are arguments of `init_train_state` and of the step,
-and the tile geometry is the step's `TileConfig`; the knobs of parts not
-yet ported (densification events, the innovations' own settings, the
-device mesh) come with those parts.
+reference's argparse groups, `arguments/__init__.py:47-144`), as frozen
+dataclasses, serialisable to and from JSON (`cfg_args.json`). Here are the
+model and dataset knobs (`ModelConfig`, without the JAX package's
+`data_device`), the tile geometry and tier budgets (`PipelineConfig`), the
+training step's learning rates, loss weights and regularisers, and the
+host loop's schedule (iterations, densification, opacity resets). The
+innovations' flags are here so that a configuration naming one is
+rejected, not silently ignored: `make_train_step` raises on the three it
+does not run, `training.loop.build_harness` on smart densification and
+progressive resolution. Their own settings and the device mesh come with
+those parts.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """`ModelParams` equivalent (`arguments/__init__.py:47-67`)."""
+
+    source_path: str = ""
+    model_path: str = ""
+    sh_degree: int = 3
+    bind_to_mesh: bool = True
+    white_background: bool = False
+    resolution: int = -1
+    eval: bool = True
+    target_path: str = ""
+    select_camera_id: int = -1
+    capacity: int = 131072          # padded Gaussian capacity
+    n_shape: int = 300
+    n_expr: int = 100
+    add_teeth: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """`PipelineParams` equivalent (`arguments/__init__.py:69-74`): the
     sorted pipeline with the compositor kernels is the only one ported;
-    any other setting raises in `make_train_step`."""
+    any other setting raises in `make_train_step`.
 
+    Tier budgets of the sorted pipeline: every Gaussian gets `base_budget`
+    expansion slots; each (count, budget) tier gives the `count`
+    footprint-heaviest Gaussians slots up to `budget`. Empty tiers are
+    probed from the first training frame (`training.loop.probe_tier_budgets`)
+    and grown on overflow. `capacity_per_tile` and `max_tiles_per_gaussian`
+    size the JAX package's padded-table path, which is not ported; they are
+    kept so that a configuration reads and writes as the JAX package's.
+    """
+
+    tile_h: int = 32
+    tile_w: int = 32
+    capacity_per_tile: int = 1024
+    max_tiles_per_gaussian: int = 16
     use_pallas: bool = True
     use_sorted: bool = True
+    base_budget: int = 2
+    tiers: Tuple[Tuple[int, int], ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +70,7 @@ class OptimizationConfig:
     """`OptimizationParams` equivalent (`arguments/__init__.py:76-144`):
     the canonical 600k-iteration recipe."""
 
+    iterations: int = 600_000
     position_lr_init: float = 0.005
     position_lr_final: float = 0.00005
     position_lr_delay_mult: float = 0.01
@@ -40,10 +79,16 @@ class OptimizationConfig:
     opacity_lr: float = 0.05
     scaling_lr: float = 0.017
     rotation_lr: float = 0.001
+    densification_interval: int = 2_000
+    opacity_reset_interval: int = 60_000
+    densify_from_iter: int = 10_000
+    densify_until_iter: int = 600_000
+    densify_grad_threshold: float = 0.0002
 
     flame_expr_lr: float = 1e-3
     flame_trans_lr: float = 1e-6
     flame_pose_lr: float = 1e-5
+    percent_dense: float = 0.01
     lambda_dssim: float = 0.2
     lambda_xyz: float = 1e-2
     threshold_xyz: float = 1.0
@@ -62,9 +107,44 @@ class OptimizationConfig:
     use_region_adaptive_loss: bool = False
     use_color_calibration: bool = False
     use_contrastive_reg: bool = False
+    # Not ported: `training.loop.build_harness` raises when either is set.
+    use_smart_densification: bool = False
+    densify_percentile_clone: float = 75.0
+    densify_percentile_split: float = 90.0
+    use_progressive_resolution: bool = False
+    resolution_schedule: Tuple[float, ...] = (0.5, 0.75, 1.0)
+    resolution_milestones: Tuple[int, ...] = (100_000, 300_000)
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    model: ModelConfig = ModelConfig()
     pipeline: PipelineConfig = PipelineConfig()
     opt: OptimizationConfig = OptimizationConfig()
+
+
+def to_json(cfg: Config) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def from_json(text: str) -> Config:
+    """A Config from `to_json` text (the JAX package's too: sections and
+    keys the port does not have are skipped)."""
+    raw = json.loads(text)
+
+    def build(cls, d):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {}
+        for k, v in d.items():
+            if k not in names:
+                continue
+            if isinstance(v, list):
+                v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+            kw[k] = v
+        return cls(**kw)
+
+    return Config(
+        model=build(ModelConfig, raw.get("model", {})),
+        pipeline=build(PipelineConfig, raw.get("pipeline", {})),
+        opt=build(OptimizationConfig, raw.get("opt", {})),
+    )

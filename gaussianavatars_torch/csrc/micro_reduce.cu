@@ -1,0 +1,329 @@
+// The per-slot reduction micro-benchmark: four formulations of one function.
+//
+// Replaces the four Pallas kernels of scripts/micro_reduce_bench.py:
+//   micro_reduce_a  ->  kern_a (:46)  per-slot jnp.sum + stack
+//   micro_reduce_b  ->  kern_b (:62)  lane reduce, then sublane reduce
+//   micro_reduce_c  ->  kern_c (:76)  batched dot_general per field (MXU)
+//   micro_reduce_d  ->  kern_d (:99)  one [K, 1024] x [1024, 9] dot (MXU)
+// (pallas_call at :119). The TPU experiment decided how the backward
+// compositor reduces its per-slot sums; the port asks the same question of
+// this card.
+//
+// The function: x is [NT, C] float32 (C = 512 slots per tile). For every
+// slot, the chunk loader broadcasts x[t, s] over an [8, 128] "pixel" block
+// (`_fields`: v * ones), and
+//     out[t, s] = sum_{r=0..8} sum_{pixels} (1 + r) * x[t, s]
+// (46080 * x up to float32 rounding), taken as the reduction each
+// formulation names. Every kernel builds the plane values in registers
+// (v times a plane of ones staged in shared memory, so the compiler cannot
+// see they are equal) and reduces them; none folds the sums into 46080 * x.
+// One block per tile; the 8 chunks of K = 64 slots are a loop inside the
+// block (the TPU grid's fori_loop).
+//
+// What bounds it: 468 x 512 x 9 x 1024 = 2.2e9 multiply-adds (4.42 GFLOP),
+// 0.066 ms at the H100's 67 TFLOP/s of float32 outside the tensor cores,
+// 0.0089 ms at 495 TFLOP/s of dense TF32 (0.027 ms for 3xTF32's three
+// products); the bytes (0.96 MB in, 0.96 MB out) take 0.6 us. Operations,
+// not bytes. What the designs do about it:
+//   A  the literal counterpart of one jnp.sum per slot and field: per slot
+//      and r a block-wide tree reduction of the 1024 pixel values (warp
+//      shuffles, then one warp over the 32 warps' partials in shared
+//      memory): 576 block reductions a chunk, each behind a __syncthreads.
+//      Barrier-bound by design.
+//   B  vectorised over the chunk's 64 slots: each warp owns slots and
+//      reduces the 128 lanes of a row (4 per thread, then __shfl_xor_sync),
+//      then the 8 rows through its own shared-memory row buffer, one pass
+//      per r; no block barrier inside the chunk.
+//   C  the tensor cores: per r, the chunk's [64 x 1024] plane times a
+//      [1024 x 8] matrix whose column 0 is (1 + r), as mma.sync.m16n8k8
+//      TF32 in 3xTF32 (hi*hi + hi*lo + lo*hi, hi = cvt.rna.tf32(x),
+//      lo = cvt.rna.tf32(x - hi)), then each row's sum over the 8 columns.
+//   D  the same route with one product per chunk: [64 x 1024] x [1024 x 16]
+//      (the 9 basis columns 1 + r, padded to 16), then the sum over them.
+// In C and D the hi*hi products and the two cross products accumulate in
+// separate registers (added at the end in float32): the hi*hi partial sums
+// need at most 25 significant bits, so the tensor cores' float32
+// accumulation keeps them nearly exact, and the cross terms' rounding is
+// 2^-11 of the result. Both reach float32 accuracy (relative 1e-5 against
+// the plain version, held on the card).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a --fmad=false (see
+// cuda_build.py). Each entry point launches on the caller's stream and
+// returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int C = 512;            // slots per tile
+constexpr int K = 64;             // slots per chunk
+constexpr int ROWS = 8, LANES = 128;
+constexpr int P = ROWS * LANES;   // pixels of the broadcast block
+constexpr int N_CHUNKS = C / K;
+constexpr int NRED = 9;           // scaled copies (1 + r), r = 0..8
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// `_fields`' plane of ones, staged in shared memory by the whole block.
+__device__ __forceinline__ void stage_ones(float* ones) {
+  for (int i = threadIdx.x; i < P; i += blockDim.x) ones[i] = 1.0f;
+  __syncthreads();
+}
+
+// ------------------------------------------------------------------ A ----
+// 1024 threads, one per pixel of the [8, 128] block.
+__global__ void __launch_bounds__(P) kern_a(const float* __restrict__ x,
+                                            float* __restrict__ out) {
+  __shared__ float ones[P];
+  __shared__ float part[2][32];
+  const int p = threadIdx.x, warp = p >> 5, lane = p & 31;
+  const float* xt = x + (size_t)blockIdx.x * C;
+  float* ot = out + (size_t)blockIdx.x * C;
+  stage_ones(ones);
+  const float one = ones[p];
+  int buf = 0;
+  for (int k = 0; k < N_CHUNKS; ++k) {
+    const int base = k * K;
+    for (int j = 0; j < K; ++j) {
+      const float f = xt[base + j] * one;   // this pixel of slot j's plane
+      float s = 0.0f;
+      for (int r = 0; r < NRED; ++r) {
+        const float w = warp_sum(f * (1.0f + (float)r));
+        if (lane == 0) part[buf][warp] = w;
+        // Double-buffered partials: one barrier per reduction. Warp 0 reads
+        // buffer `buf` before it reaches the next barrier, and nobody
+        // writes `buf` again until after that barrier.
+        __syncthreads();
+        if (warp == 0) s = s + warp_sum(part[buf][lane]);
+        buf ^= 1;
+      }
+      if (p == 0) ot[base + j] = s;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ B ----
+// 256 threads: 8 warps, each owning 8 of the chunk's 64 slots. A thread
+// holds lanes lane + 32q (q = 0..3) of each of the 8 rows.
+constexpr int B_WARPS = 8;
+
+__global__ void __launch_bounds__(B_WARPS * 32) kern_b(const float* __restrict__ x,
+                                                       float* __restrict__ out) {
+  __shared__ float ones[P];
+  __shared__ float rowsum[B_WARPS][ROWS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* xt = x + (size_t)blockIdx.x * C;
+  float* ot = out + (size_t)blockIdx.x * C;
+  stage_ones(ones);
+  float one[ROWS][4];
+#pragma unroll
+  for (int row = 0; row < ROWS; ++row)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) one[row][q] = ones[row * LANES + lane + 32 * q];
+  for (int k = 0; k < N_CHUNKS; ++k) {
+    const int base = k * K;
+    for (int jj = 0; jj < K / B_WARPS; ++jj) {
+      const int j = warp + B_WARPS * jj;
+      const float v = xt[base + j];
+      float s = 0.0f;
+      for (int r = 0; r < NRED; ++r) {
+        const float c = 1.0f + (float)r;
+#pragma unroll
+        for (int row = 0; row < ROWS; ++row) {
+          // The row's 128 lanes: this thread's four, then the warp's.
+          float acc = (v * one[row][0]) * c;
+#pragma unroll
+          for (int q = 1; q < 4; ++q) acc = acc + (v * one[row][q]) * c;
+          acc = warp_sum(acc);
+          if (lane == 0) rowsum[warp][row] = acc;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          float rs = 0.0f;
+#pragma unroll
+          for (int row = 0; row < ROWS; ++row) rs = rs + rowsum[warp][row];
+          s = s + rs;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) ot[base + j] = s;
+    }
+  }
+}
+
+// ------------------------------------------------------------- C and D ----
+// 128 threads: 4 warps, warp w owning rows 16w .. 16w + 15 (slots) of the
+// chunk. mma.m16n8k8 fragments (PTX ISA, .tf32), g = lane / 4, i = lane % 4:
+//   A (16 x 8): a0 (g, i), a1 (g + 8, i), a2 (g, i + 4), a3 (g + 8, i + 4)
+//   B (8 x 8):  b0 (k = i, n = g), b1 (k = i + 4, n = g)
+//   D (16 x 8): d0 (g, 2i), d1 (g, 2i + 1), d2 (g + 8, 2i), d3 (g + 8, 2i + 1)
+constexpr int MMA_WARPS = K / 16;
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split(float v) {
+  const uint32_t hi = to_tf32(v);
+  return {hi, to_tf32(v - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma_tf32(float d[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One 3xTF32 product step: big += A_hi B_hi, small += A_hi B_lo + A_lo B_hi.
+__device__ __forceinline__ void mma_3xtf32(float big[4], float small[4],
+                                           const Split a[4], Split b0, Split b1) {
+  mma_tf32(small, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+  mma_tf32(small, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  mma_tf32(big, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
+}
+
+// This thread's A fragment of k-step kk: rows g and g + 8 of the warp's
+// slots (values vg, vg8) at pixels 8kk + i and 8kk + i + 4.
+__device__ __forceinline__ void a_fragment(Split a[4], const float* ones, int kk,
+                                           int i, float vg, float vg8) {
+  const float o0 = ones[kk * 8 + i], o1 = ones[kk * 8 + i + 4];
+  a[0] = split(vg * o0);
+  a[1] = split(vg8 * o0);
+  a[2] = split(vg * o1);
+  a[3] = split(vg8 * o1);
+}
+
+// The 16 x (8 n_tiles) result's row sums for rows g and g + 8: the
+// thread's columns, then the 4 threads of its group.
+__device__ __forceinline__ void row_sums(const float* d, int n_tiles, float* sg,
+                                         float* sg8) {
+  float a = 0.0f, b = 0.0f;
+#pragma unroll
+  for (int t = 0; t < n_tiles; ++t) {
+    a = a + d[4 * t + 0] + d[4 * t + 1];
+    b = b + d[4 * t + 2] + d[4 * t + 3];
+  }
+  a += __shfl_xor_sync(0xffffffffu, a, 1);
+  a += __shfl_xor_sync(0xffffffffu, a, 2);
+  b += __shfl_xor_sync(0xffffffffu, b, 1);
+  b += __shfl_xor_sync(0xffffffffu, b, 2);
+  *sg = a;
+  *sg8 = b;
+}
+
+__global__ void __launch_bounds__(MMA_WARPS * 32) kern_c(const float* __restrict__ x,
+                                                         float* __restrict__ out) {
+  __shared__ float ones[P];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, i = lane & 3;
+  const float* xt = x + (size_t)blockIdx.x * C;
+  float* ot = out + (size_t)blockIdx.x * C;
+  stage_ones(ones);
+  for (int k = 0; k < N_CHUNKS; ++k) {
+    const int row0 = k * K + 16 * warp;
+    const float vg = xt[row0 + g], vg8 = xt[row0 + g + 8];
+    float s = 0.0f, s8 = 0.0f;
+    for (int r = 0; r < NRED; ++r) {
+      // B: column 0 is (1 + r), the other columns 0, for every pixel k.
+      const Split b = split(g == 0 ? 1.0f + (float)r : 0.0f);
+      // Two chains of each kind (even and odd k-steps) for latency.
+      float big0[4] = {}, big1[4] = {}, small0[4] = {}, small1[4] = {};
+      for (int kk = 0; kk < P / 8; kk += 2) {
+        Split a[4];
+        a_fragment(a, ones, kk, i, vg, vg8);
+        mma_3xtf32(big0, small0, a, b, b);
+        a_fragment(a, ones, kk + 1, i, vg, vg8);
+        mma_3xtf32(big1, small1, a, b, b);
+      }
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = (small0[e] + small1[e]) + (big0[e] + big1[e]);
+      float rs, rs8;
+      row_sums(d, 1, &rs, &rs8);
+      s = s + rs;
+      s8 = s8 + rs8;
+    }
+    if (i == 0) {
+      ot[row0 + g] = s;
+      ot[row0 + g + 8] = s8;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MMA_WARPS * 32) kern_d(const float* __restrict__ x,
+                                                         float* __restrict__ out) {
+  __shared__ float ones[P];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, i = lane & 3;
+  const float* xt = x + (size_t)blockIdx.x * C;
+  float* ot = out + (size_t)blockIdx.x * C;
+  stage_ones(ones);
+  // B [1024 x 16]: column n is (1 + n) for n < 9, else 0. n-tile 0 holds
+  // columns 0..7, n-tile 1 columns 8..15; this thread's column is g.
+  const Split b_lo_tile = split(1.0f + (float)g);
+  const Split b_hi_tile = split(g + 8 < NRED ? 1.0f + (float)(g + 8) : 0.0f);
+  for (int k = 0; k < N_CHUNKS; ++k) {
+    const int row0 = k * K + 16 * warp;
+    const float vg = xt[row0 + g], vg8 = xt[row0 + g + 8];
+    float big0[4] = {}, big1[4] = {}, small0[4] = {}, small1[4] = {};
+    for (int kk = 0; kk < P / 8; ++kk) {
+      Split a[4];
+      a_fragment(a, ones, kk, i, vg, vg8);
+      mma_3xtf32(big0, small0, a, b_lo_tile, b_lo_tile);
+      mma_3xtf32(big1, small1, a, b_hi_tile, b_hi_tile);
+    }
+    float d[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      d[e] = small0[e] + big0[e];
+      d[4 + e] = small1[e] + big1[e];
+    }
+    float s, s8;
+    row_sums(d, 2, &s, &s8);
+    if (i == 0) {
+      ot[row0 + g] = s;
+      ot[row0 + g + 8] = s8;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: [nt, 512] float32 (the [NT, C, 1] table), out: the same shape.
+int micro_reduce_a(const float* x, float* out, int nt, cudaStream_t stream) {
+  if (nt > 0) kern_a<<<nt, P, 0, stream>>>(x, out);
+  return (int)cudaGetLastError();
+}
+
+int micro_reduce_b(const float* x, float* out, int nt, cudaStream_t stream) {
+  if (nt > 0) kern_b<<<nt, B_WARPS * 32, 0, stream>>>(x, out);
+  return (int)cudaGetLastError();
+}
+
+int micro_reduce_c(const float* x, float* out, int nt, cudaStream_t stream) {
+  if (nt > 0) kern_c<<<nt, MMA_WARPS * 32, 0, stream>>>(x, out);
+  return (int)cudaGetLastError();
+}
+
+int micro_reduce_d(const float* x, float* out, int nt, cudaStream_t stream) {
+  if (nt > 0) kern_d<<<nt, MMA_WARPS * 32, 0, stream>>>(x, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -176,3 +176,28 @@ def _uv_sphere(n_target: int):
         :n_target
     ].astype(np.float32)
     return verts, uvs, faces, faces.copy()
+
+
+def save_assets(assets: FlameAssets, out_npz: str) -> str:
+    """Persist assets in the npz layout `load_assets` reads (the JAX
+    package's `save_assets`). Training writes the model's exact topology
+    into the model directory, so render and viewers reload it without the
+    original template."""
+    os.makedirs(os.path.dirname(out_npz) or ".", exist_ok=True)
+    np.savez(
+        out_npz,
+        v_template=assets.v_template,
+        shapedirs=assets.shapedirs,
+        n_shape=np.asarray(assets.n_shape),
+        posedirs=assets.posedirs,
+        j_regressor=assets.j_regressor,
+        parents=assets.parents,
+        lbs_weights=assets.lbs_weights,
+        faces=assets.faces,
+        verts_uvs=assets.verts_uvs,
+        faces_uv=assets.faces_uv,
+        lmk_faces_idx=assets.lmk_faces_idx,
+        lmk_bary_coords=assets.lmk_bary_coords,
+        **{f"mask_{k}": np.asarray(v) for k, v in assets.vertex_masks.items()},
+    )
+    return out_npz

@@ -141,3 +141,8 @@ def init_bound(
         max_radii2d=zeros.clone(),
     )
     return params, aux
+
+
+def num_alive(aux: GaussianAux) -> torch.Tensor:
+    """Live Gaussians, a 0-dim int32 tensor on the state's device."""
+    return aux.alive.sum().to(torch.int32)

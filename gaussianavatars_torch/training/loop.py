@@ -1,0 +1,508 @@
+"""Host training loop: the library behind `tools/train_synthetic.py`.
+
+The port of the JAX package's `training/loop.py` (the reference training script,
+`train.py:45-311`): one training step per iteration
+(`trainer.make_train_step`) with host events at the reference's cadence —
+
+  * SH warm-up every 1000 iterations (`train.py:176-177`),
+  * densify/prune every `densification_interval` in
+    (densify_from_iter, densify_until_iter) (`train.py:264-273`),
+  * opacity reset every `opacity_reset_interval`,
+  * eval reports (`training_report`, `train.py:313-394`: PSNR and SSIM),
+    PLY saves and full resume checkpoints (`train.py:287-289`).
+
+The loop owns host-side state (the ground-truth cache, the sampler, logs);
+everything numeric is in the `TrainState` on the device. The step's
+budget counters are kept as running maxima on the device and read only
+at the log cadence: an iteration that does not log makes no host read of
+a device value beyond what the step itself does.
+
+Not ported, each named in `ROADMAP.md`: `train_sharded` (multi-device),
+the TensorBoard writer, the GUI service, `debug_from`, progressive
+resolution and smart densification (`build_harness` raises on both), the
+colour net in `make_render_fn`, LPIPS in `evaluate_split`, unbound
+(point-cloud) training, and the JAX loop's fused chunks of steps
+(`steps_per_call`): the port runs one step per iteration.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import Config, to_json
+from ..data.cameras import Camera
+from ..data.pipeline import EpochSampler, Prefetcher, gt_to_float, load_view, view_stack
+from ..data.scene import Scene
+from ..device import resolve_device
+from ..models.binding import face_frames
+from ..models.densify import DensifyConfig, densify_and_prune, grow_capacity, reset_opacity
+from ..models.flame.assets import save_assets
+from ..models.flame.flame_model import FlameModel, FlameParams
+from ..models.gaussians import init_bound, num_alive, world_gaussians
+from ..ops.rasterize_tiled import TileConfig, render_tiled
+from ..ops.sort_binning import grow_tiers
+from ..render import probe_tile_config
+from .checkpoint import load_train_state, save_train_state
+from .loss import psnr as psnr_fn, ssim as ssim_fn
+from .trainer import TrainState, active_sh_degree, init_train_state, make_train_step
+
+
+def flame_init_from_table(
+    table: Dict[str, np.ndarray],
+    n_shape: Optional[int] = None,
+    n_expr: Optional[int] = None,
+) -> dict:
+    """Scene flame table (reference npz key names) → trainer kwarg names.
+
+    `n_shape`/`n_expr` truncate or zero-pad the dataset coefficients to the
+    model's blendshape count."""
+
+    def fit(x: np.ndarray, n: Optional[int]) -> np.ndarray:
+        if n is None or x.shape[-1] == n:
+            return x
+        if x.shape[-1] > n:
+            return x[..., :n]
+        pad = [(0, 0)] * (x.ndim - 1) + [(0, n - x.shape[-1])]
+        return np.pad(x, pad)
+
+    return {
+        "shape": fit(table["shape"], n_shape),
+        "expr": fit(table["expr"], n_expr),
+        "rotation": table["rotation"],
+        "neck": table["neck_pose"],
+        "jaw": table["jaw_pose"],
+        "eyes": table["eyes_pose"],
+        "translation": table["translation"],
+        "static_offset": table["static_offset"],
+    }
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def flame_table_from_state(state: TrainState, template: Dict[str, np.ndarray]) -> dict:
+    """Export trained FLAME params in the reference npz layout
+    (`scene/flame_gaussian_model.py:218-223`)."""
+    out = dict(template)
+    out["shape"] = _np(state.flame_static.shape)
+    out["expr"] = _np(state.flame.expr)
+    out["rotation"] = _np(state.flame.rotation)
+    out["neck_pose"] = _np(state.flame.neck)
+    out["jaw_pose"] = _np(state.flame.jaw)
+    out["eyes_pose"] = _np(state.flame.eyes)
+    out["translation"] = _np(state.flame.translation)
+    if state.flame_static.static_offset is not None:
+        out["static_offset"] = _np(state.flame_static.static_offset)
+    return out
+
+
+def tile_config(cfg: Config) -> TileConfig:
+    p = cfg.pipeline
+    return TileConfig(tile_h=p.tile_h, tile_w=p.tile_w, base_budget=p.base_budget,
+                      tiers=tuple(p.tiers))
+
+
+@dataclasses.dataclass
+class TrainerHarness:
+    """Everything `train()` assembles before the loop."""
+
+    cfg: Config
+    scene: Scene
+    model: FlameModel
+    state: TrainState
+    spatial_lr_scale: float
+    start_iteration: int = 0
+    # The loop's current tile budgets (grown on overflow recovery).
+    live_tile_config: Optional[TileConfig] = None
+    # Every host event: {"kind", "iteration", "ms" (host milliseconds), and
+    # what it reported (the densify counts, the eval metrics, ...)}.
+    events: List[dict] = dataclasses.field(default_factory=list)
+
+
+def _check_supported(cfg: Config) -> None:
+    o = cfg.opt
+    for flag in ("use_smart_densification", "use_progressive_resolution"):
+        if getattr(o, flag):
+            raise NotImplementedError(f"training.loop: {flag} is not ported")
+    if not cfg.model.bind_to_mesh:
+        raise NotImplementedError("training.loop: unbound training (init_from_points) is "
+                                  "not ported")
+
+
+def build_harness(
+    cfg: Config,
+    model: Optional[FlameModel] = None,
+    generator: Optional[torch.Generator] = None,
+    start_checkpoint: str = "",
+    device="cuda",
+) -> TrainerHarness:
+    """Scene, FLAME-bound initial state (or `start_checkpoint`'s), and the
+    model directory's `cfg_args.json` and `flame_assets.npz`. `generator`
+    (default: seeded with 0) draws the initial colours and the split noise."""
+    _check_supported(cfg)
+    if model is None:
+        raise ValueError("bind_to_mesh requires a FlameModel")
+    dev = resolve_device(device)
+    m = cfg.model
+    model = model.to(dev)
+    scene = Scene(
+        m.source_path, model_path=m.model_path, resolution=m.resolution,
+        white_background=m.white_background, eval_split=m.eval,
+        target_path=m.target_path, select_camera_id=m.select_camera_id,
+        num_verts_hint=model.num_verts, device=dev,
+    )
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    params, aux = init_bound(model.num_faces, capacity=m.capacity, generator=gen, device=dev)
+    flame_init = flame_init_from_table(scene.flame_table, n_shape=model.cfg.n_shape,
+                                       n_expr=model.cfg.n_expr)
+    cam0 = scene.train_cameras()[0]
+    state = init_train_state(
+        params, aux, cfg, num_timesteps=scene.num_timesteps, n_expr=model.cfg.n_expr,
+        n_shape=model.cfg.n_shape, num_verts=model.num_verts, flame_init=flame_init,
+        generator=gen, image_hw=(cam0.height, cam0.width),
+    )
+    start_iteration = 0
+    if start_checkpoint:
+        state, start_iteration = load_train_state(start_checkpoint, state)
+        print(f"resumed from {start_checkpoint} at iteration {start_iteration}")
+
+    if m.model_path:
+        os.makedirs(m.model_path, exist_ok=True)
+        with open(os.path.join(m.model_path, "cfg_args.json"), "w") as f:
+            f.write(to_json(cfg))
+        # A self-contained model directory: render and viewers reload this
+        # exact topology without the original template.
+        save_assets(model.assets, os.path.join(m.model_path, "flame_assets.npz"))
+
+    return TrainerHarness(cfg=cfg, scene=scene, model=model, state=state,
+                          spatial_lr_scale=scene.cameras_extent,
+                          start_iteration=start_iteration)
+
+
+def _flame_params(state: TrainState, t: int) -> FlameParams:
+    return FlameParams(
+        shape=state.flame_static.shape,
+        expr=state.flame.expr[t][None], rotation=state.flame.rotation[t][None],
+        neck=state.flame.neck[t][None], jaw=state.flame.jaw[t][None],
+        eyes=state.flame.eyes[t][None], translation=state.flame.translation[t][None],
+        static_offset=state.flame_static.static_offset,
+    )
+
+
+def probe_tier_budgets(tcfg: TileConfig, cfg: Config, model: FlameModel, state: TrainState,
+                       camera: Camera, verbose: bool = True) -> TileConfig:
+    """Tier budgets sized from the first training frame's footprints, when
+    none are configured: `render.probe_tile_config`, the serving path's
+    probe, at the camera's timestep."""
+    if tcfg.tiers:
+        return tcfg
+    probed = probe_tile_config(model, state.params, state.aux,
+                               _flame_params(state, int(camera.timestep or 0)), camera,
+                               tcfg.tile_h, tcfg.tile_w)
+    if verbose:
+        spec = probed.tier_spec(state.params.capacity)
+        print(f"[info] tier auto-probe: base={spec.base} tiers={spec.tiers} "
+              f"(expansion {spec.expansion_size(state.params.capacity)} slots)")
+    return dataclasses.replace(tcfg, base_budget=probed.base_budget, tiers=probed.tiers)
+
+
+def make_render_fn(model: FlameModel, cfg: Config, tcfg: TileConfig):
+    """Full-forward render for eval and offline use: render(state, camera,
+    timestep, bg, sh_degree) → image [H, W, 3]. The colour net is not
+    ported: a configuration with it raises."""
+    if cfg.opt.use_color_calibration:
+        raise NotImplementedError("make_render_fn: the colour net is not ported")
+
+    @torch.no_grad()
+    def render(state: TrainState, camera: Camera, timestep: int, bg: torch.Tensor,
+               sh_degree: int) -> torch.Tensor:
+        verts = model(_flame_params(state, int(timestep)))
+        wg = world_gaussians(state.params, state.aux, face_frames(verts[0], model.faces))
+        return render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
+                            sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg).color
+
+    return render
+
+
+def _background(cfg: Config, device) -> torch.Tensor:
+    return (torch.ones(3, device=device) if cfg.model.white_background
+            else torch.zeros(3, device=device))
+
+
+def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: int,
+                   max_views: Optional[int] = None, bg: Optional[torch.Tensor] = None) -> dict:
+    """PSNR/SSIM over a split (`training_report`, `train.py:313-394`).
+    LPIPS is not ported yet (nor are its weights in the repository)."""
+    scene, cfg = harness.scene, harness.cfg
+    cams = scene.cameras(split)
+    recs = scene.records(split)
+    if not cams:
+        return {}
+    dev = scene.device
+    if bg is None:
+        bg = _background(cfg, dev)
+    n = len(cams) if max_views is None else min(max_views, len(cams))
+    psnrs, ssims = [], []
+    for i in range(n):
+        gt = torch.from_numpy(load_view(recs[i], cams[i])).to(dev)
+        img = torch.clamp(render_fn(harness.state, cams[i], cams[i].timestep, bg, sh_degree),
+                          0.0, 1.0)
+        psnrs.append(float(psnr_fn(img, gt)))
+        ssims.append(float(ssim_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1))))
+    return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)), "n": n}
+
+
+def densify_event(harness: TrainerHarness, iteration: int) -> dict:
+    """One adaptive-density-control event (cadence: `train.py:264-273`)."""
+    cfg, state, model = harness.cfg, harness.state, harness.model
+    o = cfg.opt
+    dcfg = DensifyConfig(
+        grad_threshold=o.densify_grad_threshold,
+        percent_dense=o.percent_dense,
+        min_opacity=0.005,
+        max_screen_size=20.0 if iteration > o.opacity_reset_interval else 0.0,
+    )
+    with torch.no_grad():
+        frames = face_frames(model(_flame_params(state, 0))[0], model.faces)
+    params, aux, mu, nu, report = densify_and_prune(
+        state.params, state.aux, state.adam.mu, state.adam.nu,
+        extent=harness.spatial_lr_scale, cfg=dcfg, frames=frames, generator=state.generator,
+    )
+    harness.state = dataclasses.replace(state, params=params, aux=aux,
+                                        adam=state.adam._replace(mu=mu, nu=nu))
+    return {k: int(v) for k, v in report._asdict().items()}
+
+
+def grow_gauss_capacity_event(harness: TrainerHarness, factor: int = 2) -> int:
+    """Double the Gaussian slot capacity after densify dropped requests
+    (the reference grows its tensors; padded buffers grow explicitly)."""
+    state = harness.state
+    new_cap = state.params.capacity * factor
+    params, aux, mu, nu = grow_capacity(state.params, state.aux, state.adam.mu,
+                                        state.adam.nu, new_cap)
+    harness.state = dataclasses.replace(state, params=params, aux=aux,
+                                        adam=state.adam._replace(mu=mu, nu=nu))
+    return new_cap
+
+
+def opacity_reset_event(harness: TrainerHarness) -> None:
+    state = harness.state
+    params, mu, nu = reset_opacity(state.params, state.adam.mu, state.adam.nu)
+    harness.state = dataclasses.replace(state, params=params,
+                                        adam=state.adam._replace(mu=mu, nu=nu))
+
+
+class DeviceGtCache:
+    """All ground-truth views resident on the device as uint8, uploaded once
+    (4× smaller than float32; `get` converts). At 802×550 a view is 1.3 MB,
+    so 96 views are 127 MB of device memory."""
+
+    def __init__(self, records, cameras, device, max_bytes: int = 4 << 30):
+        h, w = cameras[0].height, cameras[0].width
+        if len(records) * h * w * 3 > max_bytes:
+            raise MemoryError("dataset too large for the device GT cache")
+        self.data = torch.from_numpy(view_stack(records, cameras)).to(device)
+
+    def get(self, view: int) -> torch.Tensor:
+        return gt_to_float(self.data[view])
+
+
+def _timed(harness: TrainerHarness, kind: str, it: int, fn, **info):
+    """fn() on the host clock, recorded in `harness.events` with `info` and,
+    when fn returns a dict, its items."""
+    t0 = time.perf_counter()
+    out = fn()
+    ev = {"kind": kind, "iteration": it, "ms": 1e3 * (time.perf_counter() - t0), **info}
+    if isinstance(out, dict):
+        ev.update(out)
+    harness.events.append(ev)
+    return out
+
+
+def _post_step_events(
+    harness: TrainerHarness,
+    it: int,
+    sh_deg: int,
+    *,
+    render_fn,
+    eval_every: Optional[int],
+    eval_views: int,
+    bg: torch.Tensor,
+    save_set: set,
+    ckpt_set: set,
+    eval_set: frozenset = frozenset(),
+) -> None:
+    """Densify / opacity reset / eval / save / checkpoint at the standard
+    cadences (`train.py:264-289`). Each event's host milliseconds go to
+    `harness.events`."""
+    cfg, scene, model = harness.cfg, harness.scene, harness.model
+    o = cfg.opt
+    # Strictly after densify_from_iter (reference train.py:268 uses `>`).
+    if o.densify_from_iter < it < o.densify_until_iter and it % o.densification_interval == 0:
+        report = _timed(harness, "densify", it, lambda: densify_event(harness, it))
+        print(f"  [densify {it}] {report}")
+        if report.get("dropped", 0) > 0:
+            new_cap = grow_gauss_capacity_event(harness)
+            print(f"[warn] densify dropped {report['dropped']} grow requests "
+                  f"— Gaussian capacity doubled to {new_cap}")
+    # The reference resets opacity on the interval and once at
+    # densify_from_iter for white-background scenes (train.py:272-273).
+    if it < o.densify_until_iter and (
+            it % o.opacity_reset_interval == 0
+            or (cfg.model.white_background and it == o.densify_from_iter)):
+        _timed(harness, "opacity_reset", it, lambda: opacity_reset_event(harness))
+    if (eval_every and it % eval_every == 0) or it in eval_set:
+        for split in ("val", "test"):
+            m = _timed(harness, "eval", it, lambda: evaluate_split(
+                harness, split, render_fn, sh_deg, max_views=eval_views, bg=bg), split=split)
+            if m:
+                print(f"  [eval {split}] psnr={m['psnr']:.2f} ssim={m['ssim']:.4f}")
+    if it in save_set:
+        def save():
+            flame_param = flame_table_from_state(harness.state, scene.flame_table)
+            scene.save(it, harness.state.params, harness.state.aux, flame_param)
+        _timed(harness, "save", it, save)
+    if it in ckpt_set:
+        _timed(harness, "checkpoint", it, lambda: save_train_state(
+            os.path.join(cfg.model.model_path, f"chkpnt{it}.npz"), harness.state, it))
+
+
+def _grow_tile_budgets(tcfg: TileConfig, budget_overflow: int, verbose: bool = True,
+                       max_footprint: int = 0, n_gauss: int = 0) -> Optional[TileConfig]:
+    """Grow the tier budgets after a budget overflow (the CUDA reference's
+    per-tile lists are dynamic). Returns the grown config, or None if
+    nothing overflowed. Only the sorted pipeline is ported: it has no tile
+    capacity to overflow, only tier budgets."""
+    if budget_overflow <= 0:
+        return None
+    new = grow_tiers(tcfg.tier_spec(n_gauss), max_footprint, n_gauss)
+    if verbose:
+        print(f"[warn] tier-budget overflow ({budget_overflow} bbox tiles truncated, max "
+              f"footprint {max_footprint}) — tiers grown to {new.tiers} (rebuilding steps)")
+    return dataclasses.replace(tcfg, base_budget=new.base, tiers=new.tiers)
+
+
+def train(
+    harness: TrainerHarness,
+    iterations: Optional[int] = None,
+    log_every: int = 100,
+    eval_every: Optional[int] = None,
+    save_iterations: Sequence[int] = (),
+    checkpoint_iterations: Sequence[int] = (),
+    eval_iterations: Sequence[int] = (),
+    eval_views: int = 4,
+    on_step: Optional[Callable[[int, dict], None]] = None,
+    seed: int = 0,
+    prefetch_workers: int = 4,
+    device_cache_bytes: int = 4 << 30,
+    gui_service: Optional[Callable[[int], bool]] = None,
+    debug_from: int = -1,
+) -> List[dict]:
+    """Run the loop; returns the logged metric dicts.
+
+    The ground truth comes from a device cache of every training view
+    (uint8) when it fits in `device_cache_bytes`, else from a threaded
+    prefetcher. `gui_service` and `debug_from` are not ported and raise."""
+    if gui_service is not None:
+        raise NotImplementedError("train: the GUI service is not ported")
+    if debug_from >= 0:
+        raise NotImplementedError("train: debug_from is not ported")
+    cfg, scene, model = harness.cfg, harness.scene, harness.model
+    o = cfg.opt
+    iterations = iterations if iterations is not None else o.iterations
+    dev = scene.device
+    tcfg = tile_config(cfg)
+    cams_all = scene.cameras("train")
+    recs = scene.records("train")
+    if cams_all:
+        tcfg = probe_tier_budgets(tcfg, cfg, model, harness.state, cams_all[0])
+    bg = _background(cfg, dev)
+
+    step = None
+    source = sampler = None
+    render_fn = make_render_fn(model, cfg, tcfg)
+    logs: List[dict] = []
+    ema = None
+    save_set = set(save_iterations)
+    ckpt_set = set(checkpoint_iterations)
+    eval_set = frozenset(eval_iterations)
+    # Running maxima of the step's budget counters, on the device.
+    bovf_dev = mfp_dev = None
+    harness.live_tile_config = tcfg
+    t0 = time.time()
+    try:
+        it = harness.start_iteration + 1
+        while it <= iterations:
+            if step is None:
+                step = make_train_step(model, cfg, tcfg, spatial_lr_scale=harness.spatial_lr_scale)
+            if source is None:
+                try:
+                    source = _timed(harness, "gt_cache", it, lambda: DeviceGtCache(
+                        recs, cams_all, dev, max_bytes=device_cache_bytes), views=len(recs))
+                    sampler = iter(EpochSampler(len(recs), seed))
+                except MemoryError:
+                    source = Prefetcher(recs, cams_all, dev, seed=seed, workers=prefetch_workers)
+            sh_deg = active_sh_degree(it, cfg.model.sh_degree)
+            if sampler is not None:
+                v = next(sampler)
+                gt0 = source.get(v)
+            else:
+                views, gt = source.next()
+                v, gt0 = views[0], gt[0]
+            cam = cams_all[v]
+            out = step(harness.state, gt0, cam, cam.timestep, bg, sh_deg)
+            harness.state = out.state
+            metrics = out.metrics
+            bovf_dev = (metrics["budget_overflow"] if bovf_dev is None
+                        else torch.maximum(bovf_dev, metrics["budget_overflow"]))
+            mfp_dev = (metrics["max_footprint"] if mfp_dev is None
+                       else torch.maximum(mfp_dev, metrics["max_footprint"]))
+
+            if it % log_every == 0 or it == iterations:
+                budget_overflow_seen = int(bovf_dev)
+                mfp_seen = int(mfp_dev)
+                bovf_dev = mfp_dev = None
+                grown = _grow_tile_budgets(tcfg, budget_overflow_seen, max_footprint=mfp_seen,
+                                           n_gauss=harness.state.params.capacity)
+                if grown is not None:
+                    harness.events.append({"kind": "grow_tiers", "iteration": it, "ms": 0.0,
+                                           "budget_overflow": budget_overflow_seen,
+                                           "tiers": grown.tiers})
+                    tcfg = grown
+                    harness.live_tile_config = tcfg
+                    step = None
+                    render_fn = make_render_fn(model, cfg, tcfg)
+
+                loss = float(metrics["loss"])
+                ema = loss if ema is None else 0.6 * ema + 0.4 * loss
+                rec = {
+                    "iteration": it,
+                    "loss": loss,
+                    "ema_loss": ema,
+                    "psnr": float(metrics["psnr"]),
+                    "num_points": int(num_alive(harness.state.aux)),
+                    "budget_overflow": budget_overflow_seen,
+                    "elapsed_s": time.time() - t0,
+                }
+                logs.append(rec)
+                print(f"[{it}/{iterations}] loss={loss:.5f} ema={ema:.5f} "
+                      f"psnr={rec['psnr']:.2f} pts={rec['num_points']}")
+                if on_step:
+                    on_step(it, rec)
+
+            _post_step_events(
+                harness, it, active_sh_degree(it, cfg.model.sh_degree),
+                render_fn=render_fn, eval_every=eval_every, eval_views=eval_views, bg=bg,
+                save_set=save_set, ckpt_set=ckpt_set, eval_set=eval_set,
+            )
+            it += 1
+    finally:
+        if isinstance(source, Prefetcher):
+            source.close()
+    return logs

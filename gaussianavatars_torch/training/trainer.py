@@ -74,6 +74,9 @@ class TrainState:
     flame: FlameTrainable
     flame_static: FlameStatic
     flame_adam: AdamState
+    # The host loop's random draws (the densify split's normals): a CPU
+    # generator, where the JAX state carries a PRNG key.
+    generator: Optional[torch.Generator] = None
 
 
 class StepOutput(NamedTuple):
@@ -84,9 +87,14 @@ class StepOutput(NamedTuple):
 
 def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
                      num_timesteps: int, n_expr: int = 100, n_shape: int = 300,
-                     num_verts: int = 0, flame_init: Optional[dict] = None) -> TrainState:
+                     num_verts: int = 0, flame_init: Optional[dict] = None,
+                     generator: Optional[torch.Generator] = None,
+                     image_hw: Optional[tuple] = None) -> TrainState:
     """Fresh Adam moments and FLAME leaves (zeros, or `flame_init`'s tensors)
-    on the device of `params`."""
+    on the device of `params`. `generator` (default: a CPU generator seeded
+    with 0, as the JAX package defaults to PRNGKey(0)) is carried in the
+    state for the loop's draws. `image_hw` is taken for the JAX signature;
+    only the contrastive cache, which is not ported, reads it there."""
     dev = params.means.device
     fi = flame_init or {}
 
@@ -112,8 +120,11 @@ def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
     if "static_offset" in fi or num_verts:
         static_offset = get("static_offset", (num_verts, 3))
     flame_static = FlameStatic(shape=get("shape", (n_shape,)), static_offset=static_offset)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
     return TrainState(params=params, aux=aux, adam=adam_init(params), flame=flame,
-                      flame_static=flame_static, flame_adam=adam_init(flame))
+                      flame_static=flame_static, flame_adam=adam_init(flame),
+                      generator=generator)
 
 
 def gaussian_lr_tree(params: GaussianParams, step, cfg: Config,
@@ -288,7 +299,8 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
             **{k: v.detach() for k, v in {**loss_terms, **reg_terms}.items()},
         }
         new_state = TrainState(params=new_params, aux=aux_new, adam=new_adam, flame=new_flame,
-                               flame_static=state.flame_static, flame_adam=new_flame_adam)
+                               flame_static=state.flame_static, flame_adam=new_flame_adam,
+                               generator=state.generator)
         return StepOutput(state=new_state, metrics=metrics, image=img)
 
     return train_step

@@ -230,3 +230,55 @@ def test_train_step_on_card_matches_cpu(cuda_device):
                 continue
             y = getattr(mu_b, name).cpu()
             assert float((y - x).abs().max()) <= 1e-2 * float(x.abs().max()), name
+
+
+@pytest.mark.parametrize("name", ["a", "b", "c", "d"])
+def test_micro_reduce_kernel_matches_plain(name, cuda_device):
+    """Each micro-reduce kernel against its plain version at the benchmark's
+    468 tiles: every slot within relative 1e-5 (A and B in float32 on the
+    CUDA cores, C and D on the tensor cores in 3xTF32)."""
+    from gaussianavatars_torch.tools import micro_reduce_bench as mr
+
+    x = torch.rand((mr.NT, mr.C, 1), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    sym = f"micro_reduce_{name}"
+    before = mr.LAUNCHES[sym]
+    got = mr.reduce_slots(name, x)
+    torch.cuda.synchronize()
+    assert mr.LAUNCHES[sym] == before + 1
+    assert mr.relative_error(got, mr.PLAIN[name](x)) <= 1e-5
+    assert mr.relative_error(got, 46080.0 * x) <= 1e-5
+
+
+def test_train_synthetic_loop_on_the_card(cuda_device, tmp_path):
+    """A short run of the host loop on the card: a densify event (the
+    recipe densifies from iteration 500 every 250, so at 750), eval, PLY
+    save and checkpoints, the backward compositor once per training step.
+
+    The split at 750 makes the loss jump for some 20 steps in the JAX
+    package's loop too: `scripts/train_synthetic.py` with these flags on
+    a CPU, on the port's dataset, logs 0.0129 at 750 and 0.0724 at 760,
+    and over 800-850 a mean loss 1.23x its mean over 700-750. The port is
+    held to 2x there, and to the loss of the log at 170 at the end."""
+    from gaussianavatars_torch.tools import train_synthetic
+
+    tcp.LAUNCHES.update(dict.fromkeys(tcp.LAUNCHES, 0))
+    harness, result = train_synthetic.run(train_synthetic.parse_args([
+        "--workdir", str(tmp_path / "syn"), "--width", "256", "--height", "192",
+        "--timesteps", "3", "--cameras", "3", "--iterations", "850", "--capacity", "32768",
+        "--log_every", "10", "--eval_every", "425", "--checkpoint_every", "425"]))
+    loss = {r["iteration"]: r["loss"] for r in result["logs"]}
+    points = {r["iteration"]: r["num_points"] for r in result["logs"]}
+    assert sorted(loss) == list(range(10, 851, 10))
+    assert all(np.isfinite(v) for v in loss.values())
+    before = np.mean([loss[i] for i in range(700, 751, 10)])
+    after = np.mean([loss[i] for i in range(800, 851, 10)])
+    assert after <= 2.0 * before and loss[850] < loss[170], (before, after, loss)
+    densify = [e for e in harness.events if e["kind"] == "densify"]
+    assert [e["iteration"] for e in densify] == [750]
+    assert densify[0]["cloned"] + densify[0]["split"] > 0
+    assert points[760] != points[750]
+    assert tcp.LAUNCHES["composite_pairs_bwd"] == 850
+    assert result["eval_val"]["psnr"] > result["eval_untrained_val"]["psnr"]
+    model = tmp_path / "syn" / "model"
+    for f in ("chkpnt425.npz", "chkpnt850.npz", "point_cloud/iteration_850/point_cloud.ply"):
+        assert (model / f).exists(), f
