@@ -54,7 +54,15 @@ non-zero):
                 5 warm-up and 30 timed
                 steps (loss finite and falling, every parameter finite, the
                 `amp` backward launched once a step), steps/s of both modes
-                in alternating blocks, device ms per stage, peak memory.
+                in alternating blocks, device ms per stage, peak memory;
+ 11. micro-reduce — `tools/micro_reduce_bench.main` at NT = 468, then each
+                of its four kernels against its plain version (relative 1e-5
+                a slot), with its time, the plain version's, the
+                `torch.matmul` yardstick, its bound and share of it (C and
+                D: also of their route's tensor-core floor), its ptxas
+                report and a count of opcodes in its SASS;
+ 12. loop     — `tools/train_synthetic` at 802×550, 800 iterations, with
+                its events, then a resume from its checkpoint.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -164,7 +172,9 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Every kernel library, built in parallel; returns each one's build
+    seconds and compiler output."""
     from gaussianavatars_torch import cuda_build
 
     t0 = time.perf_counter()
@@ -172,8 +182,9 @@ def phase_build() -> None:
     log("build", seconds=time.perf_counter() - t0,
         kernels={k: v["seconds"] for k, v in built.items()})
     for name, v in built.items():
-        for line in v["ptxas"].splitlines():
+        for line in v["log"].splitlines():
             print(f"[build] {name}: {line.strip()}", flush=True)
+    return built
 
 
 def parity_table(dev):
@@ -833,6 +844,18 @@ def micro_reduce_entries() -> dict:
             for k, line in lines.items()}
 
 
+def route_floor(k: str, nt: int) -> dict:
+    """Least time of a tensor-core formulation's own products: its
+    mma.m16n8k8 TF32 count (2·16·8·8 FLOP each) at the dense TF32 peak. Per
+    16 slots and chunk, 1024 / 8 k-steps × 3 (3xTF32) × the n-tiles: 9 for
+    C (one a field, 1 of 8 columns live), 2 for D (the 9 columns in 16)."""
+    from gaussianavatars_torch.tools import micro_reduce_bench as mr
+
+    n_tiles = {"c": mr.NRED, "d": 2}[k]
+    mma = (nt * mr.C // 16) * (mr.ROWS * mr.LANES // 8) * 3 * n_tiles
+    return dict(route_mma=mma, route_floor_ms=1e3 * mma * 2 * 16 * 8 * 8 / PEAK_TF32_FLOPS)
+
+
 def micro_reduce_bound(nt: int) -> dict:
     """Least time for the micro-benchmark's work on an H100 SXM: NT·C·9·1024
     multiply-adds (every formulation does the same work) and the table read
@@ -848,12 +871,23 @@ def micro_reduce_bound(nt: int) -> dict:
                 bound_ms_3xtf32=3e3 * flops / PEAK_TF32_FLOPS)
 
 
-def phase_micro_reduce(card) -> dict:
+def phase_micro_reduce(card, built) -> dict:
     """Phase 11: `tools/micro_reduce_bench.main` at NT = 468 (the main path:
     each kernel's warm-up and 50 chained launches), then each kernel against
     its plain version on the same input, the plain versions' times, the
-    `torch.matmul` yardstick and the bounds."""
+    `torch.matmul` yardstick and the bounds, each kernel's share of its
+    bound (and for C and D of their route's tensor-core floor), its ptxas
+    report (`built`: phase 2's compiler output) and the count of some
+    opcodes in its SASS."""
+    from gaussianavatars_torch import cuda_build
     from gaussianavatars_torch.tools import micro_reduce_bench as mr
+
+    ptxas = cuda_build.ptxas_report(built["micro_reduce"]["log"])
+    try:
+        sass = cuda_build.sass_opcodes(cuda_build.library_sass("micro_reduce"))
+    except (RuntimeError, subprocess.SubprocessError) as e:   # no cuobjdump: logged, not a gate
+        sass = {}
+        log("micro_reduce/sass", error=str(e)[:200])
 
     for k in mr.LAUNCHES:
         mr.LAUNCHES[k] = 0
@@ -881,6 +915,13 @@ def phase_micro_reduce(card) -> dict:
                  launches=launches[name], replaces=rep, **bound)
         if k in ("a", "b"):
             r.pop("bound_ms_tf32"), r.pop("bound_ms_3xtf32")
+        else:
+            r.update(route_floor(k, mr.NT))
+            r["route_floor_share"] = r["route_floor_ms"] / r["ms"]
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        kern = f"kern_{k}E"   # the kernel's mangled name holds this
+        r["ptxas"] = next((v for n, v in ptxas.items() if kern in n), None)
+        r["sass"] = next((v for n, v in sass.items() if kern in n), None)
         log(f"micro_reduce/{k}", **r, card=card["nvidia_smi"])
         if not rel <= MICRO_REL_TOL:
             raise AssertionError(f"{name} disagrees with its plain version: {r}")
@@ -1130,7 +1171,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = phase_device()
-    phase_build()
+    built = phase_build()
     torch.set_grad_enabled(False)
 
     # --- 3. kernels against their plain versions ---------------------------
@@ -1328,7 +1369,7 @@ def main() -> int:
     train_amp = phase_train_amp(model, aux, cam, cfg, card, setup)
 
     # --- 11. the micro-reduce kernels ----------------------------------------
-    micro = phase_micro_reduce(card)
+    micro = phase_micro_reduce(card, built)
 
     # --- 12. the host loop ---------------------------------------------------
     loop_res = phase_loop(card)
@@ -1364,7 +1405,6 @@ def main() -> int:
             "replaces": r["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("bound_ms_tf32", "bound_ms_3xtf32") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

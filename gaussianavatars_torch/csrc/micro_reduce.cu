@@ -25,19 +25,45 @@
 // 0.0089 ms at 495 TFLOP/s of dense TF32 (0.027 ms for 3xTF32's three
 // products); the bytes (0.96 MB in, 0.96 MB out) take 0.6 us. Operations,
 // not bytes. What the designs do about it:
-//   A  the literal counterpart of one jnp.sum per slot and field: per slot
-//      and r a block-wide tree reduction of the 1024 pixel values (warp
-//      shuffles, then one warp over the 32 warps' partials in shared
-//      memory): 576 block reductions a chunk, each behind a __syncthreads.
-//      Barrier-bound by design.
+//   A  one sum per slot and field over the whole plane, then the nine
+//      added, on the CUDA cores only. The per-slot sums need no block-wide
+//      reduction: 4 threads own a slot (64 slots a chunk), each walks
+//      its share of every row, reading the ones as float4 broadcasts from
+//      shared memory, and keeps the slot's 9 field sums in registers: 9
+//      independent chains that hide the arithmetic latency. Each field's
+//      products are summed per row (32 terms a thread) and the row sums
+//      added into the field's total, so no float32 chain is longer than 32
+//      terms; then 2 __shfl_xor_sync per field combine the lanes and the
+//      nine are added. No block barrier after the ones are staged. What
+//      bounds it is the CUDA cores' issue rate: per pixel one multiply
+//      (v * ones) and 9 multiply-adds, written as __fmaf_rn (an explicit
+//      fused multiply-add, which --fmad=false leaves alone; it halves the
+//      instructions and rounds once per term instead of twice): 10
+//      instructions a slot and pixel, 0.073 ms at 128 a clock an SM and
+//      1.98 GHz. On an H100 it runs at 56-67 % of the 0.066 ms bound
+//      (chip_smoke.py phase 11; the other lane counts timed are in PERF.md).
 //   B  vectorised over the chunk's 64 slots: each warp owns slots and
 //      reduces the 128 lanes of a row (4 per thread, then __shfl_xor_sync),
 //      then the 8 rows through its own shared-memory row buffer, one pass
 //      per r; no block barrier inside the chunk.
-//   C  the tensor cores: per r, the chunk's [64 x 1024] plane times a
-//      [1024 x 8] matrix whose column 0 is (1 + r), as mma.sync.m16n8k8
-//      TF32 in 3xTF32 (hi*hi + hi*lo + lo*hi, hi = cvt.rna.tf32(x),
-//      lo = cvt.rna.tf32(x - hi)), then each row's sum over the 8 columns.
+//   C  the tensor cores, one product per field: for each r, the chunk's
+//      [64 x 1024] plane times a [1024 x 8] matrix whose column 0 is
+//      (1 + r), as mma.sync.m16n8k8 TF32 in 3xTF32 (hi*hi + hi*lo + lo*hi,
+//      hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi)), then each row's
+//      sum over the 8 columns. With 1 of 8 columns live the route itself
+//      needs 3 x 9 x 128 = 3,456 mma a warp and chunk (0.214 ms of dense
+//      TF32 at this size), so the tensor cores bound it. The k-step loop is
+//      outside the field loop: each A fragment is built and split once and
+//      feeds all nine fields' products, whose B fragments are constants in
+//      registers (hi and lo per field) and whose 9 x 2 accumulators stay in
+//      registers (72 floats). The products are issued in three passes over
+//      the fields, so the two that feed one `small` accumulator are 18
+//      apart.
+//      Two warps share a chunk's 128 k-steps (their per-slot sums meet in
+//      shared memory once per chunk): 8 warps a block, 135 registers, no
+//      spills. On an H100 it runs at ~45 % of the route's TF32 floor
+//      (chip_smoke.py phase 11; the schedules it was chosen over are in
+//      PERF.md).
 //   D  the same route with one product per chunk: [64 x 1024] x [1024 x 16]
 //      (the 9 basis columns 1 + r, padded to 16), then the sum over them.
 // In C and D the hi*hi products and the two cross products accumulate in
@@ -75,34 +101,46 @@ __device__ __forceinline__ void stage_ones(float* ones) {
 }
 
 // ------------------------------------------------------------------ A ----
-// 1024 threads, one per pixel of the [8, 128] block.
-__global__ void __launch_bounds__(P) kern_a(const float* __restrict__ x,
-                                            float* __restrict__ out) {
-  __shared__ float ones[P];
-  __shared__ float part[2][32];
-  const int p = threadIdx.x, warp = p >> 5, lane = p & 31;
+constexpr int A_LANES = 4;                   // threads a slot
+constexpr int A_QUADS = LANES / 4 / A_LANES; // float4s a thread walks in a row
+
+// K * A_LANES threads: lane q of slot j walks float4 columns q, q + A_LANES,
+// ... of every row, so a warp's slots read the same ones (broadcast).
+__global__ void __launch_bounds__(K * A_LANES) kern_a(const float* __restrict__ x,
+                                                      float* __restrict__ out) {
+  __shared__ __align__(16) float ones[P];
+  const int slot = threadIdx.x / A_LANES, q = threadIdx.x % A_LANES;
   const float* xt = x + (size_t)blockIdx.x * C;
   float* ot = out + (size_t)blockIdx.x * C;
   stage_ones(ones);
-  const float one = ones[p];
-  int buf = 0;
+  const float4* ones4 = reinterpret_cast<const float4*>(ones);
   for (int k = 0; k < N_CHUNKS; ++k) {
-    const int base = k * K;
-    for (int j = 0; j < K; ++j) {
-      const float f = xt[base + j] * one;   // this pixel of slot j's plane
-      float s = 0.0f;
-      for (int r = 0; r < NRED; ++r) {
-        const float w = warp_sum(f * (1.0f + (float)r));
-        if (lane == 0) part[buf][warp] = w;
-        // Double-buffered partials: one barrier per reduction. Warp 0 reads
-        // buffer `buf` before it reaches the next barrier, and nobody
-        // writes `buf` again until after that barrier.
-        __syncthreads();
-        if (warp == 0) s = s + warp_sum(part[buf][lane]);
-        buf ^= 1;
+    const float v = xt[k * K + slot];
+    float tot[NRED] = {};
+#pragma unroll 1
+    for (int row = 0; row < ROWS; ++row) {
+      float part[NRED] = {};
+#pragma unroll
+      for (int j = 0; j < A_QUADS; ++j) {
+        const float4 o = ones4[row * (LANES / 4) + q + A_LANES * j];
+        const float f[4] = {v * o.x, v * o.y, v * o.z, v * o.w};   // 4 pixels of the plane
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int r = 0; r < NRED; ++r) part[r] = __fmaf_rn(f[e], 1.0f + (float)r, part[r]);
       }
-      if (p == 0) ot[base + j] = s;
+#pragma unroll
+      for (int r = 0; r < NRED; ++r) tot[r] = tot[r] + part[r];
     }
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < NRED; ++r) {
+      float t = tot[r];
+#pragma unroll
+      for (int o = 1; o < A_LANES; o <<= 1) t = t + __shfl_xor_sync(0xffffffffu, t, o);
+      s = s + t;
+    }
+    if (q == 0) ot[k * K + slot] = s;
   }
 }
 
@@ -156,8 +194,9 @@ __global__ void __launch_bounds__(B_WARPS * 32) kern_b(const float* __restrict__
 }
 
 // ------------------------------------------------------------- C and D ----
-// 128 threads: 4 warps, warp w owning rows 16w .. 16w + 15 (slots) of the
-// chunk. mma.m16n8k8 fragments (PTX ISA, .tf32), g = lane / 4, i = lane % 4:
+// D: 128 threads, 4 warps, warp w owning rows 16w .. 16w + 15 (slots) of the
+// chunk; C: see kern_c. mma.m16n8k8 fragments (PTX ISA, .tf32), g = lane / 4,
+// i = lane % 4:
 //   A (16 x 8): a0 (g, i), a1 (g + 8, i), a2 (g, i + 4), a3 (g + 8, i + 4)
 //   B (8 x 8):  b0 (k = i, n = g), b1 (k = i + 4, n = g)
 //   D (16 x 8): d0 (g, 2i), d1 (g, 2i + 1), d2 (g + 8, 2i), d3 (g + 8, 2i + 1)
@@ -225,39 +264,71 @@ __device__ __forceinline__ void row_sums(const float* d, int n_tiles, float* sg,
   *sg8 = b;
 }
 
-__global__ void __launch_bounds__(MMA_WARPS * 32) kern_c(const float* __restrict__ x,
-                                                         float* __restrict__ out) {
+constexpr int C_WARPS = 2 * MMA_WARPS;   // two warps share a chunk's k-steps
+constexpr int KSTEPS = P / 8 / 2;        // k-steps a warp takes of a chunk
+
+// C_WARPS warps: warp w owns rows 16 (w % 4) .. + 15 of each chunk and
+// k-step half w / 4 of it. One block an SM is enough (the 72 accumulators
+// need ~135 registers): without the minimum ptxas keeps it to 128 and
+// spills.
+__global__ void __launch_bounds__(C_WARPS * 32, 1) kern_c(const float* __restrict__ x,
+                                                       float* __restrict__ out) {
   __shared__ float ones[P];
+  __shared__ float ksum[2][K];   // the second half's per-slot sums, by chunk parity
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, i = lane & 3;
+  const int rw = warp % MMA_WARPS, ks = warp / MMA_WARPS;
   const float* xt = x + (size_t)blockIdx.x * C;
   float* ot = out + (size_t)blockIdx.x * C;
   stage_ones(ones);
+  // B of field r: column 0 is (1 + r), the other columns 0, at every pixel.
+  Split b[NRED];
+#pragma unroll
+  for (int r = 0; r < NRED; ++r) b[r] = split(g == 0 ? 1.0f + (float)r : 0.0f);
   for (int k = 0; k < N_CHUNKS; ++k) {
-    const int row0 = k * K + 16 * warp;
+    const int row0 = k * K + 16 * rw;
     const float vg = xt[row0 + g], vg8 = xt[row0 + g + 8];
+    float big[NRED][4] = {}, small[NRED][4] = {};
+    for (int kk = ks * KSTEPS; kk < (ks + 1) * KSTEPS; ++kk) {
+      Split a[4];
+      a_fragment(a, ones, kk, i, vg, vg8);   // one split for all nine fields
+      // mma_3xtf32's products (small += A_hi B_lo, then A_lo B_hi; big +=
+      // A_hi B_hi) in three passes over the fields, so that the two
+      // products into one `small` are 18 apart.
+#pragma unroll
+      for (int r = 0; r < NRED; ++r)
+        mma_tf32(small[r], a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[r].lo, b[r].lo);
+#pragma unroll
+      for (int r = 0; r < NRED; ++r)
+        mma_tf32(big[r], a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[r].hi, b[r].hi);
+#pragma unroll
+      for (int r = 0; r < NRED; ++r)
+        mma_tf32(small[r], a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[r].hi, b[r].hi);
+    }
     float s = 0.0f, s8 = 0.0f;
+#pragma unroll
     for (int r = 0; r < NRED; ++r) {
-      // B: column 0 is (1 + r), the other columns 0, for every pixel k.
-      const Split b = split(g == 0 ? 1.0f + (float)r : 0.0f);
-      // Two chains of each kind (even and odd k-steps) for latency.
-      float big0[4] = {}, big1[4] = {}, small0[4] = {}, small1[4] = {};
-      for (int kk = 0; kk < P / 8; kk += 2) {
-        Split a[4];
-        a_fragment(a, ones, kk, i, vg, vg8);
-        mma_3xtf32(big0, small0, a, b, b);
-        a_fragment(a, ones, kk + 1, i, vg, vg8);
-        mma_3xtf32(big1, small1, a, b, b);
-      }
       float d[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) d[e] = (small0[e] + small1[e]) + (big0[e] + big1[e]);
+      for (int e = 0; e < 4; ++e) d[e] = small[r][e] + big[r][e];
       float rs, rs8;
       row_sums(d, 1, &rs, &rs8);
       s = s + rs;
       s8 = s8 + rs8;
     }
-    if (i == 0) {
+    // The buffer of chunk k is written again at k + 2, after every warp has
+    // passed the barrier of k + 1, so one barrier suffices.
+    float* buf = ksum[k & 1];
+    if (ks == 1 && i == 0) {
+      buf[16 * rw + g] = s;
+      buf[16 * rw + g + 8] = s8;
+    }
+    __syncthreads();
+    if (ks == 0) {
+      s = s + buf[16 * rw + g];
+      s8 = s8 + buf[16 * rw + g + 8];
+    }
+    if (ks == 0 && i == 0) {
       ot[row0 + g] = s;
       ot[row0 + g + 8] = s8;
     }
@@ -307,7 +378,7 @@ extern "C" {
 
 // x: [nt, 512] float32 (the [NT, C, 1] table), out: the same shape.
 int micro_reduce_a(const float* x, float* out, int nt, cudaStream_t stream) {
-  if (nt > 0) kern_a<<<nt, P, 0, stream>>>(x, out);
+  if (nt > 0) kern_a<<<nt, K * A_LANES, 0, stream>>>(x, out);
   return (int)cudaGetLastError();
 }
 
@@ -317,7 +388,7 @@ int micro_reduce_b(const float* x, float* out, int nt, cudaStream_t stream) {
 }
 
 int micro_reduce_c(const float* x, float* out, int nt, cudaStream_t stream) {
-  if (nt > 0) kern_c<<<nt, MMA_WARPS * 32, 0, stream>>>(x, out);
+  if (nt > 0) kern_c<<<nt, C_WARPS * 32, 0, stream>>>(x, out);
   return (int)cudaGetLastError();
 }
 

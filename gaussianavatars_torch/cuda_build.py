@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,14 +42,16 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def cuda_tool(tool: str = "nvcc") -> str:
+    """A program of the CUDA toolkit (nvcc, cuobjdump): under CUDA_HOME,
+    CUDA_PATH or /usr/local/cuda, else on PATH."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / tool
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(tool)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise RuntimeError(f"{tool} not found: set CUDA_HOME or put it on PATH")
     return found
 
 
@@ -67,7 +70,9 @@ def build(names: Iterable[str] | None = None) -> dict[str, dict]:
 
     One `nvcc` per source, all started together. Returns, per name, the
     build seconds (0.0 when the library already existed) and the
-    ptxas resource report. Raises with the compiler output on failure.
+    compiler's output, which holds the ptxas resource report (kept beside
+    the library, so a library built earlier still has it; see
+    `ptxas_report`). Raises with the compiler output on failure.
     """
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,10 +82,11 @@ def build(names: Iterable[str] | None = None) -> dict[str, dict]:
     for name in names:
         lib = library_path(name)
         if lib.exists():
-            out[name] = {"seconds": 0.0, "ptxas": ""}
+            log = lib.with_suffix(".log")
+            out[name] = {"seconds": 0.0, "log": log.read_text() if log.exists() else ""}
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, lib)
     failures = []
@@ -89,12 +95,62 @@ def build(names: Iterable[str] | None = None) -> dict[str, dict]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
-        ptxas = "\n".join(l for l in log.splitlines() if "ptxas" in l)
-        out[name] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
+        out[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return out
+
+
+_PTXAS_FIELDS = (("registers", r"Used (\d+) registers"), ("smem_bytes", r"(\d+) bytes smem"),
+                 ("stack_bytes", r"(\d+) bytes stack frame"),
+                 ("spill_stores", r"(\d+) bytes spill stores"),
+                 ("spill_loads", r"(\d+) bytes spill loads"))
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Per kernel of a build's `-Xptxas -v` output, by mangled name: its
+    registers a thread, static shared memory, stack frame and spill bytes."""
+    out: dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1) or m.group(2), {})
+            continue
+        if cur is not None:
+            for key, pat in _PTXAS_FIELDS:
+                f = re.search(pat, line)
+                if f:
+                    cur[key] = int(f.group(1))
+    return out
+
+
+SASS_OPCODES = ("FFMA", "FMUL", "FADD", "HMMA", "BAR", "SHFL", "LDS")
+
+
+def sass_opcodes(text: str) -> dict[str, dict]:
+    """Per kernel of `cuobjdump -sass` output, by mangled name: how many
+    instructions of each opcode in SASS_OPCODES its code holds (a static
+    count, whatever the modifiers: HMMA.1688.F32.TF32 counts as HMMA)."""
+    out: dict[str, dict] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict.fromkeys(SASS_OPCODES, 0))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if cur is not None and m and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return out
+
+
+def library_sass(name: str) -> str:
+    """`cuobjdump -sass` of kernel `name`'s built library."""
+    return subprocess.run([cuda_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

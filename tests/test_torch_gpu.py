@@ -232,14 +232,22 @@ def test_train_step_on_card_matches_cpu(cuda_device):
             assert float((y - x).abs().max()) <= 1e-2 * float(x.abs().max()), name
 
 
+@pytest.mark.parametrize("values", ["uniform", "log_uniform"])
+@pytest.mark.parametrize("nt", [1, 5, 468])
 @pytest.mark.parametrize("name", ["a", "b", "c", "d"])
-def test_micro_reduce_kernel_matches_plain(name, cuda_device):
-    """Each micro-reduce kernel against its plain version at the benchmark's
-    468 tiles: every slot within relative 1e-5 (A and B in float32 on the
-    CUDA cores, C and D on the tensor cores in 3xTF32)."""
+def test_micro_reduce_kernel_matches_plain(name, nt, values, cuda_device):
+    """Each micro-reduce kernel against its plain version, at 1, 5 and the
+    benchmark's 468 tiles (the block mappings take any tile count), on
+    U(0, 1) and on 10 ** U(-3, 3) (mixed magnitudes for C's and D's 3xTF32
+    split): every slot within relative 1e-5 (A and B in float32 on the CUDA
+    cores, C and D on the tensor cores in 3xTF32)."""
     from gaussianavatars_torch.tools import micro_reduce_bench as mr
 
-    x = torch.rand((mr.NT, mr.C, 1), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((nt, mr.C, 1), generator=g)
+    if values == "log_uniform":
+        x = 10.0 ** (6.0 * x - 3.0)
+    x = x.to(cuda_device)
     sym = f"micro_reduce_{name}"
     before = mr.LAUNCHES[sym]
     got = mr.reduce_slots(name, x)
