@@ -17,7 +17,10 @@ non-zero):
                 and early stops) and at the full-size frame's table (also
                 the first training frame's table); the backward kernel with
                 fixed-seed cotangents, each row within 1e-4 of its largest
-                plain value and the plain version's zero slots exact;
+                plain value and the plain version's zero slots exact; the
+                port's 9-row table against the JAX package's 16-row layout
+                (bit for bit, rows 9..15 zero); the backward's four
+                instantiations without spills in their ptxas report;
   4. slice    — the benchmark scene at full width (802×550, 90,090 FLAME-
                 bound Gaussians, SH degree 3, 32×32 tiles, probed tier
                 budgets), rendered frame after frame through
@@ -60,9 +63,15 @@ non-zero):
                 a slot), with its time, the plain version's, the
                 `torch.matmul` yardstick, its bound and share of it (C and
                 D: also of their route's tensor-core floor), its ptxas
-                report and a count of opcodes in its SASS;
+                report and a count of opcodes in its SASS; the no-fold
+                gate: no kernel above 1.05 of its bound, and each one's
+                SASS holding its route's instruction (FFMA in A, SHFL in B,
+                HMMA in C and D);
  12. loop     — `tools/train_synthetic` at 802×550, 800 iterations, with
-                its events, then a resume from its checkpoint.
+                its events, then a resume from its checkpoint;
+ 13. fitted   — row 2's four entries (v3, v4, float32 and `amp`) on one
+                802×550 view of phase 12's fitted avatar: against their
+                plain versions, timed, with the walked pairs.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -360,10 +369,11 @@ def compare_bwd_kernel(label: str, table, fwd_outputs, seed: int) -> dict:
     walked = walked_pairs(starts, counts, stop)
     res = dict(max_abs_err=float(row_err.max()), rel_err_per_row=rel,
                zeros_exact=zeros_exact, zero_slots=int(plain_zero.sum()),
+               writes_every_column=writes_every_column(d, args, False),
                walked_pairs=int(walked.sum()), longest_walk=int(walked.max()),
                walks_cut_by_stops=int((walked < counts.long()).sum()))
     log(f"kernels/bwd_{label}", **res)
-    if not (max(rel) <= BWD_REL_TOL and zeros_exact):
+    if not (max(rel) <= BWD_REL_TOL and zeros_exact and res["writes_every_column"]):
         raise AssertionError(f"composite_pairs_bwd disagrees with its plain version: {res}")
     return dict(res, args=args, plain=r, out=d)
 
@@ -385,6 +395,16 @@ def with_impl(impl: str, fn):
         return fn()
     finally:
         cp._FWD_IMPL = cp._BWD_IMPL = "v3"
+
+
+def writes_every_column(d, bwd_args, amp: bool) -> bool:
+    """Whether a launch into a NaN-filled output gives rows 0..8 of the
+    wrapper's result `d`: the v3/v4 kernel writes every column itself."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    out = torch.full_like(d, float("nan"))
+    cp._launch_bwd_cuda(out, *bwd_args, amp=amp)
+    return bool(torch.equal(out[:9], d[:9]))
 
 
 def bwd_errors(d, r) -> dict:
@@ -436,11 +456,14 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
         d = with_impl(impl, lambda: cp.bwd_call_pairs(*args, amp=amp))
         torch.cuda.synchronize()
         res = bwd_errors(d, r16 if amp else r32)
+        if impl in cp._BWD_WRITES_ALL:
+            res["writes_every_column"] = with_impl(impl, lambda: writes_every_column(d, args, amp))
         if impl == "v4":   # v4 against the v3 kernel of the same mode
             v3 = kb_res["out"] if not amp else cp.bwd_call_pairs(*args, amp=True)
             res["bit_equal_to_v3"] = bool(torch.equal(d, v3))
         log(f"kernels/{name.replace('composite_pairs_', '')}_{label}", **res)
-        if not (max(res["rel_err_per_row"]) <= BWD_REL_TOL and res["zeros_exact"]):
+        if not (max(res["rel_err_per_row"]) <= BWD_REL_TOL and res["zeros_exact"]
+                and res.get("writes_every_column", True)):
             raise AssertionError(f"{name} disagrees with its plain version: {res}")
         out[name] = res
     log(f"kernels/amp_vs_f32_plain_{label}", rel_diff_per_row=amp_moves,
@@ -448,15 +471,89 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
     return out
 
 
-def time_entries(table, fwd_outputs, bwd_args, n_cols: int) -> dict:
-    """Per new entry point at the full frame: ms (CUDA events; a backward's
+# composite_pairs_bwd.cu's kernel, by the template arguments (amp, gc_vpu)
+# in its mangled name, and the C entry point of each instantiation.
+BWD_INSTANCES = {"ILb0ELb0E": "composite_pairs_bwd", "ILb1ELb0E": "composite_pairs_bwd_amp",
+                 "ILb0ELb1E": "composite_pairs_bwd_v4", "ILb1ELb1E": "composite_pairs_bwd_v4_amp"}
+ROW2_ENTRIES = (("v3", False), ("v3", True), ("v4", False), ("v4", True))
+
+
+def bwd_resources(built) -> dict:
+    """The ptxas report (phase 2's compiler output) of the four
+    instantiations of composite_pairs_bwd.cu: registers, shared memory,
+    stack and spill bytes. Fails when one is missing or spills."""
+    from gaussianavatars_torch import cuda_build
+
+    out = {}
+    for mangled, rep in cuda_build.ptxas_report(built["composite_pairs_bwd"]["log"]).items():
+        for key, name in BWD_INSTANCES.items():
+            if f"composite_pairs_bwd_kernel{key}" in mangled:
+                out[name] = rep
+    log("kernels/bwd_ptxas", **out)
+    if len(out) != len(BWD_INSTANCES) or any(
+            r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in out.values()):
+        raise AssertionError(f"composite_pairs_bwd: an instantiation is missing or spills: {out}")
+    return out
+
+
+def compare_16_rows(label: str, table, fwd_outputs, seed: int) -> dict:
+    """The JAX package's 16-row table on the card: the forward's outputs,
+    and rows 0..8 of each row-2 entry's gradient (v3, v4, float32 and
+    `amp`), equal the port's 9-row table's bit for bit, and the gradient's
+    rows 9..15 are exact zeros."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    dataT, starts, counts, th, tw, ntx = table
+    pad = torch.zeros((16, dataT.shape[1]), dtype=dataT.dtype, device=dataT.device)
+    pad[:9] = dataT
+    fwd16 = cp.fwd_call_pairs(pad, starts, counts, th, tw, ntx)
+    res = {"composite_pairs_fwd": all(map(torch.equal, fwd16, fwd_outputs))}
+    g_acc_t, g_t = cotangents(starts.shape[0], th * tw, dataT.device, seed)
+    rest = (starts, counts, *fwd_outputs, g_acc_t, g_t, th, tw, ntx)
+    for impl, amp in ROW2_ENTRIES:
+        d9 = with_impl(impl, lambda: cp.bwd_call_pairs(dataT, *rest, amp=amp))
+        d16 = with_impl(impl, lambda: cp.bwd_call_pairs(pad, *rest, amp=amp))
+        res[cp.bwd_entry(impl, amp)[1]] = bool(torch.equal(d16[:9], d9) and not d16[9:].any())
+    log(f"kernels/16_rows_{label}", **res)
+    if not all(res.values()):
+        raise AssertionError(f"16-row table differs from the 9-row one: {res}")
+    return res
+
+
+def time_bwd(impl: str, amp: bool, stop, bwd_args) -> dict:
+    """One backward entry point at one table: the wrapper's ms (its
+    allocation and zero fill included) and the kernel's alone (into one
+    output), CUDA events; the plain version's ms (once); the wrapper's bound
+    (the table it returns written once) and the kernel's (v3 and v4: rows
+    0..8 of every column, which it writes; v2: its walked pairs' rows)."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    dataT, starts, counts = bwd_args[:3]
+    p = bwd_args[-3] * bwd_args[-2]
+    ms = with_impl(impl, lambda: cuda_ms(lambda: cp.bwd_call_pairs(*bwd_args, amp=amp),
+                                         N_KERNEL_REPS))
+    dgrad = torch.zeros_like(dataT)
+    kernel_ms = with_impl(impl, lambda: cuda_ms(
+        lambda: cp._launch_bwd_cuda(dgrad, *bwd_args, amp=amp), N_KERNEL_REPS))
+    del dgrad
+    # The v3/v4 kernel writes rows 0..8 of every column; v2's only its walk.
+    k_bound = bwd_bound(starts, counts, stop, p, (9, dataT.shape[1])
+                        if impl in cp._BWD_WRITES_ALL else None)
+    return dict(ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms(lambda: cp.bwd_call_pairs_reference(*bwd_args, amp=amp)),
+                kernel_bound_ms=k_bound["bound_ms"], kernel_bound_by=k_bound["bound_by"],
+                **bwd_bound(starts, counts, stop, p, tuple(dataT.shape)))
+
+
+def time_entries(table, fwd_outputs, bwd_args) -> dict:
+    """Per other entry point at the full frame: ms (CUDA events; a backward's
     wrapper with its zero fill, as row 2 is timed), the backward kernel
     alone, the plain version's time (once), and the bound of the same work
     (`compositor_bound`/`bwd_bound`: every implementation does row 1's or
     row 2's work)."""
     from gaussianavatars_torch.ops import composite_pairs as cp
 
-    dataT, starts, counts, th, tw, _ntx = table
+    _dataT, starts, counts, th, tw, _ntx = table
     stop = fwd_outputs[2]
     out = {}
     for name, (kind, impl, amp, _src, _rep) in compositor_entries().items():
@@ -468,17 +565,7 @@ def time_entries(table, fwd_outputs, bwd_args, n_cols: int) -> dict:
             plain = plain_ms(lambda: cp.fwd_call_pairs_reference(*table))
             res = dict(ms=ms, plain_ms=plain, **compositor_bound(starts, counts, stop, th * tw))
         else:
-            ms = with_impl(impl, lambda: cuda_ms(lambda: cp.bwd_call_pairs(*bwd_args, amp=amp),
-                                                 N_KERNEL_REPS))
-            dgrad = torch.zeros_like(dataT)
-            kernel_ms = with_impl(impl, lambda: cuda_ms(
-                lambda: cp._launch_bwd_cuda(dgrad, *bwd_args, amp=amp), N_KERNEL_REPS))
-            del dgrad
-            plain = plain_ms(lambda: cp.bwd_call_pairs_reference(*bwd_args, amp=amp))
-            k_bound = bwd_bound(starts, counts, stop, th * tw)
-            res = dict(ms=ms, plain_ms=plain, kernel_ms=kernel_ms,
-                       kernel_bound_ms=k_bound["bound_ms"],
-                       **bwd_bound(starts, counts, stop, th * tw, n_cols))
+            res = time_bwd(impl, amp, stop, bwd_args)
         out[name] = res
     return out
 
@@ -492,17 +579,18 @@ def plain_ms(fn) -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def bwd_bound(starts, counts, stop, p: int, n_cols=None) -> dict:
+def bwd_bound(starts, counts, stop, p: int, out_shape=None) -> dict:
     """Least time for this frame's backward compositing on an H100 SXM:
     walked pairs × P pixel evaluations of BWD_FLOPS_PER_EVAL, against the
     walked pairs' nine rows read, the per-pixel inputs (acc, t_final, stop
-    and the two cotangents: 9 words) and the output. With `n_cols`, the
-    wrapper's output: the whole [16, n_cols] table written once (its zero
-    fill); without, the kernel's own: nine rows of the walked pairs."""
+    and the two cotangents: 9 words) and the output. With `out_shape`, the
+    wrapper's output: the whole (rows, n_cols) table it returns written
+    once (its zero fill; 9 rows on the main path); without, the kernel's
+    own: nine rows of the walked pairs."""
     pairs = int(walked_pairs(starts, counts, stop).sum())
     nt = starts.shape[0]
     ops = pairs * p * BWD_FLOPS_PER_EVAL
-    out_bytes = pairs * BYTES_PER_PAIR if n_cols is None else 16 * n_cols * 4
+    out_bytes = pairs * BYTES_PER_PAIR if out_shape is None else math.prod(out_shape) * 4
     nbytes = pairs * BYTES_PER_PAIR + nt * 8 + nt * p * 9 * 4 + out_bytes
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     return dict(walked_pairs=pairs, ops=ops, bytes=nbytes,
@@ -833,6 +921,9 @@ def phase_train_amp(model, aux, cam, tile_cfg, card, setup) -> dict:
 
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
 MICRO_REL_TOL = 1e-5       # every slot, each micro-reduce kernel against its plain version
+# The instruction each micro-reduce kernel's route must show in its SASS:
+# A on the CUDA cores, B by warp shuffles, C and D on the tensor cores.
+MICRO_ROUTE_OPCODE = {"a": "FFMA", "b": "SHFL", "c": "HMMA", "d": "HMMA"}
 N_LIBRARY_REPS = 20
 
 
@@ -878,16 +969,14 @@ def phase_micro_reduce(card, built) -> dict:
     `torch.matmul` yardstick and the bounds, each kernel's share of its
     bound (and for C and D of their route's tensor-core floor), its ptxas
     report (`built`: phase 2's compiler output) and the count of some
-    opcodes in its SASS."""
+    opcodes in its SASS. The no-fold gate: the phase fails if a kernel runs
+    above 1.05 of its bound or its SASS (which must be readable) lacks its
+    route's instruction (`MICRO_ROUTE_OPCODE`)."""
     from gaussianavatars_torch import cuda_build
     from gaussianavatars_torch.tools import micro_reduce_bench as mr
 
     ptxas = cuda_build.ptxas_report(built["micro_reduce"]["log"])
-    try:
-        sass = cuda_build.sass_opcodes(cuda_build.library_sass("micro_reduce"))
-    except (RuntimeError, subprocess.SubprocessError) as e:   # no cuobjdump: logged, not a gate
-        sass = {}
-        log("micro_reduce/sass", error=str(e)[:200])
+    sass = cuda_build.sass_opcodes(cuda_build.library_sass("micro_reduce"))
 
     for k in mr.LAUNCHES:
         mr.LAUNCHES[k] = 0
@@ -922,6 +1011,8 @@ def phase_micro_reduce(card, built) -> dict:
         kern = f"kern_{k}E"   # the kernel's mangled name holds this
         r["ptxas"] = next((v for n, v in ptxas.items() if kern in n), None)
         r["sass"] = next((v for n, v in sass.items() if kern in n), None)
+        r["fold_failures"] = cuda_build.fold_failures(name, r["bound_share"], r["sass"],
+                                                      MICRO_ROUTE_OPCODE[k])
         log(f"micro_reduce/{k}", **r, card=card["nvidia_smi"])
         if not rel <= MICRO_REL_TOL:
             raise AssertionError(f"{name} disagrees with its plain version: {r}")
@@ -929,6 +1020,9 @@ def phase_micro_reduce(card, built) -> dict:
     missing = [e for e, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"micro_reduce entry points not launched: {missing}")
+    folded = [f for r in out.values() for f in r["fold_failures"]]
+    if folded:
+        raise AssertionError(f"micro_reduce times that are not their route's: {folded}")
     log("micro_reduce/yardstick", library_ms=library_ms, card=card["nvidia_smi"],
         note="torch.matmul of the [NT*C, 1024] plane by the [1024, 9] basis, TF32 off; "
              "the sum over the 9 columns is left out")
@@ -1147,7 +1241,76 @@ def phase_loop(card) -> dict:
     log("loop/vs_bare_step", card=card["nvidia_smi"], steps=N_LOOP_AB, steps_per_s=rates,
         note="loop: the steps between its first and last log; bare: make_train_step on "
              "the same state, one view")
-    return dict(res, launches=launches)
+    return dict(res, launches=launches, harness=harness)
+
+
+def fitted_view(harness):
+    """The fitted avatar's first 802×550 training view (SH degree 0): its
+    table, the forward kernel against its plain version (`compare_kernel`),
+    and the backward's arguments with fixed-seed cotangents."""
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.projection import project_from_params
+    from gaussianavatars_torch.ops.rasterize_sorted import depth_key, sort_gather
+    from gaussianavatars_torch.ops.rasterize_tiled import view_colors
+    from gaussianavatars_torch.ops.sort_binning import bbox_tiles
+    from gaussianavatars_torch.training.loop import _flame_params
+
+    st, model, tcfg = harness.state, harness.model, harness.live_tile_config
+    cam = harness.scene.cameras("train")[0]
+    th, tw = tcfg.tile_h, tcfg.tile_w
+    nty, ntx = tcfg.grid(cam.height, cam.width)
+    with torch.no_grad():
+        verts = model(_flame_params(st, cam.timestep))
+        wg = world_gaussians(st.params, st.aux, face_frames(verts[0], model.faces))
+        proj = project_from_params(wg.means, wg.scales, wg.quats, cam, alive=wg.alive)
+        colors = view_colors(wg.means, wg.sh, cam, 0)
+        opac = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
+        tminx, tminy, bw, ntiles, _nty, _ntx = bbox_tiles(proj, cam.height, cam.width, th, tw,
+                                                          opacity=opac)
+        ntiles_eff = torch.where(proj.mask, ntiles, torch.zeros_like(ntiles))
+        dataT, plan = sort_gather((nty * ntx, ntx, tcfg.tier_spec(st.params.capacity)),
+                                  proj.mean2d, proj.conic, colors, opac,
+                                  (tminx, tminy, bw, ntiles_eff, depth_key(proj.depth)))
+    if int(plan.budget_overflow) != 0:
+        raise AssertionError("fitted view: tier budget overflow")
+    table = (dataT, plan.tile_starts, plan.counts, th, tw, ntx)
+    fwd = compare_kernel(f"fitted_{cam.width}x{cam.height}", table)
+    g_acc_t, g_t = cotangents(nty * ntx, th * tw, dataT.device, seed=23)
+    args = (*table[:3], *fwd["outputs"], g_acc_t, g_t, th, tw, ntx)
+    info = dict(live_gaussians=int(st.aux.alive.sum()), table_rows=dataT.shape[0],
+                resolution=f"{cam.width}x{cam.height}")
+    return table, fwd["outputs"], args, info
+
+
+def phase_fitted_bwd(card, harness) -> dict:
+    """Phase 13: row 2 on the fitted avatar (phase 12's state after its 800
+    iterations, `fitted_view`): each of row 2's four entries against its
+    plain version (`bwd_errors`, every column written) and timed
+    (`time_bwd`), with the walked pairs. These launches are comparisons and
+    timings, outside every counted main-path run."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    table, outputs, args, info = fitted_view(harness)
+    walked = walked_pairs(table[1], table[2], outputs[2])
+    out = {}
+    with torch.no_grad():
+        for impl, amp in ROW2_ENTRIES:
+            name = cp.bwd_entry(impl, amp)[1]
+            d = with_impl(impl, lambda: cp.bwd_call_pairs(*args, amp=amp))
+            torch.cuda.synchronize()
+            res = bwd_errors(d, cp.bwd_call_pairs_reference(*args, amp=amp))
+            res["writes_every_column"] = with_impl(impl, lambda: writes_every_column(d, args, amp))
+            del d
+            res.update(time_bwd(impl, amp, outputs[2], args))
+            log(f"fitted/bwd/{name}", **res, **info, longest_walk=int(walked.max()),
+                mean_walk=float(walked.float().mean()), card=card["nvidia_smi"])
+            if not (max(res["rel_err_per_row"]) <= BWD_REL_TOL and res["zeros_exact"]
+                    and res["writes_every_column"]):
+                raise AssertionError(f"{name} disagrees with its plain version on the fitted "
+                                     f"view: {res}")
+            out[name] = res
+    return out
 
 
 def main() -> int:
@@ -1183,6 +1346,8 @@ def main() -> int:
     if not kb_small["longest_walk"] > 512:   # v3 stages 256 pairs a chunk, v2 512
         raise AssertionError("parity scene must exercise multi-chunk backward walks")
     var_small = compare_variants("parity_128x256", small_table, k_small, kb_small)
+    compare_16_rows("parity_128x256", small_table, k_small["outputs"], seed=24)
+    bwd_resources(built)
 
     model, params, aux, fl, cam, n_g = build_scene(device=dev)
     cfg = probe_tile_config(model, params, aux, fl, cam)
@@ -1250,30 +1415,12 @@ def main() -> int:
     log("kernels/timing_full_802x550", ms=kernel_ms, plain_ms=plain_ms, **bound,
         card=card["nvidia_smi"])
     bwd_args = kb_full.pop("args")
-    bwd_ms = cuda_ms(lambda: cp.bwd_call_pairs(*bwd_args), N_KERNEL_REPS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cp.bwd_call_pairs_reference(*bwd_args)
-    torch.cuda.synchronize()
-    bwd_plain_ms = 1e3 * (time.perf_counter() - t0)
-    b_bound = bwd_bound(plan0.tile_starts, plan0.counts, k_full["outputs"][2], th * tw,
-                        dataT0.shape[1])
-    # The kernel alone, into one zero-filled output (each launch stores the
-    # same values), against the bound of its own walked work.
-    dgrad = torch.zeros_like(dataT0)
-    bwd_kernel_ms = cuda_ms(lambda: cp._launch_bwd_cuda(dgrad, *bwd_args), N_KERNEL_REPS)
-    if not torch.equal(dgrad, cp.bwd_call_pairs(*bwd_args)):
-        raise AssertionError("composite_pairs_bwd: repeated launches changed the output")
-    del dgrad
-    k_bound = bwd_bound(plan0.tile_starts, plan0.counts, k_full["outputs"][2], th * tw)
-    log("kernels/bwd_timing_full_802x550", ms=bwd_ms, plain_ms=bwd_plain_ms, **b_bound,
-        note="ms: the wrapper, zero fill of the [16, M] output included",
-        kernel_ms=bwd_kernel_ms, kernel_bound_ms=k_bound["bound_ms"],
-        kernel_bound_by=k_bound["bound_by"], kernel_bytes=k_bound["bytes"],
-        kernel_note="kernel_ms: the launch alone, no zero fill; its bound: the walked "
-                    "pairs' nine rows written, not the [16, M] table",
+    bwd_res = time_bwd("v3", False, k_full["outputs"][2], bwd_args)
+    log("kernels/bwd_timing_full_802x550", **bwd_res,
+        note=f"ms: the wrapper, allocation of the {list(dataT0.shape)} output included; "
+             "kernel_ms: the launch alone, which writes rows 0..8 of every column",
         card=card["nvidia_smi"])
-    var_timing = time_entries(full_table, k_full["outputs"], bwd_args, dataT0.shape[1])
+    var_timing = time_entries(full_table, k_full["outputs"], bwd_args)
     for name, res in var_timing.items():
         log(f"kernels/timing_full_802x550/{name}", **res, card=card["nvidia_smi"])
 
@@ -1374,6 +1521,9 @@ def main() -> int:
     # --- 12. the host loop ---------------------------------------------------
     loop_res = phase_loop(card)
 
+    # --- 13. row 2 on the fitted avatar --------------------------------------
+    phase_fitted_bwd(card, loop_res.pop("harness"))
+
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training and the loop.
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
@@ -1382,7 +1532,7 @@ def main() -> int:
             path_launches[e] += k
     numbers = dict(var_timing)
     numbers["composite_pairs_fwd"] = dict(ms=kernel_ms, plain_ms=plain_ms, **bound)
-    numbers["composite_pairs_bwd"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, **b_bound)
+    numbers["composite_pairs_bwd"] = bwd_res
     errors = {name: max(var_small[name]["max_abs_err"], var_full[name]["max_abs_err"])
               for name in var_small}
     errors["composite_pairs_fwd"] = max(

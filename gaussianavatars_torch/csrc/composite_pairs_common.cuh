@@ -211,17 +211,11 @@ __device__ __forceinline__ void warp_partials(float (&s)[kSums], bool contrib, f
   }
 }
 
-// Level 2, for one warp: sums the nwarps partials of one pair (stored as
-// warp_partials left them) in a fixed order; lane 0 then writes the pair's
-// nine gradient rows to dst (rows `ld` floats apart), as at
-// composite_pairs.py:802-819.
-__device__ __forceinline__ void write_pair_grad(const float* red, int red_stride, int lane,
-                                                int nwarps, const float* col, int stride,
-                                                float x0, float y0, float* dst, long long ld) {
-  float s[kSums];
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) s[k] = warp_sum(lane < nwarps ? red[k * red_stride + lane] : 0.0f);
-  if (lane != 0) return;
+// A pair's nine gradient rows from its nine sums `s` over the tile's pixels,
+// written to dst (rows `ld` floats apart), as at composite_pairs.py:802-819.
+__device__ __forceinline__ void pair_grad_rows(const float (&s)[kSums], const float* col,
+                                               int stride, float x0, float y0, float* dst,
+                                               long long ld) {
   const float mxl = col[0] - x0;
   const float myl = col[stride] - y0;
   const float ca = col[2 * stride];
@@ -244,6 +238,18 @@ __device__ __forceinline__ void write_pair_grad(const float* red, int red_stride
   dst[6 * ld] = s[7];
   dst[7 * ld] = s[8];
   dst[8 * ld] = m1 / fmaxf(op, 1e-12f);
+}
+
+// Level 2, for one warp: sums the nwarps partials of one pair (stored as
+// warp_partials left them) in a fixed order; lane 0 then writes the pair's
+// nine gradient rows.
+__device__ __forceinline__ void write_pair_grad(const float* red, int red_stride, int lane,
+                                                int nwarps, const float* col, int stride,
+                                                float x0, float y0, float* dst, long long ld) {
+  float s[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) s[k] = warp_sum(lane < nwarps ? red[k * red_stride + lane] : 0.0f);
+  if (lane == 0) pair_grad_rows(s, col, stride, x0, y0, dst, ld);
 }
 
 }  // namespace cpk

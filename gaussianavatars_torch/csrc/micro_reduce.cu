@@ -42,10 +42,18 @@
 //      instructions a slot and pixel, 0.073 ms at 128 a clock an SM and
 //      1.98 GHz. On an H100 it runs at 56-67 % of the 0.066 ms bound
 //      (chip_smoke.py phase 11; the other lane counts timed are in PERF.md).
-//   B  vectorised over the chunk's 64 slots: each warp owns slots and
-//      reduces the 128 lanes of a row (4 per thread, then __shfl_xor_sync),
-//      then the 8 rows through its own shared-memory row buffer, one pass
-//      per r; no block barrier inside the chunk.
+//   B  per field, a lane reduction of each row's 128 lanes by warp
+//      shuffles, then a reduction over the 8 rows, one slot a warp at a
+//      time. A warp's lanes form 4 units of 8 threads; unit u holds rows 2u
+//      and 2u + 1, each thread 16 lanes of both. The thread forms its share
+//      of the plane (v * ones) once a slot and sums its lanes of each
+//      (field, row) in registers (18 partials, multiply-adds), then one
+//      transposing butterfly across the unit reduces 16 of them at once
+//      (14 shuffles leave thread t field t's two row sums), field 8 takes
+//      6, the rows across the units 2 and the fields 3: 25 shuffles a
+//      slot, with no shared-memory buffer, __syncwarp or single-lane tail.
+//      The 4 units of a warp share every shuffle instruction. On an H100 it
+//      runs at ~52 % of the 0.066 ms bound (chip_smoke.py phase 11).
 //   C  the tensor cores, one product per field: for each r, the chunk's
 //      [64 x 1024] plane times a [1024 x 8] matrix whose column 0 is
 //      (1 + r), as mma.sync.m16n8k8 TF32 in 3xTF32 (hi*hi + hi*lo + lo*hi,
@@ -145,50 +153,93 @@ __global__ void __launch_bounds__(K * A_LANES) kern_a(const float* __restrict__ 
 }
 
 // ------------------------------------------------------------------ B ----
-// 256 threads: 8 warps, each owning 8 of the chunk's 64 slots. A thread
-// holds lanes lane + 32q (q = 0..3) of each of the 8 rows.
+// 256 threads: 8 warps, each owning 8 of the chunk's 64 slots, one at a
+// time. A warp's lanes form 4 units of 8 (unit u = lane >> 3 holds rows 2u
+// and 2u + 1 of the plane); thread t = lane & 7 of a unit holds lanes
+// t + 8j (j = 0..15) of both rows.
 constexpr int B_WARPS = 8;
+constexpr int B_UNIT = 8;                  // threads sharing a row's 128 lanes
+constexpr int B_PER = LANES / B_UNIT;      // lanes of a row a thread holds
+
+// One level of a transposing butterfly over 2·kHalf values among the 8
+// threads of a unit: the threads whose lane bit kOff is set keep the upper
+// half of v and hand the partner (lane ^ kOff) the lower, the others the
+// reverse; each kept value gains the partner's.
+template <int kHalf, int kOff>
+__device__ __forceinline__ void b_level(float* v, int lane) {
+  const bool upper = lane & kOff;
+#pragma unroll
+  for (int m = 0; m < kHalf; ++m) {
+    const float keep = upper ? v[m + kHalf] : v[m];
+    const float send = upper ? v[m] : v[m + kHalf];
+    v[m] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+  }
+}
 
 __global__ void __launch_bounds__(B_WARPS * 32) kern_b(const float* __restrict__ x,
                                                        float* __restrict__ out) {
   __shared__ float ones[P];
-  __shared__ float rowsum[B_WARPS][ROWS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = lane >> 3, t = lane & 7;
   const float* xt = x + (size_t)blockIdx.x * C;
   float* ot = out + (size_t)blockIdx.x * C;
   stage_ones(ones);
-  float one[ROWS][4];
+  float one[2][B_PER];
 #pragma unroll
-  for (int row = 0; row < ROWS; ++row)
+  for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) one[row][q] = ones[row * LANES + lane + 32 * q];
+    for (int j = 0; j < B_PER; ++j) one[rr][j] = ones[(2 * unit + rr) * LANES + t + B_UNIT * j];
   for (int k = 0; k < N_CHUNKS; ++k) {
     const int base = k * K;
     for (int jj = 0; jj < K / B_WARPS; ++jj) {
-      const int j = warp + B_WARPS * jj;
-      const float v = xt[base + j];
-      float s = 0.0f;
+      const int slot = base + warp + B_WARPS * jj;
+      const float v = xt[slot];
+      // The thread's share of the slot's plane (`_fields`: v * ones), formed
+      // once and used by all nine fields.
+      float f[2][B_PER];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int j = 0; j < B_PER; ++j) f[rr][j] = v * one[rr][j];
+      // The lane reduction, part 1: per field r and row, the sum of this
+      // thread's 16 lanes of (1 + r) * plane, item 2r + rr.
+      float part[2 * NRED];
+#pragma unroll
       for (int r = 0; r < NRED; ++r) {
         const float c = 1.0f + (float)r;
 #pragma unroll
-        for (int row = 0; row < ROWS; ++row) {
-          // The row's 128 lanes: this thread's four, then the warp's.
-          float acc = (v * one[row][0]) * c;
+        for (int rr = 0; rr < 2; ++rr) {
+          float a = f[rr][0] * c;
 #pragma unroll
-          for (int q = 1; q < 4; ++q) acc = acc + (v * one[row][q]) * c;
-          acc = warp_sum(acc);
-          if (lane == 0) rowsum[warp][row] = acc;
+          for (int j = 1; j < B_PER; ++j) a = __fmaf_rn(f[rr][j], c, a);
+          part[2 * r + rr] = a;
         }
-        __syncwarp();
-        if (lane == 0) {
-          float rs = 0.0f;
-#pragma unroll
-          for (int row = 0; row < ROWS; ++row) rs = rs + rowsum[warp][row];
-          s = s + rs;
-        }
-        __syncwarp();
       }
-      if (lane == 0) ot[base + j] = s;
+      // Part 2, across the unit's 8 threads: items 0..15 (fields 0..7) by a
+      // transposing butterfly (offsets 4, 2, 1: 14 shuffles), after which
+      // thread t holds field t's two rows, each summed over all 128 lanes;
+      // items 16, 17 (field 8) by one transposing level and two plain ones.
+      b_level<8, 4>(part, lane);
+      b_level<4, 2>(part, lane);
+      b_level<2, 1>(part, lane);
+      float f8[2] = {part[16], part[17]};
+      b_level<1, 4>(f8, lane);
+      f8[0] = f8[0] + __shfl_xor_sync(0xffffffffu, f8[0], 2);
+      f8[0] = f8[0] + __shfl_xor_sync(0xffffffffu, f8[0], 1);
+      // f8[0] holds field 8's row 2u + (t >> 2); add the unit's other row.
+      f8[0] = f8[0] + __shfl_xor_sync(0xffffffffu, f8[0], 4);
+      // The row reduction: the unit's two rows, then the 4 units' (offsets
+      // 8 and 16).
+      float fr = part[0] + part[1];
+      fr = fr + __shfl_xor_sync(0xffffffffu, fr, 8);
+      fr = fr + __shfl_xor_sync(0xffffffffu, fr, 16);
+      f8[0] = f8[0] + __shfl_xor_sync(0xffffffffu, f8[0], 8);
+      f8[0] = f8[0] + __shfl_xor_sync(0xffffffffu, f8[0], 16);
+      // The nine fields: fields 0..7 across the unit's threads, then field 8.
+      fr = fr + __shfl_xor_sync(0xffffffffu, fr, 1);
+      fr = fr + __shfl_xor_sync(0xffffffffu, fr, 2);
+      fr = fr + __shfl_xor_sync(0xffffffffu, fr, 4);
+      if (lane == 0) ot[slot] = fr + f8[0];
     }
   }
 }

@@ -147,6 +147,26 @@ def sass_opcodes(text: str) -> dict[str, dict]:
     return out
 
 
+MAX_BOUND_SHARE = 1.05   # a time this far below the bound means work was removed
+
+
+def fold_failures(name: str, bound_share: float, sass: dict | None, opcode: str) -> list[str]:
+    """Why the time of reduction kernel `name` cannot stand as its route's,
+    if it cannot: a share of its bound above MAX_BOUND_SHARE (the compiler
+    folded work the bound counts), or SASS (`sass_opcodes` of the kernel;
+    None when there is none) without `opcode`, the instruction of its route
+    (FFMA on the CUDA cores, SHFL for warp shuffles, HMMA on the tensor
+    cores). Empty when sound."""
+    out = []
+    if not bound_share <= MAX_BOUND_SHARE:
+        out.append(f"{name}: {bound_share:.3f} of its bound (above {MAX_BOUND_SHARE})")
+    if sass is None:
+        out.append(f"{name}: no SASS")
+    elif not sass.get(opcode):
+        out.append(f"{name}: no {opcode} in its SASS")
+    return out
+
+
 def library_sass(name: str) -> str:
     """`cuobjdump -sass` of kernel `name`'s built library."""
     return subprocess.run([cuda_tool("cuobjdump"), "-sass", str(library_path(name))],

@@ -8,9 +8,15 @@ and outputs: acc [NT, 3, P] premultiplied colour, t_final [NT, P] and stop
 STOP_NEVER for pixels that never stopped).
 
 `bwd_call_pairs` replaces the JAX `bwd_call_pairs` (`:947`): the pair-major
-gradient table [16, M] of the forward, rows 9..15 and every slot the walk
-never reaches exact zeros; `amp=True` is the TPU kernels' bf16 contraction
-(`:684-685`, `:790-798`).
+gradient table of the forward, every slot the walk never reaches exact
+zeros; `amp=True` is the TPU kernels' bf16 contraction (`:684-685`,
+`:790-798`).
+
+The pair table has 9 rows (mx, my, conic a/b/c, r, g, b, opacity), as the
+port's `sort_gather` builds it, or 16, as the JAX package pads it for the
+TPU's 8-row tiles. Both wrappers and their plain versions read rows 0..8
+of either; the gradient has the table's shape, rows 9..15 of a 16-row
+table exact zeros.
 
 Each Pallas kernel of the JAX module has its CUDA kernel under `csrc/`,
 chosen by the implementation switch `_FWD_IMPL`/`_BWD_IMPL`, as in the JAX
@@ -80,8 +86,9 @@ def bwd_entry(impl: str, amp: bool) -> tuple[str, str]:
 
 
 def _check(dataT, starts, counts, th, tw):
-    if dataT.dtype != torch.float32 or dataT.dim() != 2 or dataT.shape[0] != 16:
-        raise ValueError(f"dataT must be float32 [16, M], got {dataT.dtype} {tuple(dataT.shape)}")
+    if dataT.dtype != torch.float32 or dataT.dim() != 2 or dataT.shape[0] not in (9, 16):
+        raise ValueError(f"dataT must be float32 [9, M] or [16, M], got {dataT.dtype} "
+                         f"{tuple(dataT.shape)}")
     for name, x in (("starts", starts), ("counts", counts)):
         if x.dtype != torch.int32 or x.dim() != 1:
             raise ValueError(f"{name} must be int32 [NT], got {x.dtype} {tuple(x.shape)}")
@@ -132,9 +139,9 @@ def _launch_cuda(dataT, starts, counts, th, tw, ntx, entry):
 def fwd_call_pairs(dataT, starts, counts, th: int, tw: int, ntx: int):
     """Run the forward pair compositor (the `_FWD_IMPL` kernel).
 
-    dataT: [16, M] float32 param-major pair table; starts, counts: [NT]
-    int32 segment bounds per tile. Returns (acc [NT, 3, P], t_final [NT, P],
-    stop [NT, P] int32).
+    dataT: [9, M] or [16, M] float32 param-major pair table (rows 0..8
+    read); starts, counts: [NT] int32 segment bounds per tile. Returns
+    (acc [NT, 3, P], t_final [NT, P], stop [NT, P] int32).
     """
     entry = fwd_entry(_FWD_IMPL)
     _check(dataT, starts, counts, th, tw)
@@ -219,11 +226,29 @@ def _bwd_kernel_fn(lib: str, sym: str):
     return fn
 
 
+# Backward implementations whose kernel writes rows 0..8 of every column of
+# its output, zeros included (composite_pairs_bwd.cu); v2's writes only the
+# slots its walks reach.
+_BWD_WRITES_ALL = ("v3", "v4")
+
+
+def _bwd_output(dataT, starts):
+    """The backward kernel's output, dataT's shape: zero-filled where the
+    `_BWD_IMPL` kernel does not write. The v3/v4 kernel writes rows 0..8 of
+    every column, which takes segments that tile [0, total) in tile order
+    (as `segment_bounds` makes them); rows 9..15 of a 16-row table are
+    filled here."""
+    if _BWD_IMPL not in _BWD_WRITES_ALL or starts.shape[0] == 0:
+        return torch.zeros_like(dataT)
+    dgrad = torch.empty_like(dataT)
+    dgrad[9:].zero_()
+    return dgrad
+
+
 def _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
                      th, tw, ntx, amp: bool = False):
     """Launch the `_BWD_IMPL` backward kernel into `dgrad` (dataT's shape and
-    dtype), which the caller zero-fills: the kernel writes rows 0..8 of the
-    slots its walks reach and nothing else."""
+    dtype, as `_bwd_output` makes it)."""
     entry = bwd_entry(_BWD_IMPL, amp)
     p = th * tw
     if p > MAX_TILE_PIXELS or p % 32:
@@ -249,16 +274,18 @@ def bwd_call_pairs(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
 
     dataT, starts, counts: the forward's inputs; acc [NT, 3, P], t_final
     [NT, P], stop [NT, P]: its outputs; g_acc_t [NT, P, 3] (pixel-major)
-    and g_t [NT, P]: the cotangents of acc and t_final. Returns the
-    pair-major gradient table, float32 of dataT's shape: rows d mx, d my,
-    d conic a/b/c, d rgb, d opacity; rows 9..15 and slots no walk reaches
-    exact zeros. `amp`: the per-pair sums take bf16-rounded operands (see
+    and g_t [NT, P]: the cotangents of acc and t_final. starts and counts
+    are `segment_bounds`' (the segments tile [0, total) in tile order).
+    Returns the pair-major gradient table, float32 of dataT's shape (9 or
+    16 rows): rows d mx, d my, d conic a/b/c, d rgb, d opacity; rows 9..15
+    of a 16-row table and slots no walk reaches exact zeros. `amp`: the
+    per-pair sums take bf16-rounded operands (see
     `bwd_call_pairs_reference`).
     """
     bwd_entry(_BWD_IMPL, amp)
     _check_bwd(dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t, th, tw)
     if dataT.device.type == "cuda":
-        dgrad = torch.zeros_like(dataT)
+        dgrad = _bwd_output(dataT, starts)
         _launch_bwd_cuda(dgrad, dataT, starts, counts, acc, t_final, stop, g_acc_t, g_t,
                          th, tw, ntx, amp)
         return dgrad

@@ -1,7 +1,7 @@
 """Sorted-data rasterization pipeline, PyTorch, with its backward.
 
   binning:    footprint sort → tiered expansion → (tile, depth) pair sort
-              → param-major [16, M + PAIR_CHUNK] table, segment starts/counts
+              → param-major [9, M + PAIR_CHUNK] table, segment starts/counts
               (`sort_gather`);
   compositing: the pair compositor kernel over that table
               (`composite_sorted` → `ops/composite_pairs.fwd_call_pairs`).
@@ -71,8 +71,11 @@ def _sort_gather_forward(geom, mean2d, conic, colors, opacity, ints):
     )
     starts, counts, total = segment_bounds(s_tile, nt)
     m = s_tile.shape[0]
-    dataT = torch.zeros((16, m + PAIR_CHUNK), dtype=s_data.dtype, device=s_data.device)
-    dataT[:9, :m] = s_data
+    # Nine rows: the JAX package's rows 9..15 are the TPU's sublane padding,
+    # which no kernel of the port reads.
+    dataT = torch.empty((9, m + PAIR_CHUNK), dtype=s_data.dtype, device=s_data.device)
+    dataT[:, :m] = s_data
+    dataT[:, m:] = 0.0
     plan = SortPlan(
         tile_starts=starts, counts=counts, total=total,
         budget_overflow=budget_overflow,
@@ -114,8 +117,9 @@ class _SortGather(torch.autograd.Function):
 
 def sort_gather(geom, mean2d, conic, colors, opacity, ints):
     """geom = (nt, ntx, TierSpec); ints = (tminx, tminy, bw, ntiles_eff,
-    depth_bits), which take no gradient. Returns (dataT [16, M + PAIR_CHUNK]
-    param-major sorted pair table, SortPlan). Differentiable with respect
+    depth_bits), which take no gradient. Returns (dataT [9, M + PAIR_CHUNK]
+    param-major sorted pair table: rows 0..8 of the JAX package's [16, ...]
+    table, which pads them to 16; SortPlan). Differentiable with respect
     to mean2d, conic, colors and opacity."""
     dataT, *plan = _SortGather.apply(geom, mean2d, conic, colors, opacity, *ints)
     return dataT, SortPlan(*plan)

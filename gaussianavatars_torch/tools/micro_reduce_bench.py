@@ -81,14 +81,21 @@ def kern_a_reference(x: torch.Tensor) -> torch.Tensor:
     return _by_chunk(x, chunk)
 
 
+def _pairwise(parts: list) -> torch.Tensor:
+    """((p0 + p1) + (p2 + p3)) + ...: a butterfly's order of addition."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
 def kern_b_reference(x: torch.Tensor) -> torch.Tensor:
-    """B: the lanes' sum, then the rows', one pass per field."""
+    """B: per field, the lanes' sum of each row, then the rows'; the rows
+    and the fields 0..7 added pairwise as the kernel's shuffles add them,
+    field 8 last."""
     def chunk(f):
-        s = torch.zeros(f.shape[:2], dtype=torch.float32, device=f.device)
-        for r in range(NRED):
-            prod = f * (1.0 + r)
-            s = s + torch.sum(torch.sum(prod, dim=3), dim=2)
-        return s
+        fields = [_pairwise(list(torch.sum(f * (1.0 + r), dim=3).unbind(2)))
+                  for r in range(NRED)]
+        return _pairwise(fields[:8]) + fields[8]
     return _by_chunk(x, chunk)
 
 

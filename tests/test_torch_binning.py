@@ -120,9 +120,10 @@ def test_sort_gather_table_exact(seed, spec_name):
     np.testing.assert_array_equal(n(plan_t.tile_starts), np.asarray(plan_j.tile_starts))
     np.testing.assert_array_equal(n(plan_t.counts), np.asarray(plan_j.counts))
     assert int(plan_t.max_footprint) == int(plan_j.max_footprint)
-    assert tuple(dt.shape) == tuple(dj.shape)
-    np.testing.assert_array_equal(n(dt)[:, :total], np.asarray(dj)[:, :total])
-    assert not n(dt)[9:].any() and not n(dt)[:, -tsb.PAIR_CHUNK:].any()
+    # The port's table is JAX's rows 0..8; JAX's rows 9..15 are zero padding.
+    assert tuple(dt.shape) == (9, dj.shape[1]) and dj.shape[0] == 16
+    np.testing.assert_array_equal(n(dt)[:, :total], np.asarray(dj)[:9, :total])
+    assert not np.asarray(dj)[9:].any() and not n(dt)[:, -tsb.PAIR_CHUNK:].any()
     # pos is a permutation of the expansion slots.
     assert np.array_equal(np.sort(n(plan_t.pos)), np.arange(dt.shape[1] - tsb.PAIR_CHUNK))
 

@@ -50,6 +50,25 @@ def test_sass_opcodes_counts_per_kernel():
     assert set(a) == set(cuda_build.SASS_OPCODES)
 
 
+def test_fold_failures_passes_a_sound_report():
+    sass = cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_aEPKfPf"]
+    assert cuda_build.fold_failures("micro_reduce_a", 0.67, sass, "FFMA") == []
+    hmma = cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_cEPKfPf"]
+    assert cuda_build.fold_failures("micro_reduce_c", 1.05, hmma, "HMMA") == []
+
+
+def test_fold_failures_rejects_a_folded_report():
+    """A kernel whose sums were folded into one product runs above its bound
+    and loses its route's instruction: each of the three signs fails it."""
+    sass = cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_cEPKfPf"]
+    no_ffma = cuda_build.fold_failures("micro_reduce_a", 0.67, sass, "FFMA")
+    assert len(no_ffma) == 1 and "no FFMA" in no_ffma[0]
+    fast = cuda_build.fold_failures("micro_reduce_c", 1.3, sass, "HMMA")
+    assert len(fast) == 1 and "1.300 of its bound" in fast[0]
+    assert cuda_build.fold_failures("micro_reduce_b", float("nan"), None, "SHFL") == [
+        "micro_reduce_b: nan of its bound (above 1.05)", "micro_reduce_b: no SASS"]
+
+
 def test_library_path_covers_source_and_flags(monkeypatch):
     names = cuda_build.kernel_names()
     assert "micro_reduce" in names and "composite_pairs_fwd" in names
@@ -88,3 +107,25 @@ def test_micro_reduce_c_splits_each_fragment_once_for_all_fields():
     frag, field = kstep.index("a_fragment("), kstep.index("for (int r = 0; r < NRED")
     assert frag < field and kstep.count("a_fragment(") == 1
     assert kstep.count("mma_tf32(small[r]") == 2 and kstep.count("mma_tf32(big[r]") == 1
+
+
+def test_micro_reduce_b_reduces_many_partials_a_shuffle():
+    """B forms its plane once a slot and reduces 16 of its (field, row)
+    partials with one transposing butterfly: no __syncwarp, no shared row
+    buffer, one store a slot."""
+    body = _kernel_body("kern_b")
+    assert "__syncwarp" not in body and "rowsum" not in body
+    assert body.index("f[rr][j] = v * one") < body.index("b_level<8, 4>(part")
+    assert body.count("lane == 0") == 1
+
+
+def test_bwd_kernel_sums_pixels_in_threads_without_atomics():
+    """The backward compositor sums a pair over a thread's pixels, then a
+    warp's by the transposing butterfly, then the warps' in order: no
+    atomics, no per-field butterflies of the old schedule."""
+    src = (cuda_build.CSRC_DIR / "composite_pairs_bwd.cu").read_text()
+    assert "atomicAdd" not in src and "warp_partials(" not in src
+    for step in ("transpose_level<4>(v, lane)", "transpose_level<2>(v, lane)",
+                 "transpose_level<1>(v, lane)"):
+        assert src.count(step) == 1
+    assert "warp_fields(s, rb + j, lane)" in src

@@ -169,6 +169,48 @@ def test_cuda_variant_kernels_match_plain(case, impl, cuda_device, monkeypatch):
         assert not d[:, (r == 0).all(dim=0)].any()
 
 
+@pytest.mark.parametrize("rows", [9, 16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_row2_kernels_take_9_and_16_rows(case, rows, cuda_device, monkeypatch):
+    """The v3 and v4 backward kernels (one source, float32 and `amp`) on the
+    port's 9-row table and on the JAX package's 16-row layout of it, long
+    walks included: each row within 1e-4 of its largest plain value, the
+    plain version's zero slots and rows 9..15 exact zeros, every column's
+    rows 0..8 written by the kernel (a launch into a NaN-filled output gives
+    the wrapper's result), the 16-row gradient's rows 0..8 equal to the
+    9-row one's bit for bit."""
+    dataT, starts, counts, ntx = _table(*CASES[case], device=cuda_device)
+    assert dataT.shape[0] == 9
+    if rows == 16:
+        dataT = torch.cat([dataT, torch.zeros((7, dataT.shape[1]), device=cuda_device)])
+    th, tw = CASES[case][4:6]
+    acc, tfin, stop = tcp.fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
+    g = torch.Generator().manual_seed(9)
+    nt, p = starts.shape[0], th * tw
+    g_acc_t = torch.randn((nt, p, 3), generator=g).to(cuda_device)
+    g_t = torch.randn((nt, p), generator=g).to(cuda_device)
+    rest = (starts, counts, acc, tfin, stop, g_acc_t, g_t, th, tw, ntx)
+    for impl in ("v3", "v4"):
+        monkeypatch.setattr(tcp, "_BWD_IMPL", impl)
+        for amp in (False, True):
+            entry = tcp.bwd_entry(impl, amp)[1]
+            before = tcp.LAUNCHES[entry]
+            d = tcp.bwd_call_pairs(dataT, *rest, amp=amp)
+            torch.cuda.synchronize()
+            assert tcp.LAUNCHES[entry] == before + 1 and d.shape == dataT.shape
+            r = tcp.bwd_call_pairs_reference(dataT, *rest, amp=amp)
+            err = (d[:9] - r[:9]).abs().amax(dim=1)
+            assert (err <= 1e-4 * r[:9].abs().amax(dim=1)).all(), (impl, amp, err)
+            assert not d[9:].any() and not d[:, (r == 0).all(dim=0)].any()
+            # The kernel writes rows 0..8 of every column, its zeros too.
+            out = torch.full_like(dataT, float("nan"))
+            tcp._launch_bwd_cuda(out, dataT, *rest, amp=amp)
+            assert torch.equal(out[:9], d[:9])
+            if rows == 16:
+                d9 = tcp.bwd_call_pairs(dataT[:9].contiguous(), *rest, amp=amp)
+                assert torch.equal(d[:9], d9)
+
+
 def test_amp_train_step_on_card_matches_cpu(cuda_device):
     """One `use_amp` train step of a small bench-scene avatar on the card and
     on the CPU, from the same state, towards a textured target (seeded
