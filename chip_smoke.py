@@ -5,6 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+`--against ROOT` (repeatable) also builds another checkout's compositor
+kernels (for example the parent commit, unpacked with `git archive` into
+an ignored directory) and times rows 1, 4 and 2 of both in the same call
+(`[against/*]`, phases 3 and 13).
+
 Phases (each prints a line; a failing phase raises and the exit code is
 non-zero):
 
@@ -15,12 +20,15 @@ non-zero):
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at a small scene (128×256, 4096 splats: multi-chunk walks
                 and early stops) and at the full-size frame's table (also
-                the first training frame's table); the backward kernel with
-                fixed-seed cotangents, each row within 1e-4 of its largest
-                plain value and the plain version's zero slots exact; the
-                port's 9-row table against the JAX package's 16-row layout
-                (bit for bit, rows 9..15 zero); the backward's four
-                instantiations without spills in their ptxas report;
+                the first training frame's table): the forward bit for bit;
+                the backward kernel with fixed-seed cotangents, each row
+                within 1e-4 of its largest plain value and the plain
+                version's zero slots exact; the port's 9-row table against
+                the JAX package's 16-row layout (bit for bit, rows 9..15
+                zero); the forward kernel and the backward's six
+                instantiations without spills in their ptxas report, with
+                registers and blocks per SM; the forward timed through its
+                wrapper and alone;
   4. slice    — the benchmark scene at full width (802×550, 90,090 FLAME-
                 bound Gaussians, SH degree 3, 32×32 tiles, probed tier
                 budgets), rendered frame after frame through
@@ -45,8 +53,9 @@ non-zero):
                 kernels (v2 forward, v2 and v4 backward) and the three
                 backward kernels' `amp` entry points against their plain
                 versions (the v2 forward bit for bit; each backward row
-                within 1e-4 of its largest plain value, zero slots exact),
-                and each entry point's time, plain time and bound;
+                within 1e-4 of its largest plain value, zero slots exact,
+                every column written by the kernel), and each entry point's
+                time, plain time and bound;
   9. ab       — the kernel A/B entry point (`tools/kernel_ab.main`) over v2,
                 v3 and v4 at the benchmark frame, float32 and `--amp`: each
                 implementation's own entry points must launch;
@@ -69,9 +78,11 @@ non-zero):
                 HMMA in C and D);
  12. loop     — `tools/train_synthetic` at 802×550, 800 iterations, with
                 its events, then a resume from its checkpoint;
- 13. fitted   — row 2's four entries (v3, v4, float32 and `amp`) on one
-                802×550 view of phase 12's fitted avatar: against their
-                plain versions, timed, with the walked pairs.
+ 13. fitted   — on one 802×550 view of phase 12's fitted avatar: the
+                forward bit for bit against its plain version, timed through
+                its wrapper and alone; the backward's six entries (v3, v4,
+                v2, float32 and `amp`) against their plain versions, every
+                column written, timed, with the walked pairs.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -163,6 +174,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds of `fn` per call with no host issue between the
+    launches: `reps` calls captured in one CUDA graph, the replay timed by
+    CUDA events. For a kernel shorter than its wrapper's host time, where
+    `cuda_ms` times the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_device() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -230,8 +262,12 @@ def parity_table(dev):
     return scene, (dataT, plan.tile_starts, plan.counts, th, tw, ntx)
 
 
+FWD_CHUNK = 256   # pairs composite_pairs_fwd.cu stages at a time
+
+
 def compare_kernel(label: str, table) -> dict:
-    """Kernel vs plain version on the same card tensors."""
+    """Kernel vs plain version on the same card tensors: acc, t_final and
+    the stop ids bit for bit."""
     from gaussianavatars_torch.ops.composite_pairs import (
         STOP_NEVER, fwd_call_pairs, fwd_call_pairs_reference,
     )
@@ -244,15 +280,17 @@ def compare_kernel(label: str, table) -> dict:
     err_t = float((tfin - r_tfin).abs().max())
     tile_max_equal = bool(torch.equal(stop.max(dim=1).values, r_stop.max(dim=1).values))
     stop_mismatch = int((stop != r_stop).sum())
+    bit_equal = dict(acc=bool(torch.equal(acc, r_acc)), t_final=bool(torch.equal(tfin, r_tfin)),
+                     stop=stop_mismatch == 0)
     walked = torch.where(stop == STOP_NEVER, counts[:, None], stop - (starts % 128)[:, None])
-    past_first_chunk = bool((walked > th * tw).any())  # the kernel stages P pairs a chunk
-    res = dict(max_abs_err_acc=err_acc, max_abs_err_t_final=err_t,
+    past_first_chunk = bool((walked > FWD_CHUNK).any())
+    res = dict(max_abs_err_acc=err_acc, max_abs_err_t_final=err_t, bit_equal=bit_equal,
                stop_tile_max_equal=tile_max_equal, stop_elements_differing=stop_mismatch,
                stopped_pixel_share=float((stop != STOP_NEVER).float().mean()),
                max_tile_count=int(counts.max()), walk_past_first_chunk=past_first_chunk,
                total_pairs=int(counts.sum()))
     log(f"kernels/{label}", **res)
-    if not (err_acc <= 1e-5 and err_t <= 1e-5 and tile_max_equal):
+    if not (err_acc <= 1e-5 and err_t <= 1e-5 and tile_max_equal and all(bit_equal.values())):
         raise AssertionError(f"composite_pairs_fwd disagrees with its plain version: {res}")
     return dict(res, outputs=(acc, tfin, stop), plain=(r_acc, r_tfin, r_stop))
 
@@ -399,7 +437,7 @@ def with_impl(impl: str, fn):
 
 def writes_every_column(d, bwd_args, amp: bool) -> bool:
     """Whether a launch into a NaN-filled output gives rows 0..8 of the
-    wrapper's result `d`: the v3/v4 kernel writes every column itself."""
+    wrapper's result `d`: every backward kernel writes every column itself."""
     from gaussianavatars_torch.ops import composite_pairs as cp
 
     out = torch.full_like(d, float("nan"))
@@ -456,14 +494,13 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
         d = with_impl(impl, lambda: cp.bwd_call_pairs(*args, amp=amp))
         torch.cuda.synchronize()
         res = bwd_errors(d, r16 if amp else r32)
-        if impl in cp._BWD_WRITES_ALL:
-            res["writes_every_column"] = with_impl(impl, lambda: writes_every_column(d, args, amp))
+        res["writes_every_column"] = with_impl(impl, lambda: writes_every_column(d, args, amp))
         if impl == "v4":   # v4 against the v3 kernel of the same mode
             v3 = kb_res["out"] if not amp else cp.bwd_call_pairs(*args, amp=True)
             res["bit_equal_to_v3"] = bool(torch.equal(d, v3))
         log(f"kernels/{name.replace('composite_pairs_', '')}_{label}", **res)
         if not (max(res["rel_err_per_row"]) <= BWD_REL_TOL and res["zeros_exact"]
-                and res.get("writes_every_column", True)):
+                and res["writes_every_column"]):
             raise AssertionError(f"{name} disagrees with its plain version: {res}")
         out[name] = res
     log(f"kernels/amp_vs_f32_plain_{label}", rel_diff_per_row=amp_moves,
@@ -471,34 +508,53 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
     return out
 
 
-# composite_pairs_bwd.cu's kernel, by the template arguments (amp, gc_vpu)
-# in its mangled name, and the C entry point of each instantiation.
-BWD_INSTANCES = {"ILb0ELb0E": "composite_pairs_bwd", "ILb1ELb0E": "composite_pairs_bwd_amp",
-                 "ILb0ELb1E": "composite_pairs_bwd_v4", "ILb1ELb1E": "composite_pairs_bwd_v4_amp"}
-ROW2_ENTRIES = (("v3", False), ("v3", True), ("v4", False), ("v4", True))
+# The compositor kernels whose ptxas report phase 3 gates: (library,
+# kernel name with its template arguments (amp, gc_vpu) as they appear in
+# the mangled name) → the C entry point of the instantiation.
+KERNEL_INSTANCES = {
+    ("composite_pairs_fwd", "composite_pairs_fwd_kernelE"): "composite_pairs_fwd",
+    ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb0ELb0E"): "composite_pairs_bwd",
+    ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb1ELb0E"): "composite_pairs_bwd_amp",
+    ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb0ELb1E"): "composite_pairs_bwd_v4",
+    ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb1ELb1E"): "composite_pairs_bwd_v4_amp",
+    ("composite_pairs_bwd_v2", "composite_pairs_bwd_v2_kernelILb0EE"): "composite_pairs_bwd_v2",
+    ("composite_pairs_bwd_v2", "composite_pairs_bwd_v2_kernelILb1EE"): "composite_pairs_bwd_v2_amp",
+}
+# Threads a block of each library's kernels at a 32×32 tile: 2 warps
+# (composite_pairs_fwd.cu's kBlockWarps), ceil(P / 128) warps (backward).
+BLOCK_THREADS_32X32 = {"composite_pairs_fwd": 64, "composite_pairs_bwd": 256,
+                       "composite_pairs_bwd_v2": 256}
+# The backward's entry points: rows 2, 5 and 4, each float32 and `amp`.
+BWD_ENTRIES = (("v3", False), ("v3", True), ("v4", False), ("v4", True), ("v2", False),
+               ("v2", True))
 
 
-def bwd_resources(built) -> dict:
-    """The ptxas report (phase 2's compiler output) of the four
-    instantiations of composite_pairs_bwd.cu: registers, shared memory,
-    stack and spill bytes. Fails when one is missing or spills."""
+def kernel_resources(built) -> dict:
+    """The ptxas report (phase 2's compiler output) of row 1's kernel and
+    of the backward's six instantiations (rows 2, 4 and 5): registers,
+    shared memory, stack and spill bytes, and blocks per SM at a 32×32
+    tile's block. Fails when one is missing or spills."""
     from gaussianavatars_torch import cuda_build
 
     out = {}
-    for mangled, rep in cuda_build.ptxas_report(built["composite_pairs_bwd"]["log"]).items():
-        for key, name in BWD_INSTANCES.items():
-            if f"composite_pairs_bwd_kernel{key}" in mangled:
-                out[name] = rep
-    log("kernels/bwd_ptxas", **out)
-    if len(out) != len(BWD_INSTANCES) or any(
+    for lib in {k[0] for k in KERNEL_INSTANCES}:
+        for mangled, rep in cuda_build.ptxas_report(built[lib]["log"]).items():
+            for (lib_k, key), name in KERNEL_INSTANCES.items():
+                if lib_k == lib and key in mangled:
+                    threads = BLOCK_THREADS_32X32[lib]
+                    out[name] = dict(rep, threads=threads,
+                                     blocks_per_sm=cuda_build.blocks_per_sm(rep, threads))
+    log("kernels/fwd_ptxas", composite_pairs_fwd=out.get("composite_pairs_fwd"))
+    log("kernels/bwd_ptxas", **{k: v for k, v in out.items() if k != "composite_pairs_fwd"})
+    if len(out) != len(KERNEL_INSTANCES) or any(
             r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in out.values()):
-        raise AssertionError(f"composite_pairs_bwd: an instantiation is missing or spills: {out}")
+        raise AssertionError(f"a compositor kernel is missing or spills: {out}")
     return out
 
 
 def compare_16_rows(label: str, table, fwd_outputs, seed: int) -> dict:
     """The JAX package's 16-row table on the card: the forward's outputs,
-    and rows 0..8 of each row-2 entry's gradient (v3, v4, float32 and
+    and rows 0..8 of each backward entry's gradient (v3, v4, v2, float32 and
     `amp`), equal the port's 9-row table's bit for bit, and the gradient's
     rows 9..15 are exact zeros."""
     from gaussianavatars_torch.ops import composite_pairs as cp
@@ -510,7 +566,7 @@ def compare_16_rows(label: str, table, fwd_outputs, seed: int) -> dict:
     res = {"composite_pairs_fwd": all(map(torch.equal, fwd16, fwd_outputs))}
     g_acc_t, g_t = cotangents(starts.shape[0], th * tw, dataT.device, seed)
     rest = (starts, counts, *fwd_outputs, g_acc_t, g_t, th, tw, ntx)
-    for impl, amp in ROW2_ENTRIES:
+    for impl, amp in BWD_ENTRIES:
         d9 = with_impl(impl, lambda: cp.bwd_call_pairs(dataT, *rest, amp=amp))
         d16 = with_impl(impl, lambda: cp.bwd_call_pairs(pad, *rest, amp=amp))
         res[cp.bwd_entry(impl, amp)[1]] = bool(torch.equal(d16[:9], d9) and not d16[9:].any())
@@ -524,8 +580,8 @@ def time_bwd(impl: str, amp: bool, stop, bwd_args) -> dict:
     """One backward entry point at one table: the wrapper's ms (its
     allocation and zero fill included) and the kernel's alone (into one
     output), CUDA events; the plain version's ms (once); the wrapper's bound
-    (the table it returns written once) and the kernel's (v3 and v4: rows
-    0..8 of every column, which it writes; v2: its walked pairs' rows)."""
+    (the table it returns written once) and the kernel's (rows 0..8 of
+    every column, which every implementation's kernel writes)."""
     from gaussianavatars_torch.ops import composite_pairs as cp
 
     dataT, starts, counts = bwd_args[:3]
@@ -536,9 +592,7 @@ def time_bwd(impl: str, amp: bool, stop, bwd_args) -> dict:
     kernel_ms = with_impl(impl, lambda: cuda_ms(
         lambda: cp._launch_bwd_cuda(dgrad, *bwd_args, amp=amp), N_KERNEL_REPS))
     del dgrad
-    # The v3/v4 kernel writes rows 0..8 of every column; v2's only its walk.
-    k_bound = bwd_bound(starts, counts, stop, p, (9, dataT.shape[1])
-                        if impl in cp._BWD_WRITES_ALL else None)
+    k_bound = bwd_bound(starts, counts, stop, p, (9, dataT.shape[1]))
     return dict(ms=ms, kernel_ms=kernel_ms,
                 plain_ms=plain_ms(lambda: cp.bwd_call_pairs_reference(*bwd_args, amp=amp)),
                 kernel_bound_ms=k_bound["bound_ms"], kernel_bound_by=k_bound["bound_by"],
@@ -546,28 +600,41 @@ def time_bwd(impl: str, amp: bool, stop, bwd_args) -> dict:
 
 
 def time_entries(table, fwd_outputs, bwd_args) -> dict:
-    """Per other entry point at the full frame: ms (CUDA events; a backward's
-    wrapper with its zero fill, as row 2 is timed), the backward kernel
-    alone, the plain version's time (once), and the bound of the same work
+    """Per other entry point at the full frame: ms (CUDA events; the
+    wrapper, its allocation included), the kernel alone, the plain
+    version's time (once), and the bound of the same work
     (`compositor_bound`/`bwd_bound`: every implementation does row 1's or
     row 2's work)."""
     from gaussianavatars_torch.ops import composite_pairs as cp
 
-    _dataT, starts, counts, th, tw, _ntx = table
     stop = fwd_outputs[2]
     out = {}
     for name, (kind, impl, amp, _src, _rep) in compositor_entries().items():
         if name in ("composite_pairs_fwd", "composite_pairs_bwd"):
             continue
         if kind == "fwd":
-            ms = with_impl(impl, lambda: cuda_ms(lambda: cp.fwd_call_pairs(*table),
-                                                 N_KERNEL_REPS))
-            plain = plain_ms(lambda: cp.fwd_call_pairs_reference(*table))
-            res = dict(ms=ms, plain_ms=plain, **compositor_bound(starts, counts, stop, th * tw))
+            res = with_impl(impl, lambda: time_fwd(table, stop))
         else:
             res = time_bwd(impl, amp, stop, bwd_args)
         out[name] = res
     return out
+
+
+def time_fwd(table, stop) -> dict:
+    """The `_FWD_IMPL` forward at one table: the wrapper's ms (its three
+    allocations included) and the kernel's alone (into one set of outputs),
+    CUDA events, and the kernel's device time (`graph_ms`); the plain
+    version's ms (once) and the bound."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    dataT, starts, counts, th, tw, _ntx = table
+    ms = cuda_ms(lambda: cp.fwd_call_pairs(*table), N_KERNEL_REPS)
+    out = cp._fwd_output(dataT, starts, th, tw)
+    kernel_ms = cuda_ms(lambda: cp._launch_fwd_cuda(out, *table), N_KERNEL_REPS)
+    device_ms = graph_ms(lambda: cp._launch_fwd_cuda(out, *table), N_KERNEL_REPS)
+    return dict(ms=ms, kernel_ms=kernel_ms, kernel_device_ms=device_ms,
+                plain_ms=plain_ms(lambda: cp.fwd_call_pairs_reference(*table)),
+                **compositor_bound(starts, counts, stop, th * tw))
 
 
 def plain_ms(fn) -> float:
@@ -1283,19 +1350,25 @@ def fitted_view(harness):
     return table, fwd["outputs"], args, info
 
 
-def phase_fitted_bwd(card, harness) -> dict:
-    """Phase 13: row 2 on the fitted avatar (phase 12's state after its 800
-    iterations, `fitted_view`): each of row 2's four entries against its
-    plain version (`bwd_errors`, every column written) and timed
-    (`time_bwd`), with the walked pairs. These launches are comparisons and
-    timings, outside every counted main-path run."""
+def phase_fitted_bwd(card, harness, against=()) -> dict:
+    """Phase 13: the compositor kernels on the fitted avatar (phase 12's
+    state after its 800 iterations, `fitted_view`): row 1 bit for bit
+    against its plain version and timed (`time_fwd`); each backward entry
+    (rows 2, 5 and 4: v3, v4 and v2, float32 and `amp`) against its plain
+    version (`bwd_errors`, every column written) and timed (`time_bwd`),
+    with the walked pairs; the `--against` checkouts' kernels beside them.
+    These launches are comparisons and timings, outside every counted
+    main-path run."""
     from gaussianavatars_torch.ops import composite_pairs as cp
 
     table, outputs, args, info = fitted_view(harness)
     walked = walked_pairs(table[1], table[2], outputs[2])
-    out = {}
+    walks = dict(longest_walk=int(walked.max()), mean_walk=float(walked.float().mean()))
+    out = {"composite_pairs_fwd": time_fwd(table, outputs[2])}
+    log("fitted/fwd/composite_pairs_fwd", **out["composite_pairs_fwd"], **info, **walks,
+        card=card["nvidia_smi"])
     with torch.no_grad():
-        for impl, amp in ROW2_ENTRIES:
+        for impl, amp in BWD_ENTRIES:
             name = cp.bwd_entry(impl, amp)[1]
             d = with_impl(impl, lambda: cp.bwd_call_pairs(*args, amp=amp))
             torch.cuda.synchronize()
@@ -1303,17 +1376,141 @@ def phase_fitted_bwd(card, harness) -> dict:
             res["writes_every_column"] = with_impl(impl, lambda: writes_every_column(d, args, amp))
             del d
             res.update(time_bwd(impl, amp, outputs[2], args))
-            log(f"fitted/bwd/{name}", **res, **info, longest_walk=int(walked.max()),
-                mean_walk=float(walked.float().mean()), card=card["nvidia_smi"])
+            log(f"fitted/bwd/{name}", **res, **info, **walks, card=card["nvidia_smi"])
             if not (max(res["rel_err_per_row"]) <= BWD_REL_TOL and res["zeros_exact"]
                     and res["writes_every_column"]):
                 raise AssertionError(f"{name} disagrees with its plain version on the fitted "
                                      f"view: {res}")
             out[name] = res
+        if against:
+            time_against("fitted", against, table, outputs, args)
     return out
 
 
-def main() -> int:
+# The entry points `--against` times in each other checkout and in this one:
+# row 1, row 4 in float32 and `amp`, and row 2 as a control.
+AGAINST_ENTRIES = (("fwd", "v3", False), ("bwd", "v2", False), ("bwd", "v2", True),
+                   ("bwd", "v3", False))
+
+
+def build_against(roots) -> list:
+    """Each other checkout's compositor kernels (`--against ROOT`): the
+    sources of AGAINST_ENTRIES under ROOT/gaussianavatars_torch/csrc, built
+    with this checkout's nvcc flags (one nvcc each, all started together)
+    under build/chip_smoke/against/ and loaded. Returns [(root, {library:
+    CDLL})]."""
+    import ctypes
+
+    from gaussianavatars_torch import cuda_build
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    libs = sorted({(cp.fwd_entry(i) if k == "fwd" else cp.bwd_entry(i, a))[0]
+                   for k, i, a in AGAINST_ENTRIES})
+    procs = []
+    for n, root in enumerate(roots):
+        out_dir = os.path.abspath(os.path.join("build", "chip_smoke", "against", str(n)))
+        os.makedirs(out_dir, exist_ok=True)
+        for lib in libs:
+            so = os.path.join(out_dir, f"lib{lib}.so")
+            src = os.path.join(root, "gaussianavatars_torch", "csrc", f"{lib}.cu")
+            procs.append((n, lib, so, subprocess.Popen(
+                [cuda_build.cuda_tool(), *cuda_build.NVCC_FLAGS, "-o", so, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    loaded = [{} for _ in roots]
+    for n, lib, so, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"--against {roots[n]}: {lib} did not build:\n{out}")
+        loaded[n][lib] = ctypes.CDLL(so)
+    log("against/build", roots=list(roots), libraries=libs)
+    return list(zip(roots, loaded))
+
+
+def with_kernel(fn, call):
+    """call() with the compositor wrappers' kernel lookup giving `fn` (None:
+    this checkout's own kernels)."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    if fn is None:
+        return call()
+    saved = cp._fwd_kernel_fn, cp._bwd_kernel_fn
+    cp._fwd_kernel_fn = cp._bwd_kernel_fn = lambda _lib, _sym: fn
+    try:
+        return call()
+    finally:
+        cp._fwd_kernel_fn, cp._bwd_kernel_fn = saved
+
+
+def time_against(label: str, against, table, fwd_outputs, bwd_args) -> dict:
+    """AGAINST_ENTRIES of this checkout beside those of each `--against`
+    checkout at one table, on one card in one call: each kernel alone
+    (N_KERNEL_REPS launches into one output, CUDA events, and as a CUDA
+    graph, `graph_ms`) and through the
+    wrapper, in the order others, this, this, others reversed. An other
+    checkout's kernel runs through this checkout's wrapper code, its
+    backward output zero-filled (`torch.zeros_like`, right for every
+    version of the kernel). Its forward must equal this checkout's bit for
+    bit; its backward is compared per row (max |other - this| / max |this|)."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    dataT, starts, _counts, th, tw, _ntx = table
+    out = {}
+    for kind, impl, amp in AGAINST_ENTRIES:
+        lib, sym = cp.fwd_entry(impl) if kind == "fwd" else cp.bwd_entry(impl, amp)
+        own = (cp._fwd_kernel_fn if kind == "fwd" else cp._bwd_kernel_fn)(lib, sym)
+        fns = {"this": None}
+        for root, libs in against:
+            fn = getattr(libs[lib], sym)
+            fn.restype, fn.argtypes = own.restype, own.argtypes
+            fns[root] = fn
+        if kind == "fwd":
+            res_out = cp._fwd_output(dataT, starts, th, tw)
+            alone = lambda: cp._launch_fwd_cuda(res_out, *table)
+            wrappers = dict.fromkeys(fns, lambda: cp.fwd_call_pairs(*table))
+        else:
+            res_out = torch.zeros_like(dataT)
+            alone = lambda: cp._launch_bwd_cuda(res_out, *bwd_args, amp=amp)
+            wrappers = dict.fromkeys(fns, lambda: cp._launch_bwd_cuda(
+                torch.zeros_like(dataT), *bwd_args, amp=amp))
+            wrappers["this"] = lambda: cp.bwd_call_pairs(*bwd_args, amp=amp)
+        times = {name: {"kernel_ms": [], "device_ms": [], "ms": []} for name in fns}
+        others = [name for name in fns if name != "this"]
+        for name in others + ["this", "this"] + others[::-1]:
+            run = lambda f: with_impl(impl, lambda: with_kernel(
+                fns[name], lambda: cuda_ms(f, N_KERNEL_REPS)))
+            times[name]["kernel_ms"].append(run(alone))
+            times[name]["device_ms"].append(with_impl(impl, lambda: with_kernel(
+                fns[name], lambda: graph_ms(alone, N_KERNEL_REPS))))
+            times[name]["ms"].append(run(wrappers[name]))
+        res = dict(times=times)
+        with_impl(impl, alone)
+        this_out = [x.clone() for x in res_out] if kind == "fwd" else res_out.clone()
+        for name in others:
+            with_impl(impl, lambda: with_kernel(fns[name], alone))
+            if kind == "fwd":
+                res[f"bit_equal/{name}"] = all(map(torch.equal, res_out, this_out))
+            else:
+                rel = ((res_out[:9] - this_out[:9]).abs().amax(dim=1)
+                       / this_out[:9].abs().amax(dim=1).clamp_min(1e-30))
+                res[f"max_rel_err/{name}"] = float(rel.max())
+        log(f"against/{label}/{sym}", **res)
+        out[sym] = res
+    return out
+
+
+def parse_args(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", action="append", default=[], metavar="ROOT",
+                    help="another checkout (e.g. the parent commit unpacked with git archive "
+                         "into an ignored directory): build its compositor kernels and time "
+                         "rows 1, 4 and 2 beside this checkout's in phases 3 and 13")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1335,6 +1532,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = phase_device()
     built = phase_build()
+    against = build_against(args.against) if args.against else []
     torch.set_grad_enabled(False)
 
     # --- 3. kernels against their plain versions ---------------------------
@@ -1347,7 +1545,7 @@ def main() -> int:
         raise AssertionError("parity scene must exercise multi-chunk backward walks")
     var_small = compare_variants("parity_128x256", small_table, k_small, kb_small)
     compare_16_rows("parity_128x256", small_table, k_small["outputs"], seed=24)
-    bwd_resources(built)
+    kernel_resources(built)
 
     model, params, aux, fl, cam, n_g = build_scene(device=dev)
     cfg = probe_tile_config(model, params, aux, fl, cam)
@@ -1405,14 +1603,9 @@ def main() -> int:
     if int(plan0.budget_overflow) != 0:
         raise AssertionError("tier budget overflow on the probe frame")
 
-    kernel_ms = cuda_ms(lambda: cp.fwd_call_pairs(*full_table), N_KERNEL_REPS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cp.fwd_call_pairs_reference(*full_table)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    bound = compositor_bound(plan0.tile_starts, plan0.counts, k_full["outputs"][2], th * tw)
-    log("kernels/timing_full_802x550", ms=kernel_ms, plain_ms=plain_ms, **bound,
+    fwd_res = time_fwd(full_table, k_full["outputs"][2])
+    log("kernels/timing_full_802x550", **fwd_res,
+        note="ms: the wrapper, its three allocations included; kernel_ms: the launch alone",
         card=card["nvidia_smi"])
     bwd_args = kb_full.pop("args")
     bwd_res = time_bwd("v3", False, k_full["outputs"][2], bwd_args)
@@ -1423,6 +1616,10 @@ def main() -> int:
     var_timing = time_entries(full_table, k_full["outputs"], bwd_args)
     for name, res in var_timing.items():
         log(f"kernels/timing_full_802x550/{name}", **res, card=card["nvidia_smi"])
+    if against:
+        time_against("full_802x550", against, full_table, k_full["outputs"], bwd_args)
+        time_against("parity_128x256", against, small_table, k_small["outputs"],
+                     kb_small["args"])
 
     # --- 4. the slice at full width ----------------------------------------
     renderer = AvatarRenderer(model, params, aux, cam, cfg, device=dev)
@@ -1522,7 +1719,7 @@ def main() -> int:
     loop_res = phase_loop(card)
 
     # --- 13. row 2 on the fitted avatar --------------------------------------
-    phase_fitted_bwd(card, loop_res.pop("harness"))
+    phase_fitted_bwd(card, loop_res.pop("harness"), against)
 
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training and the loop.
@@ -1531,7 +1728,7 @@ def main() -> int:
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)
-    numbers["composite_pairs_fwd"] = dict(ms=kernel_ms, plain_ms=plain_ms, **bound)
+    numbers["composite_pairs_fwd"] = fwd_res
     numbers["composite_pairs_bwd"] = bwd_res
     errors = {name: max(var_small[name]["max_abs_err"], var_full[name]["max_abs_err"])
               for name in var_small}

@@ -53,7 +53,9 @@
 // per-pixel arithmetic is the reduction of each pair's nine values over the
 // P pixels: with one thread a pixel and a butterfly per sum, ~1,500 warp
 // shuffles per pair and tile, more issue slots than the arithmetic. This
-// schedule puts pixels inside a thread:
+// schedule puts pixels inside a thread (its pieces are in
+// composite_pairs_common.cuh, shared with the v2 kernel,
+// composite_pairs_bwd_v2.cu):
 //   * one block per tile, kPix pixels per thread (a warp owns kPix rows of
 //     32 consecutive pixels), so a pair's nine values are first summed over
 //     a thread's pixels in registers, and the pair's nine columns are read
@@ -92,48 +94,10 @@ namespace {
 
 using namespace cpk;
 
-constexpr int kPix = 4;                              // pixels a thread
-constexpr int kWarps = kMaxWarps * 32 / kPix / 32;   // warps of a 1024-pixel tile
-constexpr int kChunk = 256;                          // pairs staged at a time
-
-// One level of a transposing butterfly over 2·kHalf values: the lanes whose
-// bit `4·kHalf` is set keep the upper half and hand the partner the lower,
-// the others the reverse, so kHalf shuffles leave each lane kHalf values,
-// each summed over the lane and its partner.
-template <int kHalf>
-__device__ __forceinline__ void transpose_level(float* v, int lane) {
-  const bool upper = lane & (4 * kHalf);
-#pragma unroll
-  for (int m = 0; m < kHalf; ++m) {
-    const float keep = upper ? v[m + kHalf] : v[m];
-    const float send = upper ? v[m] : v[m + kHalf];
-    v[m] = keep + __shfl_xor_sync(kFull, send, 4 * kHalf);
-  }
-}
-
-// This thread's sums s (over its pixels) of one pair to the warp's. Fields
-// 0..7: a transposing butterfly (offsets 16, 8, 4: 7 shuffles), after which
-// lane l holds field l >> 2 summed over the 8 lanes that share l & 3;
-// offsets 2 and 1 finish the sum. Field 8: a plain butterfly. Lanes with
-// l & 3 == 0 store field l >> 2 at red[field · kWarps · kGroup], lane 0
-// field 8.
-__device__ __forceinline__ void warp_fields(const float (&s)[kSums], float* red, int lane) {
-  float v[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = s[k];
-  transpose_level<4>(v, lane);
-  transpose_level<2>(v, lane);
-  transpose_level<1>(v, lane);
-  v[0] = v[0] + __shfl_xor_sync(kFull, v[0], 2);
-  v[0] = v[0] + __shfl_xor_sync(kFull, v[0], 1);
-  const float f8 = warp_sum(s[8]);
-  constexpr int kField = kWarps * kGroup;
-  if ((lane & 3) == 0) red[(lane >> 2) * kField] = v[0];
-  if (lane == 0) red[8 * kField] = f8;
-}
+constexpr int kChunk = 256;  // pairs staged at a time
 
 template <bool kAmp, bool kGcVpu>
-__global__ void __launch_bounds__(kWarps * 32, 2) composite_pairs_bwd_kernel(
+__global__ void __launch_bounds__(kBwdWarps * 32, 2) composite_pairs_bwd_kernel(
     const float* __restrict__ dataT, long long ld,
     const int* __restrict__ starts, const int* __restrict__ counts,
     const float* __restrict__ acc, const float* __restrict__ t_final,
@@ -142,8 +106,8 @@ __global__ void __launch_bounds__(kWarps * 32, 2) composite_pairs_bwd_kernel(
     float* __restrict__ dgrad) {
   __shared__ float pairs[kRows][kChunk];
   // Each warp's sums, [buffer][field][warp][pair of the group].
-  __shared__ float red[2][kSums][kWarps][kGroup];
-  __shared__ int stop_max[kWarps];
+  __shared__ float red[2][kSums][kBwdWarps][kGroup];
+  __shared__ int stop_max[kBwdWarps];
 
   const int p = th * tw;
   const int tile = blockIdx.x;
@@ -159,27 +123,13 @@ __global__ void __launch_bounds__(kWarps * 32, 2) composite_pairs_bwd_kernel(
   // `_pixel_coords(th, tw, 0, 0)` with the means shifted by the origin.
   const float x0 = (float)((tile % ntx) * tw);
   const float y0 = (float)((tile / ntx) * th);
-  // Pixel i of this thread: row i of the warp's kPix rows of 32 pixels.
-  // Pixels past the tile take part in nothing (stop 0: no slot passes).
   BwdPixel px[kPix];
-  int my_stop = 0;
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int pix = (warp * kPix + i) * 32 + lane;
-    if (pix < p) {
-      px[i] = bwd_pixel<kAmp>(pix, tw, (long long)tile * p + pix, p,
-                              acc + (long long)tile * 3 * p, t_final, stop_in, g_acc_t, g_t);
-    } else {
-      px[i] = BwdPixel{};
-      px[i].stop = 0;
-    }
-    my_stop = max(my_stop, px[i].stop);
-  }
+  const int my_stop = bwd_pixels<kAmp>(px, tile, p, tw, warp, lane, acc, t_final, stop_in,
+                                       g_acc_t, g_t);
 
   // needed = min(count, max(stop) - head + 1), the same for every thread.
   const int needed =
       max(0, min(count, block_max(my_stop, stop_max, lane, warp, nwarps) - head + 1));
-
 
   float T[kPix], qsum[kPix];
 #pragma unroll
@@ -200,59 +150,16 @@ __global__ void __launch_bounds__(kWarps * 32, 2) composite_pairs_bwd_kernel(
 
     for (int g = 0; g < n; g += kGroup, ++round) {
       const int kn = min(kGroup, n - g);
-      float* rb = &red[round & 1][0][warp][0];
-      // Level 1: each thread's pixels, then the warp's, for kn pairs.
-#pragma unroll 2
-      for (int j = 0; j < kn; ++j) {
-        const int c = g + j;
-        const int sid = base + c + head;
-        float s[kSums];
-        bool any = false;
-#pragma unroll
-        for (int i = 0; i < kPix; ++i) {
-          float si[kSums];
-          any |= bwd_pair<kAmp, kGcVpu>(&pairs[0][c], kChunk, x0, y0, px[i], sid < px[i].stop,
-                                        T[i], qsum[i], si);
-#pragma unroll
-          for (int k = 0; k < kSums; ++k) s[k] = i == 0 ? si[k] : s[k] + si[k];
-        }
-        if (__any_sync(kFull, any)) {
-          warp_fields(s, rb + j, lane);
-        } else if (lane < kSums) {
-          rb[lane * kWarps * kGroup + j] = 0.0f;
-        }
-      }
+      walk_group<kAmp, kGcVpu, kChunk>(&pairs[0][0], g, kn, base + g + head, x0, y0, px, T,
+                                       qsum, &red[round & 1][0][warp][0], lane);
       __syncthreads();
-
-      // Level 2: thread j of warp 0 sums pair j's partials in warp order.
       if (tid < kn) {
-        const float* r = &red[round & 1][0][0][tid];
-        float s[kSums];
-#pragma unroll
-        for (int k = 0; k < kSums; ++k) {
-          float a = r[k * kWarps * kGroup];
-          for (int w = 1; w < nwarps; ++w) a = a + r[(k * kWarps + w) * kGroup];
-          s[k] = a;
-        }
-        pair_grad_rows(s, &pairs[0][g + tid], kChunk, x0, y0,
-                       dgrad + (long long)start + base + g + tid, ld);
+        group_rows<kChunk>(&red[round & 1][0][0][0], tid, nwarps, &pairs[0][g + tid], x0, y0,
+                           dgrad + (long long)start + base + g + tid, ld);
       }
     }
   }
-
-  // The zeros of rows 0..8: this segment's slots past the walk, and this
-  // block's share of the columns past the last segment, [total, ld). Written
-  // after the walk, they drain while other blocks' walks compute.
-  const int total = starts[gridDim.x - 1] + counts[gridDim.x - 1];
-  for (int i = needed + tid; i < count; i += blockDim.x) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) dgrad[k * ld + start + i] = 0.0f;
-  }
-  for (long long c = total + (long long)blockIdx.x * blockDim.x + tid; c < ld;
-       c += (long long)gridDim.x * blockDim.x) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) dgrad[k * ld + c] = 0.0f;
-  }
+  write_zeros(dgrad, ld, start, needed, count, starts, counts);
 }
 
 template <bool kAmp, bool kGcVpu>

@@ -53,28 +53,56 @@ __device__ __forceinline__ int block_max(int v, int* scratch, int lane, int warp
 
 // ---------------------------------------------------------------- forward
 
-// One pair at one pixel of the forward walk. `col` points at the pair's
-// row 0 in shared memory, its rows `stride` floats apart. A pair that is
-// culled (power > 0 or alpha < 1/255) changes nothing. Returns false, and
-// changes nothing, when the pair would take T below 1e-4: the pixel stops
-// before it.
-__device__ __forceinline__ bool fwd_pair(const float* col, int stride, float px, float py,
-                                         float& T, float& cr, float& cg, float& cb) {
-  const float dx = px - col[0];
-  const float dy = py - col[stride];
-  const float power = -0.5f * (col[2 * stride] * dx * dx + col[4 * stride] * dy * dy)
-                      - col[3 * stride] * dx * dy;
-  const float v = col[8 * stride] * expf(power);
+// One pair's nine used rows, read once from shared memory (rows `stride`
+// floats apart from `col`) and then evaluated at each of a thread's pixels.
+struct FwdPair {
+  float mx, my, ca, cb, cc, r, g, b, op;
+};
+
+__device__ __forceinline__ FwdPair load_pair(const float* col, int stride) {
+  return FwdPair{col[0],          col[stride],     col[2 * stride],
+                 col[3 * stride], col[4 * stride], col[5 * stride],
+                 col[6 * stride], col[7 * stride], col[8 * stride]};
+}
+
+// The alpha of pair q at a pixel dx, dy from its mean, with ccdy2 =
+// c·dy·dy (shared by the pixels of one row), or 0 where the pair is culled
+// (power > 0 or alpha < 1/255).
+__device__ __forceinline__ float fwd_alpha(const FwdPair& q, float dx, float dy, float ccdy2) {
+  const float power = -0.5f * (q.ca * dx * dx + ccdy2) - q.cb * dx * dy;
+  const float v = q.op * expf(power);
   const float alpha = v > kAlphaMax ? kAlphaMax : v;
-  if (!(power <= 0.0f) || !(alpha >= kAlphaCutoff)) return true;
+  return power <= 0.0f && alpha >= kAlphaCutoff ? alpha : 0.0f;
+}
+
+// Blends pair q, of alpha `alpha` (fwd_alpha), into a pixel that has not
+// stopped (`live`): T and the colour advance unless the pair is culled or
+// would take T below 1e-4. Returns whether the pixel stops before the pair
+// (then nothing changes). Written with selects, not branches.
+__device__ __forceinline__ bool fwd_blend(float alpha, const FwdPair& q, bool live, float& T,
+                                          float& cr, float& cg, float& cb) {
   const float test_t = T * (1.0f - alpha);
-  if (!(test_t >= kTEps)) return false;
   const float w = alpha * T;
-  cr = cr + w * col[5 * stride];
-  cg = cg + w * col[6 * stride];
-  cb = cb + w * col[7 * stride];
-  T = test_t;
-  return true;
+  const float nr = cr + w * q.r;
+  const float ng = cg + w * q.g;
+  const float nb = cb + w * q.b;
+  const bool use = live && alpha >= kAlphaCutoff;
+  const bool keep = use && test_t >= kTEps;
+  cr = keep ? nr : cr;
+  cg = keep ? ng : cg;
+  cb = keep ? nb : cb;
+  T = keep ? test_t : T;
+  return use && !(test_t >= kTEps);
+}
+
+// One pair at one pixel of the forward walk. A pair that is culled changes
+// nothing. Returns false, and changes nothing, when the pair would take T
+// below 1e-4: the pixel stops before it.
+__device__ __forceinline__ bool fwd_pair(const FwdPair& q, float px, float py, float& T,
+                                         float& cr, float& cg, float& cb) {
+  const float dx = px - q.mx;
+  const float dy = py - q.my;
+  return !fwd_blend(fwd_alpha(q, dx, dy, q.cc * dy * dy), q, true, T, cr, cg, cb);
 }
 
 // --------------------------------------------------------------- backward
@@ -196,21 +224,6 @@ __device__ __forceinline__ bool bwd_pair(const float* col, int stride, float x0,
   return contrib;
 }
 
-// Level 1 of a pair's reduction: the warp's sums of `s` (a butterfly of
-// shuffles, skipped when no pixel of the warp contributes), stored by lane 0
-// at red[k * red_stride + warp].
-__device__ __forceinline__ void warp_partials(float (&s)[kSums], bool contrib, float* red,
-                                              int red_stride, int lane, int warp) {
-  if (__any_sync(kFull, contrib)) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) s[k] = warp_sum(s[k]);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) red[k * red_stride + warp] = s[k];
-  }
-}
-
 // A pair's nine gradient rows from its nine sums `s` over the tile's pixels,
 // written to dst (rows `ld` floats apart), as at composite_pairs.py:802-819.
 __device__ __forceinline__ void pair_grad_rows(const float (&s)[kSums], const float* col,
@@ -240,16 +253,156 @@ __device__ __forceinline__ void pair_grad_rows(const float (&s)[kSums], const fl
   dst[8 * ld] = m1 / fmaxf(op, 1e-12f);
 }
 
-// Level 2, for one warp: sums the nwarps partials of one pair (stored as
-// warp_partials left them) in a fixed order; lane 0 then writes the pair's
-// nine gradient rows.
-__device__ __forceinline__ void write_pair_grad(const float* red, int red_stride, int lane,
-                                                int nwarps, const float* col, int stride,
-                                                float x0, float y0, float* dst, long long ld) {
+// ------------------------------------------- the backward's walk schedule
+//
+// Shared by the backward kernels of every implementation
+// (composite_pairs_bwd.cu, composite_pairs_bwd_v2.cu), which differ only in
+// how they stage their segment. A block of ceil(P / 128) warps takes one
+// tile, kPix pixels a thread (a warp owns kPix rows of 32 consecutive
+// pixels). Per pair:
+//   level 1  a thread sums the pair's nine values over its pixels in
+//            registers; the warp's sums of fields 0..7 go through a
+//            transposing butterfly (7 shuffles leave each lane one field
+//            summed over 8 lanes, 2 more finish it), field 8 through a plain
+//            one: 14 shuffles a pair and warp, skipped when no pixel of the
+//            warp contributes; lane l & 3 == 0 stores field l >> 2 into the
+//            partials `red`;
+//   level 2  once per kGroup pairs, after one barrier, thread j of warp 0
+//            adds pair j's partials in warp order and writes its nine rows.
+// The partials are double-buffered ([2][kSums][kBwdWarps][kGroup]), so the
+// other warps go on with the next group. Every sum has a fixed order that
+// never depends on timing: no atomics.
+
+constexpr int kPix = 4;                          // backward pixels a thread
+constexpr int kBwdWarps = kMaxWarps / kPix;      // warps of a 1024-pixel tile
+constexpr int kField = kBwdWarps * kGroup;       // floats between fields of `red`
+
+// One level of a transposing butterfly over 2·kHalf values: the lanes whose
+// bit `4·kHalf` is set keep the upper half and hand the partner the lower,
+// the others the reverse, so kHalf shuffles leave each lane kHalf values,
+// each summed over the lane and its partner.
+template <int kHalf>
+__device__ __forceinline__ void transpose_level(float* v, int lane) {
+  const bool upper = lane & (4 * kHalf);
+#pragma unroll
+  for (int m = 0; m < kHalf; ++m) {
+    const float keep = upper ? v[m + kHalf] : v[m];
+    const float send = upper ? v[m] : v[m + kHalf];
+    v[m] = keep + __shfl_xor_sync(kFull, send, 4 * kHalf);
+  }
+}
+
+// This thread's sums s (over its pixels) of one pair to the warp's. Fields
+// 0..7: a transposing butterfly (offsets 16, 8, 4: 7 shuffles), after which
+// lane l holds field l >> 2 summed over the 8 lanes that share l & 3;
+// offsets 2 and 1 finish the sum. Field 8: a plain butterfly. Lanes with
+// l & 3 == 0 store field l >> 2 at red[field · kField], lane 0 field 8.
+__device__ __forceinline__ void warp_fields(const float (&s)[kSums], float* red, int lane) {
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = s[k];
+  transpose_level<4>(v, lane);
+  transpose_level<2>(v, lane);
+  transpose_level<1>(v, lane);
+  v[0] = v[0] + __shfl_xor_sync(kFull, v[0], 2);
+  v[0] = v[0] + __shfl_xor_sync(kFull, v[0], 1);
+  const float f8 = warp_sum(s[8]);
+  if ((lane & 3) == 0) red[(lane >> 2) * kField] = v[0];
+  if (lane == 0) red[8 * kField] = f8;
+}
+
+// This thread's kPix pixels of the tile: pixel i is row i of the warp's
+// kPix rows of 32 pixels. Pixels past the tile take part in nothing (stop
+// 0: no slot passes). Returns the largest stop id of the thread's pixels.
+template <bool kAmp>
+__device__ __forceinline__ int bwd_pixels(BwdPixel (&px)[kPix], int tile, int p, int tw,
+                                          int warp, int lane, const float* acc,
+                                          const float* t_final, const int* stop_in,
+                                          const float* g_acc_t, const float* g_t) {
+  int my_stop = 0;
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const int pix = (warp * kPix + i) * 32 + lane;
+    if (pix < p) {
+      px[i] = bwd_pixel<kAmp>(pix, tw, (long long)tile * p + pix, p,
+                              acc + (long long)tile * 3 * p, t_final, stop_in, g_acc_t, g_t);
+    } else {
+      px[i] = BwdPixel{};
+      px[i].stop = 0;
+    }
+    my_stop = max(my_stop, px[i].stop);
+  }
+  return my_stop;
+}
+
+// Level 1 for kn consecutive staged pairs: columns c0.. of `pairs` (rows
+// kStride floats apart), window-local ids sid0... `rb` is this warp's slice
+// of one buffer of the partials, &red[buf][0][warp][0]. The pair loop is
+// unrolled twice, so one pair's reduction overlaps the next pair's
+// arithmetic.
+template <bool kAmp, bool kGcVpu, int kStride>
+__device__ __forceinline__ void walk_group(const float* pairs, int c0, int kn, int sid0,
+                                           float x0, float y0, const BwdPixel (&px)[kPix],
+                                           float (&T)[kPix], float (&qsum)[kPix], float* rb,
+                                           int lane) {
+#pragma unroll 2
+  for (int j = 0; j < kn; ++j) {
+    const int sid = sid0 + j;
+    float s[kSums];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      float si[kSums];
+      any |= bwd_pair<kAmp, kGcVpu>(pairs + c0 + j, kStride, x0, y0, px[i], sid < px[i].stop,
+                                    T[i], qsum[i], si);
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) s[k] = i == 0 ? si[k] : s[k] + si[k];
+    }
+    if (__any_sync(kFull, any)) {
+      warp_fields(s, rb + j, lane);
+    } else if (lane < kSums) {
+      rb[lane * kField + j] = 0.0f;
+    }
+  }
+}
+
+// Level 2 for pair j of a group (called by thread j of warp 0 after the
+// barrier that ends level 1): adds the pair's partials of one buffer of
+// `red` (&red[buf][0][0][0]) in warp order and writes its nine rows to dst.
+// `col` is the pair's staged column (rows kStride floats apart).
+template <int kStride>
+__device__ __forceinline__ void group_rows(const float* red, int j, int nwarps,
+                                           const float* col, float x0, float y0, float* dst,
+                                           long long ld) {
+  const float* r = red + j;
   float s[kSums];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) s[k] = warp_sum(lane < nwarps ? red[k * red_stride + lane] : 0.0f);
-  if (lane == 0) pair_grad_rows(s, col, stride, x0, y0, dst, ld);
+  for (int k = 0; k < kSums; ++k) {
+    float a = r[k * kField];
+    for (int w = 1; w < nwarps; ++w) a = a + r[k * kField + w * kGroup];
+    s[k] = a;
+  }
+  pair_grad_rows(s, col, kStride, x0, y0, dst, ld);
+}
+
+// The zeros of rows 0..8 that a block writes after its walk: its segment's
+// slots [from, count) (columns start + slot), and its share of the columns
+// past the last segment, [total, ld). The segments tile [0, total) in tile
+// order (ops/sort_binning.segment_bounds), so every column is written by
+// exactly one block. Written after the walk, they drain while other
+// blocks' walks compute.
+__device__ __forceinline__ void write_zeros(float* dgrad, long long ld, int start, int from,
+                                            int count, const int* starts, const int* counts) {
+  const int total = starts[gridDim.x - 1] + counts[gridDim.x - 1];
+  for (int i = from + (int)threadIdx.x; i < count; i += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) dgrad[k * ld + start + i] = 0.0f;
+  }
+  for (long long c = total + (long long)blockIdx.x * blockDim.x + threadIdx.x; c < ld;
+       c += (long long)gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) dgrad[k * ld + c] = 0.0f;
+  }
 }
 
 }  // namespace cpk

@@ -82,7 +82,7 @@ __global__ void composite_pairs_fwd_v2_kernel(
         // Per-slot mask: the window's live slots, and only while the pixel
         // has not stopped (sid < stop).
         if (sid >= head && sid < count_eff && stop == kStopNever &&
-            !fwd_pair(&chunk[0][c], kChunk, px, py, T, cr, cg, cb)) {
+            !fwd_pair(load_pair(&chunk[0][c], kChunk), px, py, T, cr, cg, cb)) {
           stop = sid;
         }
       }

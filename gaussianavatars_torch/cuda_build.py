@@ -127,6 +127,23 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return out
 
 
+# An H100 SM: 65,536 registers (allocated 256 a warp at a time), 228 KB of
+# shared memory (1 KB a block kept by the system), 2,048 threads, 32 blocks.
+SM_REGS, SM_REG_UNIT, SM_SMEM, SM_SMEM_PER_BLOCK = 65536, 256, 233472, 1024
+SM_THREADS, SM_BLOCKS = 2048, 32
+
+
+def blocks_per_sm(report: dict, threads: int) -> int:
+    """Blocks of `threads` threads an H100 SM holds at once, by a kernel's
+    `ptxas_report` entry (registers a thread, static shared memory a block):
+    the least of the register, shared-memory, thread and block limits."""
+    warps = -(-threads // 32)
+    regs_per_warp = -(-report["registers"] * 32 // SM_REG_UNIT) * SM_REG_UNIT
+    return min(SM_REGS // regs_per_warp // warps,
+               SM_SMEM // (report.get("smem_bytes", 0) + SM_SMEM_PER_BLOCK),
+               SM_THREADS // threads, SM_BLOCKS)
+
+
 SASS_OPCODES = ("FFMA", "FMUL", "FADD", "HMMA", "BAR", "SHFL", "LDS")
 
 

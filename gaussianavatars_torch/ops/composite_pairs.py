@@ -48,7 +48,7 @@ from .. import cuda_build
 from .rasterize_dense import ALPHA_CUTOFF, ALPHA_MAX, T_EPS
 
 STOP_NEVER = 0x3FFFFFFF
-MAX_TILE_PIXELS = 1024  # one thread per pixel, one block per tile
+MAX_TILE_PIXELS = 1024  # 4 pixels a thread, at most 8 warps a tile
 
 # The implementation switch (see the module docstring).
 _FWD_IMPL = "v3"
@@ -113,27 +113,34 @@ def _fwd_kernel_fn(lib: str, sym: str):
     return fn
 
 
-def _launch_cuda(dataT, starts, counts, th, tw, ntx, entry):
-    p = th * tw
-    if p > MAX_TILE_PIXELS:
-        raise ValueError(f"tile of {p} pixels exceeds the kernel's {MAX_TILE_PIXELS}")
+def _fwd_output(dataT, starts, th, tw):
+    """The forward kernel's three outputs (acc [NT, 3, P], t_final [NT, P],
+    stop [NT, P] int32), uninitialised: the kernel writes every element."""
+    nt, p, dev = starts.shape[0], th * tw, dataT.device
+    return (torch.empty((nt, 3, p), dtype=torch.float32, device=dev),
+            torch.empty((nt, p), dtype=torch.float32, device=dev),
+            torch.empty((nt, p), dtype=torch.int32, device=dev))
+
+
+def _launch_fwd_cuda(out, dataT, starts, counts, th, tw, ntx):
+    """Launch the `_FWD_IMPL` forward kernel into `out` (as `_fwd_output`
+    makes it)."""
+    entry = fwd_entry(_FWD_IMPL)
+    if th * tw > MAX_TILE_PIXELS or tw % 4:
+        raise ValueError(f"tile {th}x{tw}: the kernel takes up to {MAX_TILE_PIXELS} pixels "
+                         "in rows of a multiple of 4")
     if not (dataT.is_contiguous() and starts.is_contiguous() and counts.is_contiguous()):
         raise ValueError("dataT, starts and counts must be contiguous")
     fn = _fwd_kernel_fn(*entry)
-    nt = starts.shape[0]
-    dev = dataT.device
-    acc = torch.empty((nt, 3, p), dtype=torch.float32, device=dev)
-    t_final = torch.empty((nt, p), dtype=torch.float32, device=dev)
-    stop = torch.empty((nt, p), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    acc, t_final, stop = out
+    with torch.cuda.device(dataT.device):
+        stream = torch.cuda.current_stream(dataT.device).cuda_stream
         err = fn(dataT.data_ptr(), dataT.stride(0), starts.data_ptr(), counts.data_ptr(),
-                 nt, th, tw, ntx, acc.data_ptr(), t_final.data_ptr(), stop.data_ptr(),
-                 stream)
+                 starts.shape[0], th, tw, ntx, acc.data_ptr(), t_final.data_ptr(),
+                 stop.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry[1]} launch failed with CUDA error {err}")
     LAUNCHES[entry[1]] += 1
-    return acc, t_final, stop
 
 
 def fwd_call_pairs(dataT, starts, counts, th: int, tw: int, ntx: int):
@@ -143,10 +150,12 @@ def fwd_call_pairs(dataT, starts, counts, th: int, tw: int, ntx: int):
     read); starts, counts: [NT] int32 segment bounds per tile. Returns
     (acc [NT, 3, P], t_final [NT, P], stop [NT, P] int32).
     """
-    entry = fwd_entry(_FWD_IMPL)
+    fwd_entry(_FWD_IMPL)
     _check(dataT, starts, counts, th, tw)
     if dataT.device.type == "cuda":
-        return _launch_cuda(dataT, starts, counts, th, tw, ntx, entry)
+        out = _fwd_output(dataT, starts, th, tw)
+        _launch_fwd_cuda(out, dataT, starts, counts, th, tw, ntx)
+        return out
     if dataT.device.type != "cpu":
         raise ValueError(f"no compositor for device {dataT.device}")
     return fwd_call_pairs_reference(dataT, starts, counts, th, tw, ntx)
@@ -226,19 +235,13 @@ def _bwd_kernel_fn(lib: str, sym: str):
     return fn
 
 
-# Backward implementations whose kernel writes rows 0..8 of every column of
-# its output, zeros included (composite_pairs_bwd.cu); v2's writes only the
-# slots its walks reach.
-_BWD_WRITES_ALL = ("v3", "v4")
-
-
 def _bwd_output(dataT, starts):
-    """The backward kernel's output, dataT's shape: zero-filled where the
-    `_BWD_IMPL` kernel does not write. The v3/v4 kernel writes rows 0..8 of
-    every column, which takes segments that tile [0, total) in tile order
-    (as `segment_bounds` makes them); rows 9..15 of a 16-row table are
-    filled here."""
-    if _BWD_IMPL not in _BWD_WRITES_ALL or starts.shape[0] == 0:
+    """The backward kernel's output, dataT's shape. Every implementation's
+    kernel writes rows 0..8 of every column, zeros included, which takes
+    segments that tile [0, total) in tile order (as `segment_bounds` makes
+    them); rows 9..15 of a 16-row table, and the whole output when there
+    is no tile to launch, are zero-filled here."""
+    if starts.shape[0] == 0:
         return torch.zeros_like(dataT)
     dgrad = torch.empty_like(dataT)
     dgrad[9:].zero_()

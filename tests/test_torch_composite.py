@@ -129,3 +129,20 @@ def test_wrapper_checks_inputs():
     tcp.fwd_call_pairs(t(dataT), t(starts), t(counts), TILE_H, TILE_W, ntx)
     assert tcp.LAUNCHES == before
 
+
+@pytest.mark.parametrize("th, tw", [(8, 10), (16, 6), (64, 32)])
+def test_kernel_wrappers_reject_tiles_the_kernels_do_not_take(th, tw):
+    """The forward kernel takes up to 1,024 pixels a tile in rows of a
+    multiple of 4 (a thread's 4 pixels lie in one row); the backward
+    kernels a multiple of 32 up to 1,024. The launchers refuse other tiles
+    before anything reaches the card, so this runs on the CPU."""
+    dataT, starts, counts, ntx = _table("unaligned_starts")
+    table = (t(dataT), t(starts), t(counts))
+    nt, p = starts.shape[0], th * tw
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tcp._launch_fwd_cuda(tcp._fwd_output(table[0], table[1], th, tw), *table, th, tw, ntx)
+    if p % 32 or p > tcp.MAX_TILE_PIXELS:
+        g = torch.zeros((nt, p))
+        with pytest.raises(ValueError, match="multiple of 32"):
+            tcp._launch_bwd_cuda(torch.zeros_like(table[0]), *table, torch.zeros((nt, 3, p)),
+                                 g, g.int(), torch.zeros((nt, p, 3)), g, th, tw, ntx)

@@ -119,13 +119,71 @@ def test_micro_reduce_b_reduces_many_partials_a_shuffle():
     assert body.count("lane == 0") == 1
 
 
+def _compositor_source(name: str) -> str:
+    """csrc/<name>.cu with the header it includes, as the compiler sees them."""
+    csrc = cuda_build.CSRC_DIR
+    return (csrc / "composite_pairs_common.cuh").read_text() + (csrc / f"{name}.cu").read_text()
+
+
 def test_bwd_kernel_sums_pixels_in_threads_without_atomics():
     """The backward compositor sums a pair over a thread's pixels, then a
     warp's by the transposing butterfly, then the warps' in order: no
-    atomics, no per-field butterflies of the old schedule."""
-    src = (cuda_build.CSRC_DIR / "composite_pairs_bwd.cu").read_text()
+    atomics, no per-field butterflies of the old schedule. The schedule's
+    pieces are in the shared header, so the source is read with it."""
+    src = _compositor_source("composite_pairs_bwd")
     assert "atomicAdd" not in src and "warp_partials(" not in src
     for step in ("transpose_level<4>(v, lane)", "transpose_level<2>(v, lane)",
                  "transpose_level<1>(v, lane)"):
         assert src.count(step) == 1
     assert "warp_fields(s, rb + j, lane)" in src
+    assert "walk_group<kAmp, kGcVpu, kChunk>(" in src
+
+
+def test_bwd_v2_kernel_walks_live_slots_through_the_shared_butterfly():
+    """Row 4 (the v2 backward) walks only the live slots of each 512-pair
+    chunk, reduces through the one transposing butterfly of the shared
+    header (the schedule of composite_pairs_bwd.cu), and writes its own
+    zeros: no atomics, no walk of a whole chunk, no per-field butterflies."""
+    src = _compositor_source("composite_pairs_bwd_v2")
+    body = src[src.index("composite_pairs_bwd_v2_kernel("):]
+    assert "atomicAdd" not in src and "warp_partials(" not in src
+    assert "g < kChunk" not in body and "i < kChunk" not in body
+    assert "for (int g = lo; g < hi; g += kGroup" in body
+    assert "walk_group<kAmp, false, kChunk>(" in body and "group_rows<kChunk>(" in body
+    assert "write_zeros(" in body
+    header = (cuda_build.CSRC_DIR / "composite_pairs_common.cuh").read_text()
+    assert header.count("template <int kHalf>\n__device__ __forceinline__ void "
+                        "transpose_level") == 1
+    for name in ("composite_pairs_bwd.cu", "composite_pairs_bwd_v2.cu"):
+        assert "transpose_level" not in (cuda_build.CSRC_DIR / name).read_text()
+
+
+def test_fwd_kernel_puts_several_pixels_in_a_thread():
+    """Row 1 keeps 4 pixels a thread in blocks of 2 warps (a 32×32 tile over
+    4 blocks, 16 blocks an SM asked of the compiler), reads each staged pair
+    once a thread, forms its alpha at the thread's pixels before any of
+    them blends it, and blends with selects: no branch on a pixel's stop
+    inside the walk."""
+    src = (cuda_build.CSRC_DIR / "composite_pairs_fwd.cu").read_text()
+    assert "constexpr int kFwdPix = 4;" in src and "constexpr int kBlockWarps = 2;" in src
+    assert "__launch_bounds__(kBlockWarps * 32, 32 / kBlockWarps)" in src
+    assert src.count("load_pair(") == 1
+    walk = src[src.index("const FwdPair q = load_pair("):]
+    assert walk.index("fwd_alpha(q,") < walk.index("fwd_blend(a[i], q, !done[i],")
+    # 4 consecutive pixels of one row a thread, one dy a pair, vector stores.
+    assert "const int pix0 = warp * 32 * kFwdPix + kFwdPix * lane;" in src
+    assert walk.count("const float dy = py - q.my;") == 1
+    assert src.count("*reinterpret_cast<float4*>(") == 4
+    header = (cuda_build.CSRC_DIR / "composite_pairs_common.cuh").read_text()
+    blend = header[header.index("bool fwd_blend("):header.index("bool fwd_pair(")]
+    assert "if (" not in blend and "keep ? test_t : T" in blend
+
+
+def test_blocks_per_sm_takes_the_tightest_limit():
+    """Registers (256 a warp at a time), shared memory, threads: row 2's
+    report on the H100 (108 registers, 27,680 B) holds 2 blocks of 256 threads."""
+    assert cuda_build.blocks_per_sm({"registers": 108, "smem_bytes": 27680}, 256) == 2
+    assert cuda_build.blocks_per_sm({"registers": 64, "smem_bytes": 9216}, 256) == 4
+    assert cuda_build.blocks_per_sm({"registers": 32, "smem_bytes": 0}, 256) == 8
+    assert cuda_build.blocks_per_sm({"registers": 32, "smem_bytes": 100000}, 256) == 2
+    assert cuda_build.blocks_per_sm({"registers": 16}, 32) == 32

@@ -58,6 +58,8 @@ CASES = {
     "long_walks_8x16": (1, 1500, 64, 96, 8, 16, 0.02, 0.08, (0.08, 0.06, 0.3)),
     "saturating_32x32": (2, 4096, 128, 256, 32, 32, 0.3, 0.98, (0.8, 0.6, 0.3)),
     "empty_tiles_16x16": (3, 300, 100, 150, 16, 16, 0.5, 0.9, (0.1, 0.1, 0.3)),
+    # 96 pixels a tile: not a multiple of the kernels' 128 pixels a warp.
+    "partial_warp_8x12": (4, 400, 64, 96, 8, 12, 0.3, 0.95, (0.3, 0.2, 0.3)),
 }
 
 
@@ -83,6 +85,8 @@ def test_cuda_wrapper_rejects_oversized_tiles(cuda_device):
     dataT, starts, counts, ntx = _table(*CASES["sparse_8x16"], device=cuda_device)
     with pytest.raises(ValueError):
         tcp.fwd_call_pairs(dataT, starts, counts, 64, 32, ntx)
+    with pytest.raises(ValueError, match="multiple of 4"):   # rows of a multiple of 4
+        tcp.fwd_call_pairs(dataT, starts, counts, 8, 10, ntx)
     with pytest.raises(ValueError):
         tcp.fwd_call_pairs(dataT[:, ::2], starts, counts, 8, 16, ntx)
 
@@ -172,13 +176,13 @@ def test_cuda_variant_kernels_match_plain(case, impl, cuda_device, monkeypatch):
 @pytest.mark.parametrize("rows", [9, 16])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_row2_kernels_take_9_and_16_rows(case, rows, cuda_device, monkeypatch):
-    """The v3 and v4 backward kernels (one source, float32 and `amp`) on the
-    port's 9-row table and on the JAX package's 16-row layout of it, long
-    walks included: each row within 1e-4 of its largest plain value, the
-    plain version's zero slots and rows 9..15 exact zeros, every column's
-    rows 0..8 written by the kernel (a launch into a NaN-filled output gives
-    the wrapper's result), the 16-row gradient's rows 0..8 equal to the
-    9-row one's bit for bit."""
+    """The v3 and v4 backward kernels (one source) and the v2 kernel, float32
+    and `amp`, on the port's 9-row table and on the JAX package's 16-row
+    layout of it, long walks included: each row within 1e-4 of its largest
+    plain value, the plain version's zero slots and rows 9..15 exact zeros,
+    every column's rows 0..8 written by the kernel (a launch into a
+    NaN-filled output gives the wrapper's result), the 16-row gradient's
+    rows 0..8 equal to the 9-row one's bit for bit."""
     dataT, starts, counts, ntx = _table(*CASES[case], device=cuda_device)
     assert dataT.shape[0] == 9
     if rows == 16:
@@ -190,7 +194,7 @@ def test_row2_kernels_take_9_and_16_rows(case, rows, cuda_device, monkeypatch):
     g_acc_t = torch.randn((nt, p, 3), generator=g).to(cuda_device)
     g_t = torch.randn((nt, p), generator=g).to(cuda_device)
     rest = (starts, counts, acc, tfin, stop, g_acc_t, g_t, th, tw, ntx)
-    for impl in ("v3", "v4"):
+    for impl in ("v3", "v4", "v2"):
         monkeypatch.setattr(tcp, "_BWD_IMPL", impl)
         for amp in (False, True):
             entry = tcp.bwd_entry(impl, amp)[1]
