@@ -6,9 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 `--against ROOT` (repeatable) also builds another checkout's compositor
-kernels (for example the parent commit, unpacked with `git archive` into
-an ignored directory) and times rows 1, 4 and 2 of both in the same call
-(`[against/*]`, phases 3 and 13).
+and micro-reduce kernels (for example the parent commit, unpacked with
+`git archive` into an ignored directory) and times rows 1, 2, 3 and 4 and
+the four micro-reduce kernels of both in the same call (`[against/*]`,
+phases 3, 11 and 13).
 
 Phases (each prints a line; a failing phase raises and the exit code is
 non-zero):
@@ -25,7 +26,7 @@ non-zero):
                 within 1e-4 of its largest plain value and the plain
                 version's zero slots exact; the port's 9-row table against
                 the JAX package's 16-row layout (bit for bit, rows 9..15
-                zero); the forward kernel and the backward's six
+                zero); both forward kernels and the backward's six
                 instantiations without spills in their ptxas report, with
                 registers and blocks per SM; the forward timed through its
                 wrapper and alone;
@@ -52,7 +53,7 @@ non-zero):
   8. variants — in phase 3, on both tables: the other implementations'
                 kernels (v2 forward, v2 and v4 backward) and the three
                 backward kernels' `amp` entry points against their plain
-                versions (the v2 forward bit for bit; each backward row
+                versions (the v2 forward bit for bit, stop ids included; each backward row
                 within 1e-4 of its largest plain value, zero slots exact,
                 every column written by the kernel), and each entry point's
                 time, plain time and bound;
@@ -73,14 +74,16 @@ non-zero):
                 `torch.matmul` yardstick, its bound and share of it (C and
                 D: also of their route's tensor-core floor), its ptxas
                 report and a count of opcodes in its SASS; the no-fold
-                gate: no kernel above 1.05 of its bound, and each one's
-                SASS holding its route's instruction (FFMA in A, SHFL in B,
-                HMMA in C and D);
+                gate: A and B not above 1.05 of their bound, C and D not
+                above 1.05 of their route's floor, and each one's SASS
+                holding its route's instruction (FFMA in A, SHFL in B,
+                HMMA in C, HGMMA in D);
  12. loop     — `tools/train_synthetic` at 802×550, 800 iterations, with
                 its events, then a resume from its checkpoint;
- 13. fitted   — on one 802×550 view of phase 12's fitted avatar: the
-                forward bit for bit against its plain version, timed through
-                its wrapper and alone; the backward's six entries (v3, v4,
+ 13. fitted   — on one 802×550 view of phase 12's fitted avatar: both
+                forward kernels (v3, v2) bit for bit against their plain
+                version, timed through the wrapper, alone and as a CUDA
+                graph; the backward's six entries (v3, v4,
                 v2, float32 and `amp`) against their plain versions, every
                 column written, timed, with the walked pairs.
 
@@ -460,7 +463,7 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
     entry points against their plain versions on the same card tensors.
 
     The v2 forward must equal the plain forward bit for bit (acc, t_final,
-    per-tile max of stop), as the v3 kernel does. Each backward kernel is
+    stop ids), as the v3 kernel does. Each backward kernel is
     held to the v3 kernel's bound, per row max |kernel − plain| <= 1e-4 ·
     max |plain|, with exact zeros. For `amp` that bound holds for the same
     reason: each pixel's float32 values are operation for operation the
@@ -481,7 +484,8 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
                max_abs_err=max(float((acc - r_acc).abs().max()),
                                float((tfin - r_tfin).abs().max())))
     log(f"kernels/fwd_v2_{label}", **res)
-    if not (res["bit_equal_acc"] and res["bit_equal_t_final"] and res["stop_tile_max_equal"]):
+    if not (res["bit_equal_acc"] and res["bit_equal_t_final"] and res["stop_tile_max_equal"]
+            and res["stop_elements_differing"] == 0):
         raise AssertionError(f"composite_pairs_fwd_v2 disagrees with its plain version: {res}")
     out["composite_pairs_fwd_v2"] = res
 
@@ -513,6 +517,7 @@ def compare_variants(label: str, table, k_res: dict, kb_res: dict) -> dict:
 # the mangled name) → the C entry point of the instantiation.
 KERNEL_INSTANCES = {
     ("composite_pairs_fwd", "composite_pairs_fwd_kernelE"): "composite_pairs_fwd",
+    ("composite_pairs_fwd_v2", "composite_pairs_fwd_v2_kernelE"): "composite_pairs_fwd_v2",
     ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb0ELb0E"): "composite_pairs_bwd",
     ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb1ELb0E"): "composite_pairs_bwd_amp",
     ("composite_pairs_bwd", "composite_pairs_bwd_kernelILb0ELb1E"): "composite_pairs_bwd_v4",
@@ -521,17 +526,19 @@ KERNEL_INSTANCES = {
     ("composite_pairs_bwd_v2", "composite_pairs_bwd_v2_kernelILb1EE"): "composite_pairs_bwd_v2_amp",
 }
 # Threads a block of each library's kernels at a 32×32 tile: 2 warps
-# (composite_pairs_fwd.cu's kBlockWarps), ceil(P / 128) warps (backward).
-BLOCK_THREADS_32X32 = {"composite_pairs_fwd": 64, "composite_pairs_bwd": 256,
-                       "composite_pairs_bwd_v2": 256}
+# (the forward walk's kFwdBlockWarps), ceil(P / 128) warps (backward).
+BLOCK_THREADS_32X32 = {"composite_pairs_fwd": 64, "composite_pairs_fwd_v2": 64,
+                       "composite_pairs_bwd": 256, "composite_pairs_bwd_v2": 256}
+FWD_NAMES = ("composite_pairs_fwd", "composite_pairs_fwd_v2")
 # The backward's entry points: rows 2, 5 and 4, each float32 and `amp`.
 BWD_ENTRIES = (("v3", False), ("v3", True), ("v4", False), ("v4", True), ("v2", False),
                ("v2", True))
 
 
 def kernel_resources(built) -> dict:
-    """The ptxas report (phase 2's compiler output) of row 1's kernel and
-    of the backward's six instantiations (rows 2, 4 and 5): registers,
+    """The ptxas report (phase 2's compiler output) of the forward kernels
+    (rows 1 and 3) and of the backward's six instantiations (rows 2, 4 and
+    5): registers,
     shared memory, stack and spill bytes, and blocks per SM at a 32×32
     tile's block. Fails when one is missing or spills."""
     from gaussianavatars_torch import cuda_build
@@ -544,8 +551,8 @@ def kernel_resources(built) -> dict:
                     threads = BLOCK_THREADS_32X32[lib]
                     out[name] = dict(rep, threads=threads,
                                      blocks_per_sm=cuda_build.blocks_per_sm(rep, threads))
-    log("kernels/fwd_ptxas", composite_pairs_fwd=out.get("composite_pairs_fwd"))
-    log("kernels/bwd_ptxas", **{k: v for k, v in out.items() if k != "composite_pairs_fwd"})
+    log("kernels/fwd_ptxas", **{k: out.get(k) for k in FWD_NAMES})
+    log("kernels/bwd_ptxas", **{k: v for k, v in out.items() if k not in FWD_NAMES})
     if len(out) != len(KERNEL_INSTANCES) or any(
             r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in out.values()):
         raise AssertionError(f"a compositor kernel is missing or spills: {out}")
@@ -989,8 +996,9 @@ def phase_train_amp(model, aux, cam, tile_cfg, card, setup) -> dict:
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
 MICRO_REL_TOL = 1e-5       # every slot, each micro-reduce kernel against its plain version
 # The instruction each micro-reduce kernel's route must show in its SASS:
-# A on the CUDA cores, B by warp shuffles, C and D on the tensor cores.
-MICRO_ROUTE_OPCODE = {"a": "FFMA", "b": "SHFL", "c": "HMMA", "d": "HMMA"}
+# A on the CUDA cores, B by warp shuffles, C on the tensor cores by
+# mma.sync, D by wgmma.
+MICRO_ROUTE_OPCODE = {"a": "FFMA", "b": "SHFL", "c": "HMMA", "d": "HGMMA"}
 N_LIBRARY_REPS = 20
 
 
@@ -1003,10 +1011,11 @@ def micro_reduce_entries() -> dict:
 
 
 def route_floor(k: str, nt: int) -> dict:
-    """Least time of a tensor-core formulation's own products: its
-    mma.m16n8k8 TF32 count (2·16·8·8 FLOP each) at the dense TF32 peak. Per
-    16 slots and chunk, 1024 / 8 k-steps × 3 (3xTF32) × the n-tiles: 9 for
-    C (one a field, 1 of 8 columns live), 2 for D (the 9 columns in 16)."""
+    """Least time of a tensor-core formulation's own products: their count
+    in m16n8k8 TF32 products (2·16·8·8 FLOP each) at the dense TF32 peak.
+    Per 16 slots and chunk, 1024 / 8 k-steps × 3 (3xTF32) × the n-tiles: 9
+    for C (one a field, 1 of 8 columns live), 2 for D (the 9 columns in
+    16; its wgmma.m64n16k8 is 4 × 2 of them over 64 slots)."""
     from gaussianavatars_torch.tools import micro_reduce_bench as mr
 
     n_tiles = {"c": mr.NRED, "d": 2}[k]
@@ -1029,16 +1038,19 @@ def micro_reduce_bound(nt: int) -> dict:
                 bound_ms_3xtf32=3e3 * flops / PEAK_TF32_FLOPS)
 
 
-def phase_micro_reduce(card, built) -> dict:
+def phase_micro_reduce(card, built, against=()) -> dict:
     """Phase 11: `tools/micro_reduce_bench.main` at NT = 468 (the main path:
     each kernel's warm-up and 50 chained launches), then each kernel against
     its plain version on the same input, the plain versions' times, the
     `torch.matmul` yardstick and the bounds, each kernel's share of its
     bound (and for C and D of their route's tensor-core floor), its ptxas
     report (`built`: phase 2's compiler output) and the count of some
-    opcodes in its SASS. The no-fold gate: the phase fails if a kernel runs
-    above 1.05 of its bound or its SASS (which must be readable) lacks its
-    route's instruction (`MICRO_ROUTE_OPCODE`)."""
+    opcodes in its SASS. The no-fold gate: the phase fails if A or B runs
+    above 1.05 of its bound, C or D above 1.05 of its route's floor (a
+    tensor-core route may beat the CUDA-core bound), or a kernel's SASS
+    (which must be readable) lacks its route's instruction
+    (`MICRO_ROUTE_OPCODE`). With `--against`, each other checkout's four
+    kernels beside this one's (`time_micro_against`)."""
     from gaussianavatars_torch import cuda_build
     from gaussianavatars_torch.tools import micro_reduce_bench as mr
 
@@ -1079,7 +1091,8 @@ def phase_micro_reduce(card, built) -> dict:
         r["ptxas"] = next((v for n, v in ptxas.items() if kern in n), None)
         r["sass"] = next((v for n, v in sass.items() if kern in n), None)
         r["fold_failures"] = cuda_build.fold_failures(name, r["bound_share"], r["sass"],
-                                                      MICRO_ROUTE_OPCODE[k])
+                                                      MICRO_ROUTE_OPCODE[k],
+                                                      r.get("route_floor_share"))
         log(f"micro_reduce/{k}", **r, card=card["nvidia_smi"])
         if not rel <= MICRO_REL_TOL:
             raise AssertionError(f"{name} disagrees with its plain version: {r}")
@@ -1093,7 +1106,48 @@ def phase_micro_reduce(card, built) -> dict:
     log("micro_reduce/yardstick", library_ms=library_ms, card=card["nvidia_smi"],
         note="torch.matmul of the [NT*C, 1024] plane by the [1024, 9] basis, TF32 off; "
              "the sum over the 9 columns is left out")
+    for k in "abcd" if against else "":   # D the redesign, A-C controls
+        time_micro_against(k, against, x, card)
     return out
+
+
+def time_micro_against(k: str, against, x, card) -> dict:
+    """micro_reduce_<k> of this checkout beside each `--against` checkout's
+    on the same input, on one card in one call: N_KERNEL_REPS launches into
+    one output (CUDA events) and as a CUDA graph (`graph_ms`), in the order
+    others, this, this, others reversed; each other's output against this
+    one's (max relative error a slot). The C entry points are called
+    directly, so these comparison launches add to no count."""
+    from gaussianavatars_torch.tools import micro_reduce_bench as mr
+
+    sym = f"micro_reduce_{k}"
+    own = mr._kernel_fn(sym)
+    fns = {"this": own}
+    for root, libs in against:
+        fn = getattr(libs["micro_reduce"], sym)
+        fn.restype, fn.argtypes = own.restype, own.argtypes
+        fns[root] = fn
+    outs = {name: torch.empty_like(x) for name in fns}
+
+    def launcher(name):
+        def launch():   # on the current stream, which a graph capture replaces
+            err = fns[name](x.data_ptr(), outs[name].data_ptr(), x.shape[0],
+                            torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"{sym} of {name}: CUDA error {err}")
+        return launch
+
+    times = {name: {"kernel_ms": [], "device_ms": []} for name in fns}
+    others = [name for name in fns if name != "this"]
+    for name in others + ["this", "this"] + others[::-1]:
+        times[name]["kernel_ms"].append(cuda_ms(launcher(name), N_KERNEL_REPS))
+        times[name]["device_ms"].append(graph_ms(launcher(name), N_KERNEL_REPS))
+    torch.cuda.synchronize()
+    res = dict(times=times, nt=x.shape[0])
+    for name in others:
+        res[f"max_rel_err/{name}"] = mr.relative_error(outs[name], outs["this"])
+    log(f"against/micro_reduce/{sym}", **res, card=card["nvidia_smi"])
+    return res
 
 
 LOOP_FLAGS = ("--width", "802", "--height", "550", "--capacity", "131072", "--per_face", "2",
@@ -1313,8 +1367,9 @@ def phase_loop(card) -> dict:
 
 def fitted_view(harness):
     """The fitted avatar's first 802×550 training view (SH degree 0): its
-    table, the forward kernel against its plain version (`compare_kernel`),
-    and the backward's arguments with fixed-seed cotangents."""
+    table, row 1 against the plain forward (`compare_kernel`'s result, the
+    plain outputs included), and the backward's arguments with fixed-seed
+    cotangents."""
     from gaussianavatars_torch.models.binding import face_frames
     from gaussianavatars_torch.models.gaussians import world_gaussians
     from gaussianavatars_torch.ops.projection import project_from_params
@@ -1347,13 +1402,14 @@ def fitted_view(harness):
     args = (*table[:3], *fwd["outputs"], g_acc_t, g_t, th, tw, ntx)
     info = dict(live_gaussians=int(st.aux.alive.sum()), table_rows=dataT.shape[0],
                 resolution=f"{cam.width}x{cam.height}")
-    return table, fwd["outputs"], args, info
+    return table, fwd, args, info
 
 
 def phase_fitted_bwd(card, harness, against=()) -> dict:
     """Phase 13: the compositor kernels on the fitted avatar (phase 12's
-    state after its 800 iterations, `fitted_view`): row 1 bit for bit
-    against its plain version and timed (`time_fwd`); each backward entry
+    state after its 800 iterations, `fitted_view`): rows 1 and 3 bit for
+    bit against their plain version (acc, t_final, stop ids) and timed
+    (`time_fwd`); each backward entry
     (rows 2, 5 and 4: v3, v4 and v2, float32 and `amp`) against its plain
     version (`bwd_errors`, every column written) and timed (`time_bwd`),
     with the walked pairs; the `--against` checkouts' kernels beside them.
@@ -1361,12 +1417,24 @@ def phase_fitted_bwd(card, harness, against=()) -> dict:
     main-path run."""
     from gaussianavatars_torch.ops import composite_pairs as cp
 
-    table, outputs, args, info = fitted_view(harness)
+    table, fwd, args, info = fitted_view(harness)
+    outputs, plain = fwd["outputs"], fwd.pop("plain")
     walked = walked_pairs(table[1], table[2], outputs[2])
     walks = dict(longest_walk=int(walked.max()), mean_walk=float(walked.float().mean()))
-    out = {"composite_pairs_fwd": time_fwd(table, outputs[2])}
-    log("fitted/fwd/composite_pairs_fwd", **out["composite_pairs_fwd"], **info, **walks,
-        card=card["nvidia_smi"])
+    out = {}
+    for impl in ("v3", "v2"):
+        name = cp.fwd_entry(impl)[1]
+        got = with_impl(impl, lambda: cp.fwd_call_pairs(*table))
+        torch.cuda.synchronize()
+        bit_equal = dict(zip(("acc", "t_final", "stop"), map(torch.equal, got, plain)))
+        del got
+        out[name] = dict(with_impl(impl, lambda: time_fwd(table, outputs[2])),
+                         bit_equal=bit_equal)
+        log(f"fitted/fwd/{name}", **out[name], **info, **walks, card=card["nvidia_smi"])
+        if not all(bit_equal.values()):
+            raise AssertionError(f"{name} disagrees with its plain version on the fitted "
+                                 f"view: {bit_equal}")
+    del plain
     with torch.no_grad():
         for impl, amp in BWD_ENTRIES:
             name = cp.bwd_entry(impl, amp)[1]
@@ -1387,25 +1455,25 @@ def phase_fitted_bwd(card, harness, against=()) -> dict:
     return out
 
 
-# The entry points `--against` times in each other checkout and in this one:
-# row 1, row 4 in float32 and `amp`, and row 2 as a control.
-AGAINST_ENTRIES = (("fwd", "v3", False), ("bwd", "v2", False), ("bwd", "v2", True),
-                   ("bwd", "v3", False))
+# The compositor entry points `--against` times in each other checkout and
+# in this one: rows 1 and 3, row 4 in float32 and `amp`, and row 2.
+AGAINST_ENTRIES = (("fwd", "v3", False), ("fwd", "v2", False), ("bwd", "v2", False),
+                   ("bwd", "v2", True), ("bwd", "v3", False))
 
 
 def build_against(roots) -> list:
-    """Each other checkout's compositor kernels (`--against ROOT`): the
-    sources of AGAINST_ENTRIES under ROOT/gaussianavatars_torch/csrc, built
-    with this checkout's nvcc flags (one nvcc each, all started together)
-    under build/chip_smoke/against/ and loaded. Returns [(root, {library:
-    CDLL})]."""
+    """Each other checkout's kernels (`--against ROOT`): the sources of
+    AGAINST_ENTRIES and micro_reduce.cu under ROOT/gaussianavatars_torch/csrc,
+    built with this checkout's nvcc flags (one nvcc each, all started
+    together) under build/chip_smoke/against/, their ptxas reports logged,
+    and loaded. Returns [(root, {library: CDLL})]."""
     import ctypes
 
     from gaussianavatars_torch import cuda_build
     from gaussianavatars_torch.ops import composite_pairs as cp
 
     libs = sorted({(cp.fwd_entry(i) if k == "fwd" else cp.bwd_entry(i, a))[0]
-                   for k, i, a in AGAINST_ENTRIES})
+                   for k, i, a in AGAINST_ENTRIES} | {"micro_reduce"})
     procs = []
     for n, root in enumerate(roots):
         out_dir = os.path.abspath(os.path.join("build", "chip_smoke", "against", str(n)))
@@ -1417,12 +1485,16 @@ def build_against(roots) -> list:
                 [cuda_build.cuda_tool(), *cuda_build.NVCC_FLAGS, "-o", so, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     loaded = [{} for _ in roots]
+    ptxas = [{} for _ in roots]
     for n, lib, so, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"--against {roots[n]}: {lib} did not build:\n{out}")
         loaded[n][lib] = ctypes.CDLL(so)
+        ptxas[n].update(cuda_build.ptxas_report(out))
     log("against/build", roots=list(roots), libraries=libs)
+    for root, rep in zip(roots, ptxas):
+        log("against/ptxas", root=root, kernels=rep)
     return list(zip(roots, loaded))
 
 
@@ -1504,8 +1576,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="ROOT",
                     help="another checkout (e.g. the parent commit unpacked with git archive "
-                         "into an ignored directory): build its compositor kernels and time "
-                         "rows 1, 4 and 2 beside this checkout's in phases 3 and 13")
+                         "into an ignored directory): build its compositor and micro-reduce "
+                         "kernels and time rows 1-4 and micro_reduce_a-d beside this "
+                         "checkout's in phases 3, 11 and 13")
     return ap.parse_args(argv)
 
 
@@ -1713,12 +1786,12 @@ def main(argv=None) -> int:
     train_amp = phase_train_amp(model, aux, cam, cfg, card, setup)
 
     # --- 11. the micro-reduce kernels ----------------------------------------
-    micro = phase_micro_reduce(card, built)
+    micro = phase_micro_reduce(card, built, against)
 
     # --- 12. the host loop ---------------------------------------------------
     loop_res = phase_loop(card)
 
-    # --- 13. row 2 on the fitted avatar --------------------------------------
+    # --- 13. the compositors on the fitted avatar ----------------------------
     phase_fitted_bwd(card, loop_res.pop("harness"), against)
 
     # Launches per entry point over the main paths: serving, training,

@@ -1,9 +1,10 @@
 // Shared by the pair-compositor kernels (composite_pairs_fwd.cu,
 // composite_pairs_fwd_v2.cu, composite_pairs_bwd.cu, composite_pairs_bwd_v2.cu):
-// the compositing thresholds, the per-pixel arithmetic of one pair, and the
-// backward's fixed-order reductions over a tile's pixels. Everything here is
-// inlined into each kernel, so the kernels of one function differ only in
-// their schedule. The build's library digest covers this header.
+// the compositing thresholds, the per-pixel arithmetic of one pair, the
+// forward's walk, and the backward's walk with its fixed-order reductions
+// over a tile's pixels. Everything here is inlined into each kernel, so the
+// kernels of one function differ only in how they cut a segment into
+// chunks. The build's library digest covers this header.
 //
 // The arithmetic is written operation for operation as the plain PyTorch
 // versions in ops/composite_pairs.py do it (the sources are built with
@@ -95,14 +96,165 @@ __device__ __forceinline__ bool fwd_blend(float alpha, const FwdPair& q, bool li
   return use && !(test_t >= kTEps);
 }
 
-// One pair at one pixel of the forward walk. A pair that is culled changes
-// nothing. Returns false, and changes nothing, when the pair would take T
-// below 1e-4: the pixel stops before it.
-__device__ __forceinline__ bool fwd_pair(const FwdPair& q, float px, float py, float& T,
-                                         float& cr, float& cg, float& cb) {
-  const float dx = px - q.mx;
-  const float dy = py - q.my;
-  return !fwd_blend(fwd_alpha(q, dx, dy, q.cc * dy * dy), q, true, T, cr, cg, cb);
+// -------------------------------------------- the forward's walk schedule
+//
+// Shared by the forward kernels of both implementations
+// (composite_pairs_fwd.cu, composite_pairs_fwd_v2.cu), which differ only in
+// how they cut a segment into staged chunks. A thread takes kFwdPix = 4
+// consecutive pixels of one row (tiles are tw % 4 == 0 wide), so a pair's
+// nine rows are read from shared memory once a thread (`load_pair`), dy and
+// c·dy² are formed once a pair, and the outputs are stored as 16-byte
+// vectors. A pair's alpha is formed at the thread's 4 pixels first
+// (`fwd_alpha`, 4 independent chains through expf), then blended with
+// selects (`fwd_blend`). A tile's 128-pixel warps are spread over blocks of
+// kFwdBlockWarps = 2 warps, 4 blocks a 32×32 tile, each staging the
+// segment and leaving as soon as its own pixels have stopped
+// (__syncthreads_count): a long walk runs on 4 SMs, not 1.
+//
+// Chunks of kChunk pairs are staged from the segment's first pair
+// (kWindowChunks false) or at the multiples of kChunk of the TPU kernels'
+// 128-aligned window [starts & ~127, starts + count) (true: v2's
+// window-aligned chunks); each stages and walks only its pairs inside the
+// segment. The block tests its exit once a chunk (kSub == kChunk) or at the
+// end of each block of kSub window slots (kSub divides kChunk). Stop ids
+// are window slots, segment index + starts & 127, either way.
+
+constexpr int kFwdPix = 4;         // forward pixels a thread
+constexpr int kFwdBlockWarps = 2;  // warps a forward block (at most)
+
+// A thread's pixels in the walk: coordinates, transmittance, colour, stop
+// id, and whether each has stopped.
+struct FwdPixels {
+  float px[kFwdPix], py;
+  float T[kFwdPix], cr[kFwdPix], cg[kFwdPix], cb[kFwdPix];
+  int stop[kFwdPix];
+  bool done[kFwdPix];
+};
+
+// One staged pair (column `col`, rows `stride` floats apart, window slot
+// `sid`) at the thread's pixels. Returns whether they have all stopped.
+__device__ __forceinline__ bool fwd_step(const float* col, int stride, int sid, FwdPixels& v) {
+  const FwdPair q = load_pair(col, stride);
+  const float dy = v.py - q.my;
+  const float ccdy2 = q.cc * dy * dy;
+  float a[kFwdPix];
+#pragma unroll
+  for (int i = 0; i < kFwdPix; ++i) a[i] = fwd_alpha(q, v.px[i] - q.mx, dy, ccdy2);
+  bool all_done = true;
+#pragma unroll
+  for (int i = 0; i < kFwdPix; ++i) {
+    if (fwd_blend(a[i], q, !v.done[i], v.T[i], v.cr[i], v.cg[i], v.cb[i])) {
+      v.stop[i] = sid;
+      v.done[i] = true;
+    }
+    all_done = all_done && v.done[i];
+  }
+  return all_done;
+}
+
+// Block b takes warps (b % blocks_per_tile)·warps_per_block.. of tile
+// b / blocks_per_tile. A thread's pixels are pixels 4·lane .. 4·lane + 3 of
+// its warp's 128. Pixels past the tile (a thread's 4 all or none, since
+// P % 4 == 0) start stopped and are not written. `chunk` is the block's
+// staging buffer in shared memory.
+template <int kChunk, int kSub, bool kWindowChunks>
+__device__ __forceinline__ void fwd_walk(const float* __restrict__ dataT, long long ld,
+                                         const int* __restrict__ starts,
+                                         const int* __restrict__ counts, int th, int tw,
+                                         int ntx, float* __restrict__ acc,
+                                         float* __restrict__ t_final,
+                                         int* __restrict__ stop_out,
+                                         float (&chunk)[kRows][kChunk]) {
+  const int p = th * tw;
+  const int block_warps = blockDim.x >> 5;
+  const int blocks_per_tile = ((p + 32 * kFwdPix - 1) / (32 * kFwdPix) + block_warps - 1)
+                              / block_warps;
+  const int tile = blockIdx.x / blocks_per_tile;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = (blockIdx.x % blocks_per_tile) * block_warps + (tid >> 5);  // of the tile
+  const int start = starts[tile];
+  const int count = counts[tile];
+  const int head = start & 127;  // window slots before the segment
+  // The walked range: pairs [origin, origin + extent) of dataT, its first
+  // `first` not the segment's; pair origin + s is window slot s + sid0.
+  const int origin = kWindowChunks ? start - head : start;
+  const int extent = kWindowChunks ? head + count : count;
+  const int first = kWindowChunks ? head : 0;
+  const int sid0 = kWindowChunks ? 0 : head;
+
+  // Integer pixel coordinates, as the TPU kernel's `_pixel_coords`.
+  const int pix0 = warp * 32 * kFwdPix + kFwdPix * lane;
+  FwdPixels v;
+  v.py = (float)(pix0 / tw) + (float)((tile / ntx) * th);
+#pragma unroll
+  for (int i = 0; i < kFwdPix; ++i) {
+    v.px[i] = (float)((pix0 + i) % tw) + (float)((tile % ntx) * tw);
+    v.T[i] = 1.0f;
+    v.cr[i] = v.cg[i] = v.cb[i] = 0.0f;
+    v.stop[i] = kStopNever;
+    v.done[i] = pix0 >= p;
+  }
+  bool all_done = v.done[0] && v.done[1] && v.done[2] && v.done[3];
+
+  for (int base = 0; base < extent; base += kChunk) {
+    // The chunk's pairs inside the segment, chunk-local: [lo, n).
+    const int lo = kWindowChunks ? max(first - base, 0) : 0;
+    const int n = min(kChunk, extent - base);
+    for (int i = lo + tid; i < n; i += blockDim.x) {
+      const float* src = dataT + (long long)origin + base + i;
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) chunk[k][i] = src[k * ld];
+    }
+    __syncthreads();
+    // After each group the block leaves the walk if all its pixels have
+    // stopped; the test is also the barrier before the next chunk is
+    // staged.
+    if constexpr (kSub >= kChunk) {
+      for (int j = lo; j < n && !all_done; ++j)
+        all_done = fwd_step(&chunk[0][j], kChunk, base + j + sid0, v);
+      if (__syncthreads_count(!all_done) == 0) break;
+    } else {
+      // The chunk's kSub-slot blocks: [g, g_end).
+      bool walking = true;
+      for (int g = lo, g_end; walking && g < n; g = g_end) {
+        g_end = min(n, (g / kSub + 1) * kSub);
+        for (int j = g; j < g_end && !all_done; ++j)
+          all_done = fwd_step(&chunk[0][j], kChunk, base + j + sid0, v);
+        walking = __syncthreads_count(!all_done) != 0;
+      }
+      if (!walking) break;
+    }
+  }
+
+  if (pix0 < p) {
+    float* acc_t = acc + (long long)tile * 3 * p + pix0;
+    const long long o = (long long)tile * p + pix0;
+    *reinterpret_cast<float4*>(acc_t) = make_float4(v.cr[0], v.cr[1], v.cr[2], v.cr[3]);
+    *reinterpret_cast<float4*>(acc_t + p) = make_float4(v.cg[0], v.cg[1], v.cg[2], v.cg[3]);
+    *reinterpret_cast<float4*>(acc_t + 2 * p) = make_float4(v.cb[0], v.cb[1], v.cb[2], v.cb[3]);
+    *reinterpret_cast<float4*>(t_final + o) = make_float4(v.T[0], v.T[1], v.T[2], v.T[3]);
+    *reinterpret_cast<int4*>(stop_out + o) =
+        make_int4(v.stop[0], v.stop[1], v.stop[2], v.stop[3]);
+  }
+}
+
+// Launches a forward kernel (a __global__ that calls fwd_walk) as fwd_walk
+// takes it: ceil(W / kFwdBlockWarps) blocks of min(W, kFwdBlockWarps) warps
+// per tile, W = ceil(th·tw / 128), on `stream`. Returns cudaGetLastError()
+// (0 on success).
+template <typename Kernel>
+int fwd_launch(Kernel kernel, const float* dataT, long long ld, const int* starts,
+               const int* counts, int nt, int th, int tw, int ntx, float* acc,
+               float* t_final, int* stop, void* stream) {
+  const int tile_warps = (th * tw + 32 * kFwdPix - 1) / (32 * kFwdPix);
+  const int warps = tile_warps < kFwdBlockWarps ? tile_warps : kFwdBlockWarps;
+  const int blocks_per_tile = (tile_warps + warps - 1) / warps;
+  if (nt > 0) {
+    kernel<<<nt * blocks_per_tile, warps * 32, 0, (cudaStream_t)stream>>>(
+        dataT, ld, starts, counts, th, tw, ntx, acc, t_final, stop);
+  }
+  return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------- backward

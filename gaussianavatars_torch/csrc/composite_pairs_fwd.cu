@@ -25,7 +25,9 @@
 // them) and, where walks are long (the fitted avatar's up to 159 pairs,
 // the parity table's 1,547), in each pixel's dependent chain. One thread a
 // pixel in one block a tile took 0.037 ms at the frame; this schedule
-// ~0.020. The design:
+// ~0.020. The design, `fwd_walk` of composite_pairs_common.cuh (shared
+// with the v2 schedule, composite_pairs_fwd_v2.cu, which cuts the segment
+// into window-aligned chunks instead):
 //   * kFwdPix = 4 pixels a thread, consecutive pixels of one row (tiles
 //     are tw % 4 == 0 wide), so a pair's nine rows are read from shared
 //     memory once a thread (`load_pair`), dy and c·dy² are formed once a
@@ -33,12 +35,12 @@
 //   * a pair's alpha is formed at the thread's 4 pixels first
 //     (`fwd_alpha`, 4 independent chains through expf), then blended with
 //     selects, not branches (`fwd_blend`);
-//   * a tile's 128-pixel warps are spread over blocks of kBlockWarps = 2
-//     warps, 4 blocks a 32×32 tile, each staging the segment kChunk pairs
-//     at a time and leaving as soon as its own pixels have stopped
-//     (__syncthreads_count): a long walk runs on 4 SMs, not 1, and the
-//     benchmark frame's 1,872 blocks are all resident at once (16 an SM at
-//     <= 64 registers, 2,112 slots on 132 SMs);
+//   * a tile's 128-pixel warps are spread over blocks of kFwdBlockWarps =
+//     2 warps, 4 blocks a 32×32 tile, each staging the segment kChunk pairs
+//     at a time from its first pair and leaving as soon as its own pixels
+//     have stopped (__syncthreads_count, once a chunk): a long walk runs on
+//     4 SMs, not 1, and the benchmark frame's 1,872 blocks are all resident
+//     at once (16 an SM at <= 64 registers, 2,112 slots on 132 SMs);
 //   * segment starts are read as they are: the GPU needs no 128-lane
 //     alignment, the window-local offset only renames the stop ids.
 // Tried and not kept (PERF.md): one 8-warp block a tile (0.024 ms at
@@ -48,115 +50,37 @@
 // frame's front pairs cover whole tiles: slower everywhere).
 // Built with --fmad=false and `expf` (not `__expf`) so that the arithmetic
 // is operation for operation that of the plain PyTorch version
-// (`fwd_call_pairs_reference`); `fwd_alpha` and `fwd_blend` of
-// composite_pairs_common.cuh are shared with the v2 schedule
-// (composite_pairs_fwd_v2.cu, through `fwd_pair`).
+// (`fwd_call_pairs_reference`).
 #include "composite_pairs_common.cuh"
 
 namespace {
 
 using namespace cpk;
 
-constexpr int kFwdPix = 4;      // pixels a thread
-constexpr int kChunk = 256;     // pairs staged at a time
-constexpr int kBlockWarps = 2;  // warps a block (at most)
+constexpr int kChunk = 256;  // pairs staged at a time
 
-// Block b takes warps (b % blocks_per_tile)·warps_per_block.. of tile
-// b / blocks_per_tile. A thread's pixels are pixels 4·lane .. 4·lane + 3 of
-// its warp's 128, consecutive pixels of one row since tw % 4 == 0. Pixels
-// past the tile (a thread's 4 all or none, since P % 4 == 0) start stopped
-// and are not written.
-__global__ void __launch_bounds__(kBlockWarps * 32, 32 / kBlockWarps) composite_pairs_fwd_kernel(
-    const float* __restrict__ dataT, long long ld,
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    int th, int tw, int ntx,
-    float* __restrict__ acc, float* __restrict__ t_final,
-    int* __restrict__ stop_out) {
+__global__ void __launch_bounds__(kFwdBlockWarps * 32, 32 / kFwdBlockWarps)
+composite_pairs_fwd_kernel(const float* __restrict__ dataT, long long ld,
+                           const int* __restrict__ starts, const int* __restrict__ counts,
+                           int th, int tw, int ntx, float* __restrict__ acc,
+                           float* __restrict__ t_final, int* __restrict__ stop_out) {
   __shared__ float chunk[kRows][kChunk];
-  const int p = th * tw;
-  const int block_warps = blockDim.x >> 5;
-  const int blocks_per_tile = ((p + 32 * kFwdPix - 1) / (32 * kFwdPix) + block_warps - 1)
-                              / block_warps;
-  const int tile = blockIdx.x / blocks_per_tile;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = (blockIdx.x % blocks_per_tile) * block_warps + (tid >> 5);  // of the tile
-  const int start = starts[tile];
-  const int count = counts[tile];
-  const int head = start & 127;  // TPU window offset of this segment
-
-  // Integer pixel coordinates, as the TPU kernel's `_pixel_coords`.
-  const int pix0 = warp * 32 * kFwdPix + kFwdPix * lane;
-  const float py = (float)(pix0 / tw) + (float)((tile / ntx) * th);
-  float px[kFwdPix], T[kFwdPix], cr[kFwdPix], cg[kFwdPix], cb[kFwdPix];
-  int stop[kFwdPix];
-  bool done[kFwdPix];
-#pragma unroll
-  for (int i = 0; i < kFwdPix; ++i) {
-    px[i] = (float)((pix0 + i) % tw) + (float)((tile % ntx) * tw);
-    T[i] = 1.0f;
-    cr[i] = cg[i] = cb[i] = 0.0f;
-    stop[i] = kStopNever;
-    done[i] = pix0 >= p;
-  }
-  bool all_done = done[0] && done[1] && done[2] && done[3];
-
-  for (int base = 0; base < count; base += kChunk) {
-    const int n = min(kChunk, count - base);
-    for (int i = tid; i < n; i += blockDim.x) {
-      const float* src = dataT + (long long)start + base + i;
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) chunk[k][i] = src[k * ld];
-    }
-    __syncthreads();
-    for (int j = 0; j < n && !all_done; ++j) {
-      const FwdPair q = load_pair(&chunk[0][j], kChunk);
-      const float dy = py - q.my;
-      const float ccdy2 = q.cc * dy * dy;
-      float a[kFwdPix];
-#pragma unroll
-      for (int i = 0; i < kFwdPix; ++i) a[i] = fwd_alpha(q, px[i] - q.mx, dy, ccdy2);
-      all_done = true;
-#pragma unroll
-      for (int i = 0; i < kFwdPix; ++i) {
-        if (fwd_blend(a[i], q, !done[i], T[i], cr[i], cg[i], cb[i])) {
-          stop[i] = base + j + head;
-          done[i] = true;
-        }
-        all_done = all_done && done[i];
-      }
-    }
-    if (__syncthreads_count(!all_done) == 0) break;
-  }
-
-  if (pix0 < p) {
-    float* acc_t = acc + (long long)tile * 3 * p + pix0;
-    const long long o = (long long)tile * p + pix0;
-    *reinterpret_cast<float4*>(acc_t) = make_float4(cr[0], cr[1], cr[2], cr[3]);
-    *reinterpret_cast<float4*>(acc_t + p) = make_float4(cg[0], cg[1], cg[2], cg[3]);
-    *reinterpret_cast<float4*>(acc_t + 2 * p) = make_float4(cb[0], cb[1], cb[2], cb[3]);
-    *reinterpret_cast<float4*>(t_final + o) = make_float4(T[0], T[1], T[2], T[3]);
-    *reinterpret_cast<int4*>(stop_out + o) = make_int4(stop[0], stop[1], stop[2], stop[3]);
-  }
+  // Chunks from the segment's first slot; the exit is tested once a chunk.
+  fwd_walk<kChunk, kChunk, false>(dataT, ld, starts, counts, th, tw, ntx, acc, t_final,
+                                  stop_out, chunk);
 }
 
 }  // namespace
 
-// Launches ceil(W / kBlockWarps) blocks of min(W, kBlockWarps) warps per
-// tile, W = ceil(th·tw / 128), on `stream` and returns cudaGetLastError()
-// (0 on success). The caller checks shapes,
-// types, th·tw <= 1024 and tw % 4 == 0, and allocates the outputs (16-byte
+// Launches ceil(W / kFwdBlockWarps) blocks of min(W, kFwdBlockWarps) warps
+// per tile, W = ceil(th·tw / 128), on `stream` (`fwd_launch`) and returns
+// cudaGetLastError() (0 on success). The caller checks shapes, types,
+// th·tw <= 1024 and tw % 4 == 0, and allocates the outputs (16-byte
 // aligned, as PyTorch allocates them).
 extern "C" int composite_pairs_fwd(
     const float* dataT, long long ld, const int* starts, const int* counts,
     int nt, int th, int tw, int ntx,
     float* acc, float* t_final, int* stop, void* stream) {
-  const int tile_warps = (th * tw + 32 * kFwdPix - 1) / (32 * kFwdPix);
-  const int warps = tile_warps < kBlockWarps ? tile_warps : kBlockWarps;
-  const int blocks_per_tile = (tile_warps + warps - 1) / warps;
-  if (nt > 0) {
-    composite_pairs_fwd_kernel<<<nt * blocks_per_tile, warps * 32, 0, (cudaStream_t)stream>>>(
-        dataT, ld, starts, counts, th, tw, ntx, acc, t_final, stop);
-  }
-  return (int)cudaGetLastError();
+  return fwd_launch(composite_pairs_fwd_kernel, dataT, ld, starts, counts, nt, th, tw, ntx, acc,
+                    t_final, stop, stream);
 }

@@ -73,7 +73,21 @@
 //      (chip_smoke.py phase 11; the schedules it was chosen over are in
 //      PERF.md).
 //   D  the same route with one product per chunk: [64 x 1024] x [1024 x 16]
-//      (the 9 basis columns 1 + r, padded to 16), then the sum over them.
+//      (the 9 basis columns 1 + r, padded to 16), then the sum over them,
+//      as Hopper's warpgroup product: one block is one warpgroup and each
+//      chunk one wgmma.mma_async m64n16k8 tile a k-step, A (the plane,
+//      split once a k-step, by truncation: `split_trunc`) from registers,
+//      B (hi and lo) from shared memory through a matrix descriptor. The
+//      products are issued asynchronously in committed groups of 4
+//      k-steps (12 products), two groups in flight on two register sets
+//      of A, and waited for only before a set is rebuilt and before the
+//      accumulators are read: no product waits on the one before it as
+//      mma.sync's do. The route needs 3 x 128 = 384 m64n16k8 products a
+//      chunk, 8 m16n8k8's worth each (0.048 ms of dense TF32 at this
+//      size). On an H100 (PERF.md) it takes ~0.10 ms, 45 % of that floor;
+//      with `split` (cvt.rna) the A split on the CUDA cores held it at
+//      0.17, and the mma.sync schedule it replaces (4 warps a block, the
+//      two products into one `small` back to back) took 0.178.
 // In C and D the hi*hi products and the two cross products accumulate in
 // separate registers (added at the end in float32): the hi*hi partial sums
 // need at most 25 significant bits, so the tensor cores' float32
@@ -245,12 +259,14 @@ __global__ void __launch_bounds__(B_WARPS * 32) kern_b(const float* __restrict__
 }
 
 // ------------------------------------------------------------- C and D ----
-// D: 128 threads, 4 warps, warp w owning rows 16w .. 16w + 15 (slots) of the
-// chunk; C: see kern_c. mma.m16n8k8 fragments (PTX ISA, .tf32), g = lane / 4,
-// i = lane % 4:
+// Fragments (PTX ISA, .tf32), g = lane / 4, i = lane % 4. C's mma.m16n8k8:
 //   A (16 x 8): a0 (g, i), a1 (g + 8, i), a2 (g, i + 4), a3 (g + 8, i + 4)
 //   B (8 x 8):  b0 (k = i, n = g), b1 (k = i + 4, n = g)
 //   D (16 x 8): d0 (g, 2i), d1 (g, 2i + 1), d2 (g + 8, 2i), d3 (g + 8, 2i + 1)
+// D's wgmma.m64n16k8 takes the same A fragment from each warp w of the
+// warpgroup, for rows 16w .. 16w + 15, and leaves each warp the same
+// accumulator fragment twice over: d0..d3 for columns 0..7, d4..d7 for
+// columns 8..15.
 constexpr int MMA_WARPS = K / 16;
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
@@ -268,6 +284,17 @@ __device__ __forceinline__ Split split(float v) {
   return {hi, to_tf32(v - __uint_as_float(hi))};
 }
 
+// The same split in two instructions, an AND and a subtraction, where
+// cvt.rna.tf32 is a sequence on this card: hi = v with the 13 mantissa bits
+// that TF32 lacks cleared, lo = v - hi (exact), handed to the tensor cores
+// as float32, whose TF32 read drops lo's low bits. hi·hi + hi·lo + lo·hi
+// then misses v·w by at most ~2^-20 of it (split: ~2^-21), far inside the
+// 1e-5 held.
+__device__ __forceinline__ Split split_trunc(float v) {
+  const uint32_t hi = __float_as_uint(v) & 0xffffe000u;
+  return {hi, __float_as_uint(v - __uint_as_float(hi))};
+}
+
 __device__ __forceinline__ void mma_tf32(float d[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
@@ -278,23 +305,17 @@ __device__ __forceinline__ void mma_tf32(float d[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// One 3xTF32 product step: big += A_hi B_hi, small += A_hi B_lo + A_lo B_hi.
-__device__ __forceinline__ void mma_3xtf32(float big[4], float small[4],
-                                           const Split a[4], Split b0, Split b1) {
-  mma_tf32(small, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
-  mma_tf32(small, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
-  mma_tf32(big, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
-}
-
 // This thread's A fragment of k-step kk: rows g and g + 8 of the warp's
-// slots (values vg, vg8) at pixels 8kk + i and 8kk + i + 4.
+// slots (values vg, vg8) at pixels 8kk + i and 8kk + i + 4, split by
+// `split` (kTrunc: `split_trunc`).
+template <bool kTrunc = false>
 __device__ __forceinline__ void a_fragment(Split a[4], const float* ones, int kk,
                                            int i, float vg, float vg8) {
   const float o0 = ones[kk * 8 + i], o1 = ones[kk * 8 + i + 4];
-  a[0] = split(vg * o0);
-  a[1] = split(vg8 * o0);
-  a[2] = split(vg * o1);
-  a[3] = split(vg8 * o1);
+  a[0] = kTrunc ? split_trunc(vg * o0) : split(vg * o0);
+  a[1] = kTrunc ? split_trunc(vg8 * o0) : split(vg8 * o0);
+  a[2] = kTrunc ? split_trunc(vg * o1) : split(vg * o1);
+  a[3] = kTrunc ? split_trunc(vg8 * o1) : split(vg8 * o1);
 }
 
 // The 16 x (8 n_tiles) result's row sums for rows g and g + 8: the
@@ -343,7 +364,7 @@ __global__ void __launch_bounds__(C_WARPS * 32, 1) kern_c(const float* __restric
     for (int kk = ks * KSTEPS; kk < (ks + 1) * KSTEPS; ++kk) {
       Split a[4];
       a_fragment(a, ones, kk, i, vg, vg8);   // one split for all nine fields
-      // mma_3xtf32's products (small += A_hi B_lo, then A_lo B_hi; big +=
+      // The 3xTF32 products (small += A_hi B_lo, then A_lo B_hi; big +=
       // A_hi B_hi) in three passes over the fields, so that the two
       // products into one `small` are 18 apart.
 #pragma unroll
@@ -386,33 +407,141 @@ __global__ void __launch_bounds__(C_WARPS * 32, 1) kern_c(const float* __restric
   }
 }
 
-__global__ void __launch_bounds__(MMA_WARPS * 32) kern_d(const float* __restrict__ x,
-                                                         float* __restrict__ out) {
+// D: one block is one warpgroup (4 warps, 128 threads), and each chunk of
+// K = 64 slots is one wgmma.m64n16k8 tile: warp w's A fragment holds the
+// chunk's rows (slots) 16w .. 16w + 15. Per chunk, 128 k-steps of 8
+// pixels, each three products: small += A_hi B_lo, small += A_lo B_hi,
+// big += A_hi B_hi.
+constexpr int D_THREADS = 128;   // one warpgroup
+constexpr int D_KSTEPS = P / 8;  // k-steps a chunk
+constexpr int D_BATCH = 4;       // k-steps a committed group of products
+constexpr int D_N = 16;          // the 9 basis columns, padded
+
+// B's k-slab [8 x 16] (tf32) in wgmma's K-major layout without swizzle:
+// core matrices of 8 rows (n) of 16 bytes (4 k), 128 bytes each; the two
+// along K are D_LBO bytes apart, the two along N D_SBO. Element (k, n) is
+// word (n / 8) * 64 + (k / 4) * 32 + (n % 8) * 4 + k % 4.
+constexpr int D_LBO = 128, D_SBO = 256;
+
+__device__ __forceinline__ int b_slab_word(int k, int n) {
+  return (n >> 3) * (D_SBO / 4) + (k >> 2) * (D_LBO / 4) + (n & 7) * 4 + (k & 3);
+}
+
+// The shared-memory matrix descriptor of a slab (PTX ISA, "Matrix
+// Descriptor"): start address, LBO and SBO in 16-byte units, no swizzle.
+__device__ __forceinline__ uint64_t slab_desc(const uint32_t* slab) {
+  const uint64_t addr = (uint64_t)__cvta_generic_to_shared(slab);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(D_LBO >> 4) << 16)
+         | ((uint64_t)(D_SBO >> 4) << 32);
+}
+
+// d += A B on the warpgroup: A [64 x 8] from registers (this thread's
+// fragment a), B [8 x 16] from shared memory (descriptor b).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// Pins a register's writes before, and its reads after, this point: the
+// compiler may not move them across the wgmma fences and waits.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// A batch of D_BATCH k-steps from kk0: each k-step's A fragment built and
+// split once (into `a`, hi then lo), then, after the fence, its three
+// products, committed as one group. `a` must not be written again until
+// that group has completed (wgmma reads its registers asynchronously).
+__device__ __forceinline__ void d_batch(uint32_t (&a)[D_BATCH][2][4], const float* ones, int kk0,
+                                        int i, float vg, float vg8, uint64_t b_hi, uint64_t b_lo,
+                                        float (&big)[8], float (&small)[8]) {
+#pragma unroll
+  for (int s = 0; s < D_BATCH; ++s) {
+    Split f[4];
+    a_fragment<true>(f, ones, kk0 + s, i, vg, vg8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[s][0][e] = f[e].hi;
+      a[s][1][e] = f[e].lo;
+      pin(a[s][0][e]);
+      pin(a[s][1][e]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < D_BATCH; ++s) {
+    wgmma_tf32(small, a[s][0], b_lo);
+    wgmma_tf32(small, a[s][1], b_hi);
+    wgmma_tf32(big, a[s][0], b_hi);
+  }
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(D_THREADS) kern_d(const float* __restrict__ x,
+                                                    float* __restrict__ out) {
   __shared__ float ones[P];
+  __shared__ __align__(128) uint32_t slab[2][8 * D_N];   // B's k-slab, hi and lo
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, i = lane & 3;
   const float* xt = x + (size_t)blockIdx.x * C;
   float* ot = out + (size_t)blockIdx.x * C;
+  // B [1024 x 16]: column n is (1 + n) for n < 9, else 0, in every row, so
+  // its 128 k-slabs are equal: one slab is staged (thread t holds k = t % 8,
+  // n = t / 8) and every k-step's products read it through one descriptor.
+  {
+    const int k = threadIdx.x & 7, n = threadIdx.x >> 3;
+    const Split b = split(n < NRED ? 1.0f + (float)n : 0.0f);
+    slab[0][b_slab_word(k, n)] = b.hi;
+    slab[1][b_slab_word(k, n)] = b.lo;
+  }
+  // The slab's generic-proxy writes, visible to wgmma's async-proxy reads.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   stage_ones(ones);
-  // B [1024 x 16]: column n is (1 + n) for n < 9, else 0. n-tile 0 holds
-  // columns 0..7, n-tile 1 columns 8..15; this thread's column is g.
-  const Split b_lo_tile = split(1.0f + (float)g);
-  const Split b_hi_tile = split(g + 8 < NRED ? 1.0f + (float)(g + 8) : 0.0f);
+  const uint64_t b_hi = slab_desc(slab[0]), b_lo = slab_desc(slab[1]);
   for (int k = 0; k < N_CHUNKS; ++k) {
     const int row0 = k * K + 16 * warp;
     const float vg = xt[row0 + g], vg8 = xt[row0 + g + 8];
-    float big0[4] = {}, big1[4] = {}, small0[4] = {}, small1[4] = {};
-    for (int kk = 0; kk < P / 8; ++kk) {
-      Split a[4];
-      a_fragment(a, ones, kk, i, vg, vg8);
-      mma_3xtf32(big0, small0, a, b_lo_tile, b_lo_tile);
-      mma_3xtf32(big1, small1, a, b_hi_tile, b_hi_tile);
+    float big[8], small[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      big[e] = small[e] = 0.0f;
+      pin(big[e]);
+      pin(small[e]);
     }
+    // Two register sets of A, so one batch is built while the other's
+    // products run; a set is written again only after wait_group<1> has
+    // seen its batch complete.
+    uint32_t a[2][D_BATCH][2][4];
+    for (int kk = 0; kk < D_KSTEPS; kk += 2 * D_BATCH) {
+      d_batch(a[0], ones, kk, i, vg, vg8, b_hi, b_lo, big, small);
+      wgmma_wait<1>();
+      d_batch(a[1], ones, kk + D_BATCH, i, vg, vg8, b_hi, b_lo, big, small);
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
     float d[8];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      d[e] = small0[e] + big0[e];
-      d[4 + e] = small1[e] + big1[e];
+    for (int e = 0; e < 8; ++e) {
+      pin(big[e]);
+      pin(small[e]);
+      d[e] = small[e] + big[e];
     }
     float s, s8;
     row_sums(d, 2, &s, &s8);
@@ -444,7 +573,7 @@ int micro_reduce_c(const float* x, float* out, int nt, cudaStream_t stream) {
 }
 
 int micro_reduce_d(const float* x, float* out, int nt, cudaStream_t stream) {
-  if (nt > 0) kern_d<<<nt, MMA_WARPS * 32, 0, stream>>>(x, out);
+  if (nt > 0) kern_d<<<nt, D_THREADS, 0, stream>>>(x, out);
   return (int)cudaGetLastError();
 }
 

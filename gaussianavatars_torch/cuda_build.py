@@ -144,7 +144,7 @@ def blocks_per_sm(report: dict, threads: int) -> int:
                SM_THREADS // threads, SM_BLOCKS)
 
 
-SASS_OPCODES = ("FFMA", "FMUL", "FADD", "HMMA", "BAR", "SHFL", "LDS")
+SASS_OPCODES = ("FFMA", "FMUL", "FADD", "HMMA", "HGMMA", "BAR", "SHFL", "LDS")
 
 
 def sass_opcodes(text: str) -> dict[str, dict]:
@@ -167,16 +167,22 @@ def sass_opcodes(text: str) -> dict[str, dict]:
 MAX_BOUND_SHARE = 1.05   # a time this far below the bound means work was removed
 
 
-def fold_failures(name: str, bound_share: float, sass: dict | None, opcode: str) -> list[str]:
+def fold_failures(name: str, bound_share: float, sass: dict | None, opcode: str,
+                  route_floor_share: float | None = None) -> list[str]:
     """Why the time of reduction kernel `name` cannot stand as its route's,
     if it cannot: a share of its bound above MAX_BOUND_SHARE (the compiler
     folded work the bound counts), or SASS (`sass_opcodes` of the kernel;
     None when there is none) without `opcode`, the instruction of its route
-    (FFMA on the CUDA cores, SHFL for warp shuffles, HMMA on the tensor
-    cores). Empty when sound."""
+    (FFMA on the CUDA cores, SHFL for warp shuffles, HMMA for mma.sync and
+    HGMMA for wgmma on the tensor cores). A tensor-core kernel is held to
+    its route's own floor instead of the CUDA-core bound (it may rightly
+    beat that one): with `route_floor_share`, that share is the one above
+    MAX_BOUND_SHARE that fails. Empty when sound."""
     out = []
-    if not bound_share <= MAX_BOUND_SHARE:
-        out.append(f"{name}: {bound_share:.3f} of its bound (above {MAX_BOUND_SHARE})")
+    share, of = ((bound_share, "its bound") if route_floor_share is None
+                 else (route_floor_share, "its route floor"))
+    if not share <= MAX_BOUND_SHARE:
+        out.append(f"{name}: {share:.3f} of {of} (above {MAX_BOUND_SHARE})")
     if sass is None:
         out.append(f"{name}: no SASS")
     elif not sass.get(opcode):

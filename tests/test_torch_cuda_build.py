@@ -28,6 +28,11 @@ SASS = """\
         /*0000*/                   LDS.64 R2, [R0] ;              /* 0x0000000000027984 */
         /*0010*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;
         /*10a0*/                   SHFL.BFLY PT, R3, R2, 0x1, 0x1f ;
+		Function : _ZN12_GLOBAL__N_16kern_dEPKfPf
+        /*0000*/                   WARPGROUP.ARRIVE ;
+        /*0010*/                   HGMMA.64x16x8.F32.TF32 R24, R8, gdesc[UR4], R24, gsb0 ;
+        /*0020*/                   HGMMA.64x16x8.F32.TF32 R24, R12, gdesc[UR8], R24, gsb0 ;
+        /*0030*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
 """
 
 
@@ -50,6 +55,13 @@ def test_sass_opcodes_counts_per_kernel():
     assert set(a) == set(cuda_build.SASS_OPCODES)
 
 
+def test_sass_opcodes_counts_warpgroup_products_apart():
+    """wgmma compiles to HGMMA, counted on its own: it is not HMMA."""
+    d = cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_dEPKfPf"]
+    assert (d["HGMMA"], d["HMMA"], d["FFMA"]) == (2, 0, 0)
+    assert cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_cEPKfPf"]["HGMMA"] == 0
+
+
 def test_fold_failures_passes_a_sound_report():
     sass = cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_aEPKfPf"]
     assert cuda_build.fold_failures("micro_reduce_a", 0.67, sass, "FFMA") == []
@@ -69,6 +81,25 @@ def test_fold_failures_rejects_a_folded_report():
         "micro_reduce_b: nan of its bound (above 1.05)", "micro_reduce_b: no SASS"]
 
 
+def test_fold_failures_holds_a_tensor_core_route_to_its_floor():
+    """A tensor-core kernel may beat the CUDA-core operations bound: with
+    its route's floor given, that share is the one held to 1.05, and its
+    SASS must hold the route's opcode (HGMMA for wgmma)."""
+    d = cuda_build.sass_opcodes(SASS)["_ZN12_GLOBAL__N_16kern_dEPKfPf"]
+    assert cuda_build.fold_failures("micro_reduce_d", 1.2, d, "HGMMA",
+                                    route_floor_share=0.8) == []
+    assert cuda_build.fold_failures("micro_reduce_d", 1.2, d, "HGMMA",
+                                    route_floor_share=1.0) == []
+    above = cuda_build.fold_failures("micro_reduce_d", 1.2, d, "HGMMA", route_floor_share=1.3)
+    assert above == ["micro_reduce_d: 1.300 of its route floor (above 1.05)"]
+    # Without a route floor the operations bound is held, as for A and B.
+    assert cuda_build.fold_failures("micro_reduce_d", 1.2, d, "HGMMA") == [
+        "micro_reduce_d: 1.200 of its bound (above 1.05)"]
+    # mma.sync's HMMA is not the warpgroup route's instruction.
+    assert cuda_build.fold_failures("micro_reduce_d", 0.5, d, "HMMA",
+                                    route_floor_share=0.5) == ["micro_reduce_d: no HMMA in its SASS"]
+
+
 def test_library_path_covers_source_and_flags(monkeypatch):
     names = cuda_build.kernel_names()
     assert "micro_reduce" in names and "composite_pairs_fwd" in names
@@ -78,16 +109,21 @@ def test_library_path_covers_source_and_flags(monkeypatch):
     assert cuda_build.library_path("micro_reduce") != path
 
 
-def _kernel_body(name: str) -> str:
-    """The body of `__global__` function `name` in csrc/micro_reduce.cu."""
-    src = (cuda_build.CSRC_DIR / "micro_reduce.cu").read_text()
-    start = src.index("{", src.index(f" {name}(const float*"))
+def _body(src: str, head: str) -> str:
+    """The braced body of the function whose declaration holds `head`."""
+    start = src.index("{", src.index(head))
     depth = 0
     for j in range(start, len(src)):
         depth += {"{": 1, "}": -1}.get(src[j], 0)
         if depth == 0:
             return src[start:j + 1]
-    raise AssertionError(f"{name}: unbalanced braces")
+    raise AssertionError(f"{head}: unbalanced braces")
+
+
+def _kernel_body(name: str) -> str:
+    """The body of function `name` in csrc/micro_reduce.cu."""
+    src = (cuda_build.CSRC_DIR / "micro_reduce.cu").read_text()
+    return _body(src, f" {name}(const float*" if name.startswith("kern_") else f" {name}(")
 
 
 def test_micro_reduce_a_has_no_block_barrier_or_tensor_core():
@@ -107,6 +143,30 @@ def test_micro_reduce_c_splits_each_fragment_once_for_all_fields():
     frag, field = kstep.index("a_fragment("), kstep.index("for (int r = 0; r < NRED")
     assert frag < field and kstep.count("a_fragment(") == 1
     assert kstep.count("mma_tf32(small[r]") == 2 and kstep.count("mma_tf32(big[r]") == 1
+
+
+def test_micro_reduce_d_issues_warpgroup_products_in_flight():
+    """D is one warpgroup's wgmma.mma_async m64n16k8 TF32 products: each
+    k-step's A fragment built and split once (hi by truncation, lo the
+    remainder), in registers, before the fence of its batch; three products a k-step (3xTF32) on B through a
+    shared-memory descriptor; each batch committed as a group, and the
+    groups waited for only before a register set is rebuilt and before the
+    accumulators are read. No mma.sync."""
+    src = (cuda_build.CSRC_DIR / "micro_reduce.cu").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32" in src
+    assert "constexpr int D_THREADS = 128;" in src and "kern_d<<<nt, D_THREADS," in src
+    body = _kernel_body("kern_d")
+    assert "mma_tf32(" not in body and "slab_desc(" in body
+    batch = _kernel_body("d_batch")
+    assert batch.count("a_fragment<true>(") == 1   # split by truncation (`split_trunc`)
+    order = [batch.index(t) for t in ("a_fragment<true>(", "wgmma_fence()", "wgmma_tf32(",
+                                      "wgmma_commit()")]
+    assert order == sorted(order)
+    assert batch.count("wgmma_tf32(") == 3 and "wgmma_wait" not in batch
+    loop = body[body.index("for (int kk"):]
+    assert loop.count("d_batch(a[0]") == 1 and loop.count("d_batch(a[1]") == 1
+    assert loop.count("wgmma_wait<1>()") == 2 and body.count("wgmma_wait<0>()") == 1
+    assert body.index("wgmma_wait<0>()") < body.index("d[e] = small[e] + big[e]")
 
 
 def test_micro_reduce_b_reduces_many_partials_a_shuffle():
@@ -158,25 +218,71 @@ def test_bwd_v2_kernel_walks_live_slots_through_the_shared_butterfly():
         assert "transpose_level" not in (cuda_build.CSRC_DIR / name).read_text()
 
 
+def _fwd_header_body(head: str) -> str:
+    """The body of a function of the forward's walk in the shared header."""
+    header = (cuda_build.CSRC_DIR / "composite_pairs_common.cuh").read_text()
+    return _body(header, head)
+
+
 def test_fwd_kernel_puts_several_pixels_in_a_thread():
     """Row 1 keeps 4 pixels a thread in blocks of 2 warps (a 32×32 tile over
     4 blocks, 16 blocks an SM asked of the compiler), reads each staged pair
     once a thread, forms its alpha at the thread's pixels before any of
     them blends it, and blends with selects: no branch on a pixel's stop
-    inside the walk."""
-    src = (cuda_build.CSRC_DIR / "composite_pairs_fwd.cu").read_text()
-    assert "constexpr int kFwdPix = 4;" in src and "constexpr int kBlockWarps = 2;" in src
-    assert "__launch_bounds__(kBlockWarps * 32, 32 / kBlockWarps)" in src
-    assert src.count("load_pair(") == 1
-    walk = src[src.index("const FwdPair q = load_pair("):]
-    assert walk.index("fwd_alpha(q,") < walk.index("fwd_blend(a[i], q, !done[i],")
+    inside the walk. The walk (`fwd_walk`) and its per-pair step
+    (`fwd_step`) are the shared header's, so the source is read with it."""
+    src = _compositor_source("composite_pairs_fwd")
+    assert "constexpr int kFwdPix = 4;" in src and "constexpr int kFwdBlockWarps = 2;" in src
+    assert "__launch_bounds__(kFwdBlockWarps * 32, 32 / kFwdBlockWarps)" in src
+    assert "fwd_walk<kChunk, kChunk, false>(" in src
+    walk = _fwd_header_body("void fwd_walk(")
+    step = _fwd_header_body("bool fwd_step(")
+    assert step.count("load_pair(") == 1 and "load_pair(" not in walk
+    assert step.index("fwd_alpha(q,") < step.index("fwd_blend(a[i], q, !v.done[i],")
     # 4 consecutive pixels of one row a thread, one dy a pair, vector stores.
-    assert "const int pix0 = warp * 32 * kFwdPix + kFwdPix * lane;" in src
-    assert walk.count("const float dy = py - q.my;") == 1
-    assert src.count("*reinterpret_cast<float4*>(") == 4
+    assert "const int pix0 = warp * 32 * kFwdPix + kFwdPix * lane;" in walk
+    assert step.count("const float dy = v.py - q.my;") == 1
+    assert walk.count("*reinterpret_cast<float4*>(") == 4
+    # Row 1's chunks (kSub == kChunk): one exit test a chunk.
+    once = walk[walk.index("if constexpr (kSub >= kChunk) {"):walk.index("} else {")]
+    assert "for (int j = lo; j < n && !all_done; ++j)" in once
+    assert "fwd_step(&chunk[0][j], kChunk, base + j + sid0, v)" in once
+    assert once.count("__syncthreads_count(") == 1
     header = (cuda_build.CSRC_DIR / "composite_pairs_common.cuh").read_text()
-    blend = header[header.index("bool fwd_blend("):header.index("bool fwd_pair(")]
+    blend = header[header.index("bool fwd_blend("):header.index("constexpr int kFwdPix")]
     assert "if (" not in blend and "keep ? test_t : T" in blend
+
+
+def test_fwd_v2_kernel_walks_live_slots_through_the_shared_walk():
+    """Row 3 (the v2 forward) instantiates row 1's walk from the shared
+    header over v2's window: 512-pair chunks aligned to the window, the
+    exit tested once per 64-pair group, and only the live slots of a chunk
+    staged and walked (no staging loop over a whole chunk, no per-slot
+    test of the window's head). Neither forward source holds a walk of its
+    own: one copy of the per-pair arithmetic."""
+    cu = (cuda_build.CSRC_DIR / "composite_pairs_fwd_v2.cu").read_text()
+    assert "constexpr int kChunk = 512;" in cu and "constexpr int kSub = 64;" in cu
+    assert "fwd_walk<kChunk, kSub, true>(" in cu
+    assert "__launch_bounds__(kFwdBlockWarps * 32, 32 / kFwdBlockWarps)" in cu
+    walk = _fwd_header_body("void fwd_walk(")
+    assert "i < kChunk" not in walk and "sid >= head" not in walk
+    assert "const int origin = kWindowChunks ? start - head : start;" in walk
+    assert "const int lo = kWindowChunks ? max(first - base, 0) : 0;" in walk
+    assert "for (int i = lo + tid; i < n; i += blockDim.x)" in walk
+    groups = walk[walk.index("} else {"):]
+    assert "for (int g = lo, g_end; walking && g < n; g = g_end)" in groups
+    assert "g_end = min(n, (g / kSub + 1) * kSub);" in groups
+    assert groups.index("for (int j = g; j < g_end && !all_done; ++j)") < groups.index(
+        "__syncthreads_count(!all_done)")
+    assert groups.count("__syncthreads_count(") == 1 and groups.count("fwd_step(") == 1
+    assert walk.count("fwd_step(") == 2
+    step = _fwd_header_body("bool fwd_step(")
+    assert "v.stop[i] = sid;" in step
+    for name in ("composite_pairs_fwd.cu", "composite_pairs_fwd_v2.cu"):
+        text = (cuda_build.CSRC_DIR / name).read_text()
+        body = _body(text, "_kernel(")
+        assert "load_pair(" not in body and "fwd_blend(" not in body and "fwd_alpha(" not in body
+        assert "fwd_launch(" in text
 
 
 def test_blocks_per_sm_takes_the_tightest_limit():
