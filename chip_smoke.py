@@ -85,7 +85,21 @@ non-zero):
                 version, timed through the wrapper, alone and as a CUDA
                 graph; the backward's six entries (v3, v4,
                 v2, float32 and `amp`) against their plain versions, every
-                column written, timed, with the walked pairs.
+                column written, timed, with the walked pairs;
+ 14. replay   — phase 12's model directory read back and replayed through
+                the user's entry points: `models/io.load_avatar` (every
+                leaf the fitted state's live slots, bit for bit), a round
+                trip against the in-memory state (max abs diff <= 1e-6),
+                `tools/render` over val and test (row 1 once a view),
+                `tools/metrics` with synthetic VGG LPIPS weights (val PSNR
+                within 0.1 dB of the loop's; one pair's LPIPS on the card
+                within rtol 1e-4 of the CPU's; `evaluate_split` with
+                `$GSAVATARS_LPIPS_WEIGHTS`), `viewers.local.AvatarViewerCore`
+                at 802×550 (a splat frame, the mesh overlay, a jaw
+                override, `motion_path` and `disable_fid` each change it),
+                and the FPS benchmarks: `tools/fps_benchmark_demo` on the
+                fitted avatar and on the benchmark avatar written as a
+                model directory, `tools/fps_benchmark_dataset` on the fit.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -94,10 +108,12 @@ and exits non-zero.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1204,8 +1220,6 @@ def phase_loop(card) -> dict:
     (dataset, untrained eval, 800 iterations with a densify event at 750,
     an opacity reset at 600, evals and checkpoints at 400 and 800, a PLY
     save at 800, final eval), then a resume from the 400 checkpoint."""
-    import shutil
-
     from gaussianavatars_torch.config import from_json
     from gaussianavatars_torch.data import pipeline as pipe
     from gaussianavatars_torch.models.flame.assets import load_assets
@@ -1453,6 +1467,336 @@ def phase_fitted_bwd(card, harness, against=()) -> dict:
         if against:
             time_against("fitted", against, table, outputs, args)
     return out
+
+
+N_REPLAY_FPS_FRAMES = 300   # frames a round of the FPS benchmarks
+N_REPLAY_FPS_ROUNDS = 3
+REPLAY_DIR = os.path.join("build", "chip_smoke", "replay")
+REPLAY_PARAM_KEYS = ("means", "log_scales", "quats", "sh_dc", "sh_rest", "logit_opacity")
+# Regions the synthetic topology has masks for (it has no "face" mask, as
+# FLAME's own masks are not in the repository): the viewer keeps the
+# Gaussians of the left half visible.
+REPLAY_VISIBLE_REGIONS = ["left_half"]
+
+
+def sync_ms(fn, reps: int) -> float:
+    """Host milliseconds per call of `fn`, synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def fwd_launches_only(expected: int, what: str) -> int:
+    """Row 1's launches since the last reset; fails on any other entry."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    got = dict(cp.LAUNCHES)
+    other = {k: v for k, v in got.items() if v and k != "composite_pairs_fwd"}
+    if got["composite_pairs_fwd"] != expected or other:
+        raise AssertionError(f"{what}: launches {got}, expected {expected} of row 1 only")
+    return got["composite_pairs_fwd"]
+
+
+def view_overflow(core, cam) -> int:
+    """Tier-budget overflow of the viewer core's avatar on `cam` at
+    timestep 0 with the core's tile configuration."""
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.projection import project_from_params
+    from gaussianavatars_torch.ops.rasterize_sorted import rasterize_sorted
+    from gaussianavatars_torch.ops.rasterize_tiled import view_colors
+
+    t = core.tile
+    with torch.no_grad():
+        verts = core.model(core.flame_params_at(0))
+        wg = world_gaussians(core.params, core.aux, face_frames(verts[0], core.model.faces))
+        proj = project_from_params(wg.means, wg.scales, wg.quats, cam, alive=wg.alive)
+        opac = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
+        _img, _a, plan = rasterize_sorted(proj, view_colors(wg.means, wg.sh, cam, 0), opac,
+                                          cam.height, cam.width,
+                                          torch.zeros(3, device=opac.device), t.tile_h,
+                                          t.tile_w, t.tier_spec(core.params.capacity))
+    return int(plan.budget_overflow)
+
+
+def write_bench_avatar(model_dir: str) -> tuple:
+    """`render.build_scene()`'s avatar (90,090 Gaussians) as a model
+    directory: its PLY with the binding, a one-timestep flame_param.npz of
+    its FLAME parameters, and its assets. Returns (PLY path, camera, probed
+    tile configuration)."""
+    from gaussianavatars_torch.data.ply import save_gaussian_ply
+    from gaussianavatars_torch.models.flame.assets import save_assets
+    from gaussianavatars_torch.render import build_scene, probe_tile_config
+
+    model, params, aux, fl, cam, n = build_scene(device="cuda")
+    live = aux.alive.cpu().numpy()
+    assert int(live.sum()) == n
+    out = os.path.join(model_dir, "point_cloud", "iteration_0")
+    os.makedirs(out, exist_ok=True)
+    ply = os.path.join(out, "point_cloud.ply")
+    host = {k: getattr(params, k).cpu().numpy()[live] for k in REPLAY_PARAM_KEYS}
+    save_gaussian_ply(ply, binding=aux.binding.cpu().numpy()[live], **host)
+    np.savez(os.path.join(out, "flame_param.npz"),
+             shape=fl.shape.cpu().numpy(), expr=fl.expr.cpu().numpy(),
+             rotation=fl.rotation.cpu().numpy(), neck_pose=fl.neck.cpu().numpy(),
+             jaw_pose=fl.jaw.cpu().numpy(), eyes_pose=fl.eyes.cpu().numpy(),
+             translation=fl.translation.cpu().numpy(),
+             static_offset=np.zeros((model.num_verts, 3), np.float32))
+    save_assets(model.assets, os.path.join(model_dir, "flame_assets.npz"))
+    return ply, cam, probe_tile_config(model, params, aux, fl, cam)
+
+
+def run_fps(label: str, card, fn) -> dict:
+    """An FPS benchmark run: its rounds, row 1's launches, peak memory."""
+    from gaussianavatars_torch.tools.fps_benchmark_demo import N_WARMUP
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mib = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    fps = fn()
+    torch.cuda.synchronize()
+    frames = N_REPLAY_FPS_FRAMES * N_REPLAY_FPS_ROUNDS + min(N_WARMUP, N_REPLAY_FPS_FRAMES)
+    launches = fwd_launches_only(frames, f"replay/fps/{label}")
+    res = dict(fps_per_round=fps, frames_per_round=N_REPLAY_FPS_FRAMES, launches=launches,
+               peak_mem_mib=torch.cuda.max_memory_allocated() / 2**20,
+               mem_at_start_mib=start_mib, card=card["nvidia_smi"])
+    log(f"replay/fps/{label}", **res)
+    if not all(math.isfinite(f) and f > 0 for f in fps):
+        raise AssertionError(f"replay/fps/{label}: {fps}")
+    return res
+
+
+N_ALTERNATE_FRAMES = 100   # frames a block of the serving/demo alternation
+
+
+def alternate_vs_serving(renderer, poses, core, cam) -> dict:
+    """Frames/s of phase 4's `AvatarRenderer.render` and of the demo
+    benchmark's frame (`fps_benchmark_demo.run_benchmark`) on the same
+    avatar, camera and tier budgets, in turns (serving, demo, demo at the
+    renderer's capacity, the same again in reverse), N_ALTERNATE_FRAMES
+    frames a block: what the demo's frame costs beside the serving path's."""
+    from gaussianavatars_torch.tools.fps_benchmark_demo import run_benchmark
+
+    cap = renderer.params.capacity
+    trimmed = copy.copy(core)
+    trimmed.params = dataclasses.replace(core.params, **{
+        f.name: getattr(core.params, f.name)[:cap] for f in dataclasses.fields(core.params)})
+    trimmed.aux = dataclasses.replace(core.aux, **{
+        f.name: getattr(core.aux, f.name)[:cap] for f in dataclasses.fields(core.aux)})
+    if int(trimmed.aux.alive.sum()) != core.num_points:
+        raise AssertionError("the renderer's capacity drops live Gaussians")
+    rates = {"serving": [], "demo": [], "demo_trimmed": []}
+    for kind in ("serving", "demo", "demo_trimmed", "demo_trimmed", "demo", "serving"):
+        if kind == "serving":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_ALTERNATE_FRAMES):
+                renderer.render(poses[i])
+            torch.cuda.synchronize()
+            rates["serving"].append(N_ALTERNATE_FRAMES / (time.perf_counter() - t0))
+        else:
+            rates[kind] += run_benchmark(core if kind == "demo" else trimmed,
+                                         N_ALTERNATE_FRAMES, 1, camera=cam)
+    return dict(frames_per_s=rates, capacity={"serving": cap, "demo": core.params.capacity,
+                                              "demo_trimmed": cap})
+
+
+def phase_replay(card, harness, loop_res, serving) -> dict:
+    """Phase 14: replay the fitted avatar that phase 12 left in its model
+    directory, through the entry points a user calls: load it, render it
+    (round trip against the in-memory state, then `tools/render` over val
+    and test), score it (`tools/metrics` with synthetic LPIPS weights),
+    re-pose it in `AvatarViewerCore` at 802×550, and time it
+    (`tools/fps_benchmark_demo` on the fitted and the benchmark avatars,
+    `tools/fps_benchmark_dataset`). Returns row 1's launches on these
+    paths (each counted from 0 just before it). `serving`: phase 4's
+    renderer, its poses and its frames/s."""
+    from gaussianavatars_torch.metrics import lpips as lpips_fn
+    from gaussianavatars_torch.metrics.lpips import (
+        load_lpips_weights, save_lpips_weights, synthetic_lpips_params,
+    )
+    from gaussianavatars_torch.models import io
+    from gaussianavatars_torch.tools import fps_benchmark_dataset, fps_benchmark_demo
+    from gaussianavatars_torch.tools import metrics as tmetrics
+    from gaussianavatars_torch.tools import render as trender
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.training.trainer import active_sh_degree
+    from gaussianavatars_torch.viewers.local import AvatarViewerCore
+    from PIL import Image
+
+    model_dir = os.path.join(LOOP_WORKDIR, "model")
+    iters = int(LOOP_FLAGS[LOOP_FLAGS.index("--iterations") + 1])
+    st, cfg = harness.state, harness.cfg
+    shutil.rmtree(REPLAY_DIR, ignore_errors=True)
+    os.makedirs(REPLAY_DIR)
+    launches = 0
+
+    # --- 1. load ------------------------------------------------------------
+    it = io.find_latest_iteration(model_dir)
+    ply = io.checkpoint_ply_path(model_dir, it)
+    params, aux, table = io.load_avatar(ply, capacity=cfg.model.capacity, device="cuda")
+    live = st.aux.alive
+    n = int(live.sum())
+    unequal = [k for k in REPLAY_PARAM_KEYS
+               if not torch.equal(getattr(params, k)[:n], getattr(st.params, k)[live])]
+    if not torch.equal(aux.binding[:n], st.aux.binding[live]):
+        unequal.append("binding")
+    ref_table = loop.flame_table_from_state(st, harness.scene.flame_table)
+    table_equal = sorted(table) == sorted(ref_table) and all(
+        np.array_equal(table[k], np.asarray(ref_table[k])) for k in ref_table)
+    res = dict(iteration=it, live=int(aux.alive.sum()), harness_live=n,
+               unequal_leaves=unequal, flame_table_equal=table_equal)
+    log("replay/load", **res)
+    if it != iters or res["live"] != n or bool(aux.alive[n:].any()) or unequal \
+            or not table_equal:
+        raise AssertionError(f"replay/load: {res}")
+
+    # --- 2. round trip --------------------------------------------------------
+    model = trender.replay_model(model_dir, cfg, device="cuda")
+    state = trender.replay_state(params, aux, table, model)
+    tcfg = harness.live_tile_config
+    cam = harness.scene.cameras("val")[0]
+    bg = torch.zeros(3, device="cuda")
+    sh = cfg.model.sh_degree
+    reset_launches()
+    img_loaded = loop.make_render_fn(model, cfg, tcfg)(state, cam, cam.timestep, bg, sh)
+    img_harness = loop.make_render_fn(harness.model, cfg, tcfg)(st, cam, cam.timestep, bg, sh)
+    launches += fwd_launches_only(2, "replay/round_trip")
+    rt = dict(max_abs_diff=float((img_loaded - img_harness).abs().max()),
+              view=cam.image_name, resolution=f"{cam.width}x{cam.height}")
+    log("replay/round_trip", **rt)
+    if not rt["max_abs_diff"] <= 1e-6:
+        raise AssertionError(f"replay/round_trip: {rt}")
+    del img_loaded, img_harness, state, params, aux
+
+    # --- 3. tools/render over val and test ----------------------------------------
+    n_views = {s: len(harness.scene.cameras(s)) for s in ("val", "test")}
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = trender.main(["-m", model_dir, "--skip_train", "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches += fwd_launches_only(sum(n_views.values()), "replay/render")
+    pngs = {s: {k: len([f for f in os.listdir(os.path.join(model_dir, s, f"ours_{it}", k))
+                        if f.endswith(".png")]) for k in ("renders", "gt")} for s in n_views}
+    log("replay/render", per_split=stats, pngs=pngs, views=n_views, wall_s=wall,
+        launches=sum(n_views.values()), card=card["nvidia_smi"])
+    if any(pngs[s] != {"renders": n_views[s], "gt": n_views[s]} or stats[s]["views"] != n_views[s]
+           for s in n_views):
+        raise AssertionError(f"replay/render: PNGs {pngs}, views {n_views}")
+
+    # --- 4. tools/metrics with synthetic LPIPS weights --------------------------------
+    weights = os.path.join(REPLAY_DIR, "lpips_synthetic_vgg.npz")
+    save_lpips_weights(synthetic_lpips_params(torch.Generator().manual_seed(0), "vgg",
+                                              device="cpu"), weights)
+    t0 = time.perf_counter()
+    out = tmetrics.main(["-m", model_dir, "--splits", "val", "test", "--lpips_weights",
+                         weights])[model_dir]["results"]
+    metrics_s = time.perf_counter() - t0
+    loop_val_psnr = loop_res["psnr_untrained_vs_trained"]["val"][1]
+    val = out[f"val/ours_{it}"]
+    # One view pair on the card and on the CPU (TF32 off, phase 1).
+    pair = [np.asarray(Image.open(os.path.join(model_dir, "val", f"ours_{it}", k, "00000.png"))
+                       .convert("RGB"), np.float32) / 255.0 for k in ("renders", "gt")]
+    lp_card = load_lpips_weights(weights, device="cuda")
+    x, y = (torch.from_numpy(a).cuda() for a in pair)
+    with torch.no_grad():
+        on_card = float(lpips_fn(lp_card, x, y))
+        on_cpu = float(lpips_fn(load_lpips_weights(weights, device="cpu"),
+                                *(torch.from_numpy(a) for a in pair)))
+        lpips_ms = sync_ms(lambda: lpips_fn(lp_card, x, y), 5)
+    os.environ["GSAVATARS_LPIPS_WEIGHTS"] = weights
+    loop._eval_lpips_params.cache_clear()
+    try:
+        ev = loop.evaluate_split(harness, "val", loop.make_render_fn(harness.model, cfg, tcfg),
+                                 active_sh_degree(iters, cfg.model.sh_degree), max_views=2)
+    finally:
+        del os.environ["GSAVATARS_LPIPS_WEIGHTS"]
+        loop._eval_lpips_params.cache_clear()
+    mres = dict(results=out, loop_val_psnr=loop_val_psnr,
+                val_psnr_minus_loop=val["psnr"] - loop_val_psnr,
+                lpips_card_vs_cpu=[on_card, on_cpu],
+                lpips_rel_diff=abs(on_card - on_cpu) / abs(on_cpu),
+                lpips_ms_802x550=lpips_ms, metrics_wall_s=metrics_s,
+                evaluate_split_with_lpips=ev, card=card["nvidia_smi"],
+                note="LPIPS from synthetic VGG weights: the value says nothing of quality")
+    log("replay/metrics", **mres)
+    if not (abs(mres["val_psnr_minus_loop"]) <= 0.1 and math.isfinite(val["lpips"])
+            and mres["lpips_rel_diff"] <= 1e-4 and "lpips" in ev):
+        raise AssertionError(f"replay/metrics: {mres}")
+
+    # --- 5. the viewer core at 802×550 ----------------------------------------------
+    core = AvatarViewerCore(ply, width=802, height=550, device="cuda")   # probes its tiers
+    vcam = core.cam.to_camera(device="cuda")
+    tile = dict(tile_h=core.tile.tile_h, tile_w=core.tile.tile_w,
+                base_budget=core.tile.base_budget, tiers=core.tile.tiers)
+    overflow = view_overflow(core, vcam)
+    reset_launches()
+    base = core.render(timestep=0)
+    mesh = core.render(timestep=0, show_mesh=True, mesh_opacity=0.5)
+    core.overrides["jaw"] = np.array([0.3, 0.0, 0.0], np.float32)
+    jaw = core.render(timestep=0)
+    core.overrides.clear()
+    side = dict(np.load(os.path.join(os.path.dirname(ply), "flame_param.npz")))
+    side["jaw_pose"] = side["jaw_pose"] + np.array([0.3, 0.0, 0.0], np.float32)
+    motion_path = os.path.join(REPLAY_DIR, "motion_flame_param.npz")
+    np.savez(motion_path, **side)
+    motion = AvatarViewerCore(ply, motion_path=motion_path, width=802, height=550, tile=tile,
+                              device="cuda").render(timestep=0)
+    fids = core.model.fid_except_region(REPLAY_VISIBLE_REGIONS)
+    hidden = int(torch.isin(core.aux.binding[core.aux.alive],
+                            torch.as_tensor(fids, device="cuda").long()).sum())
+    core_d = AvatarViewerCore(ply, disable_fid=fids, width=802, height=550, tile=tile,
+                              device="cuda")
+    part = core_d.render(timestep=0)
+    launches += fwd_launches_only(5, "replay/viewer")
+    diffs = {k: float(np.abs(v - base).mean()) for k, v in
+             (("mesh", mesh), ("jaw", jaw), ("motion", motion), ("disable_fid", part))}
+    vres = dict(resolution="802x550", live=core.num_points, tiers=[tile["base_budget"],
+                                                                    list(tile["tiers"])],
+                budget_overflow=overflow, coverage=float((base.sum(-1) > 0).mean()),
+                mean_abs_change=diffs, disable_fid_faces=len(fids),
+                disable_fid_hidden=hidden, live_after_disable_fid=core_d.num_points,
+                visible_regions=REPLAY_VISIBLE_REGIONS)
+    log("replay/viewer", **vres)
+    if not (overflow == 0 and vres["coverage"] > 0.01 and min(diffs.values()) > 1e-4
+            and np.isfinite(base).all()
+            and core_d.num_points == core.num_points - hidden and 0 < hidden < core.num_points):
+        raise AssertionError(f"replay/viewer: {vres}")
+    del core_d
+
+    # --- 6. FPS ---------------------------------------------------------------
+    fitted = run_fps("demo_fitted", card, lambda: fps_benchmark_demo.run_benchmark(
+        core, N_REPLAY_FPS_FRAMES, N_REPLAY_FPS_ROUNDS))
+    launches += fitted["launches"]
+    del core
+    bench_ply, bench_cam, bench_tile = write_bench_avatar(os.path.join(REPLAY_DIR, "bench"))
+    core_b = AvatarViewerCore(bench_ply, width=802, height=550, device="cuda",
+                              tile=dict(tile_h=bench_tile.tile_h, tile_w=bench_tile.tile_w,
+                                        base_budget=bench_tile.base_budget,
+                                        tiers=bench_tile.tiers))
+    bench = run_fps("demo_benchmark_avatar", card, lambda: fps_benchmark_demo.run_benchmark(
+        core_b, N_REPLAY_FPS_FRAMES, N_REPLAY_FPS_ROUNDS, camera=bench_cam))
+    launches += bench["launches"]
+    renderer, poses, serving_fps = serving
+    log("replay/fps/vs_serving", live=core_b.num_points, demo_capacity=core_b.params.capacity,
+        demo_fps_per_round=bench["fps_per_round"], phase5_frames_per_s=serving_fps,
+        alternating_frames_per_s=alternate_vs_serving(renderer, poses, core_b, bench_cam),
+        alternating_block_frames=N_ALTERNATE_FRAMES, card=card["nvidia_smi"],
+        note="same avatar, camera and tier budgets; the demo pads to the next power of two, "
+             "phase 5 to a multiple of 8192; alternating: in turns in this phase")
+    del core_b
+    dataset = run_fps("dataset_fitted", card, lambda: fps_benchmark_dataset.main(
+        ["-m", model_dir, "--n_iter", str(N_REPLAY_FPS_FRAMES),
+         "--n_rounds", str(N_REPLAY_FPS_ROUNDS)]))
+    launches += dataset["launches"]
+    log("replay", launches=launches, card=card["nvidia_smi"])
+    return {"composite_pairs_fwd": launches}
 
 
 # The compositor entry points `--against` times in each other checkout and
@@ -1792,12 +2136,19 @@ def main(argv=None) -> int:
     loop_res = phase_loop(card)
 
     # --- 13. the compositors on the fitted avatar ----------------------------
-    phase_fitted_bwd(card, loop_res.pop("harness"), against)
+    harness = loop_res.pop("harness")
+    phase_fitted_bwd(card, harness, against)
+
+    # --- 14. replay of the fitted avatar ---------------------------------------
+    t0 = time.perf_counter()
+    replay_launches = phase_replay(card, harness, loop_res, (renderer, poses, N_FRAMES / wall_s))
+    log("replay/seconds", seconds=time.perf_counter() - t0)
+    del harness
 
     # Launches per entry point over the main paths: serving, training,
-    # the A/B (float32 and amp), amp training and the loop.
+    # the A/B (float32 and amp), amp training, the loop and the replay.
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
-                loop_res["launches"]):
+                loop_res["launches"], replay_launches):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)

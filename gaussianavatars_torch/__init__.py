@@ -15,7 +15,11 @@ projection + SH → sorted binning → pair compositor (`render.AvatarRenderer`)
 and the FLAME-bound training step over it, with the backward compositor
 kernel (`training.trainer.make_train_step`), in float32 or with `use_amp`;
 every implementation of the compositor kernels (v2, v3, v4) and the A/B of
-them (`tools.kernel_ab`).
+them (`tools.kernel_ab`); the host loop that fits an avatar
+(`tools.train_synthetic`); and the replay of a trained avatar: loading
+(`models.io`), offline render and metrics with LPIPS (`tools.render`,
+`tools.metrics`, `metrics`), the headless viewer core
+(`viewers.local.AvatarViewerCore`) and the FPS benchmarks.
 """
 
 __version__ = "0.1.0"

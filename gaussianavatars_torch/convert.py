@@ -14,6 +14,7 @@ import torch
 
 from .data.cameras import Camera
 from .device import resolve_device
+from .metrics.lpips import LpipsParams, params_from_hwio
 from .models.flame.assets import FlameAssets
 from .models.flame.flame_model import FlameParams
 from .models.gaussians import GaussianAux, GaussianParams
@@ -110,3 +111,11 @@ def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, n
                                  else _tensor(so, dev, torch.float32)),
         flame_adam=adam_state(flame_adam, lambda d: _flame_trainable(d, dev)),
     )
+
+
+def lpips_params_from_numpy(d: Mapping, device="cuda") -> LpipsParams:
+    """LPIPS weights from the JAX package's `LpipsParams` leaves as numpy
+    arrays: {"conv_w": [HWIO, ...], "conv_b": [...], "lin_w": [...],
+    "net_type": "vgg" | "alex"}."""
+    return params_from_hwio(d["conv_w"], d["conv_b"], d["lin_w"], d["net_type"],
+                            device=device)

@@ -231,12 +231,20 @@ class FlameModel(nn.Module):
 
     def fid_by_region(self, regions: list[str], min_verts: int = 3) -> np.ndarray:
         """Faces with at least `min_verts` vertices inside the union of the
-        regions (the reference's voting rule, `flame_model/flame.py:822-838`).
-        No caller in the port yet, like `vid_by_region`."""
+        regions (the reference's voting rule, `flame_model/flame.py:822-838`)."""
         inside = np.zeros((self.num_verts,), bool)
         inside[self.vid_by_region(regions)] = True
         votes = inside[np.asarray(self.assets.faces)].sum(axis=1)
         return np.nonzero(votes >= min_verts)[0].astype(np.int32)
+
+    def fid_except_region(self, regions: list[str]) -> np.ndarray:
+        """Faces with no vertex inside the union of the regions: the
+        `disable_fid` list that keeps only those regions visible
+        (`models/io.load_avatar`)."""
+        sel = self.fid_by_region(regions, min_verts=1)
+        mask = np.ones((self.num_faces,), bool)
+        mask[sel] = False
+        return np.nonzero(mask)[0].astype(np.int32)
 
     # -- forward ------------------------------------------------------------
     def forward(self, params: FlameParams, return_verts_cano: bool = False):

@@ -81,3 +81,11 @@ def compute_face_orientation(verts: torch.Tensor, faces: torch.Tensor):
     height = torch.abs(torch.sum(a2 * (v2 - v0), dim=-1, keepdim=True))
     scale = (e1_len + height) / 2
     return R, scale
+
+
+def compute_face_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Unnormalised per-face normals [..., F, 3]: (v1 - v0) × (v2 - v0)."""
+    v0 = verts[..., faces[:, 0], :]
+    v1 = verts[..., faces[:, 1], :]
+    v2 = verts[..., faces[:, 2], :]
+    return torch.linalg.cross(v1 - v0, v2 - v0)

@@ -79,13 +79,16 @@ def build_scene(per_face: int = 9, seed: int = 0, width: int = WIDTH,
 
 
 @torch.inference_mode()
-def probe_tile_config(model: FlameModel, params: GaussianParams, aux: GaussianAux,
-                      flame_params: FlameParams, camera: Camera,
+def probe_tile_config(model: Optional[FlameModel], params: GaussianParams, aux: GaussianAux,
+                      flame_params: Optional[FlameParams], camera: Camera,
                       tile_h: int = 32, tile_w: int = 32) -> TileConfig:
     """Tier budgets sized from one frame's footprints (`probe_tiers`), as
-    the JAX package's benchmark and training loop size theirs."""
-    verts = model(flame_params)
-    wg = world_gaussians(params, aux, face_frames(verts[0], model.faces))
+    the JAX package's benchmark and training loop size theirs. `model=None`
+    probes an unbound avatar (no FLAME)."""
+    frames = None
+    if model is not None:
+        frames = face_frames(model(flame_params)[0], model.faces)
+    wg = world_gaussians(params, aux, frames)
     proj = project_from_params(wg.means, wg.scales, wg.quats, camera, alive=wg.alive)
     opac = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
     _tx, _ty, _bw, ntiles, _nty, _ntx = bbox_tiles(

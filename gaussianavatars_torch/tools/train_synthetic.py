@@ -257,8 +257,9 @@ def run(a):
         for split in ("val", "test"):
             m = evaluate_split(harness, split, render_fn, sh_final)
             if m:
-                print(f"[{prefix} eval {split}] psnr={m['psnr']:.2f} ssim={m['ssim']:.4f} "
-                      f"over {m['n']} views")
+                extra = f" lpips={m['lpips']:.4f}" if "lpips" in m else ""
+                print(f"[{prefix} eval {split}] psnr={m['psnr']:.2f} ssim={m['ssim']:.4f}"
+                      f"{extra} over {m['n']} views")
                 result[f"{prefix}_{split}"] = m
 
     if harness.start_iteration == 0:

@@ -8,8 +8,9 @@ The port of the JAX package's `training/loop.py` (the reference training script,
   * densify/prune every `densification_interval` in
     (densify_from_iter, densify_until_iter) (`train.py:264-273`),
   * opacity reset every `opacity_reset_interval`,
-  * eval reports (`training_report`, `train.py:313-394`: PSNR and SSIM),
-    PLY saves and full resume checkpoints (`train.py:287-289`).
+  * eval reports (`training_report`, `train.py:313-394`: PSNR, SSIM, and
+    LPIPS when `$GSAVATARS_LPIPS_WEIGHTS` names a weights file), PLY saves
+    and full resume checkpoints (`train.py:287-289`).
 
 The loop owns host-side state (the ground-truth cache, the sampler, logs);
 everything numeric is in the `TrainState` on the device. The step's
@@ -20,13 +21,14 @@ a device value beyond what the step itself does.
 Not ported, each named in `ROADMAP.md`: `train_sharded` (multi-device),
 the TensorBoard writer, the GUI service, `debug_from`, progressive
 resolution and smart densification (`build_harness` raises on both), the
-colour net in `make_render_fn`, LPIPS in `evaluate_split`, unbound
-(point-cloud) training, and the JAX loop's fused chunks of steps
+colour net in `make_render_fn`, unbound (point-cloud) training (an unbound
+model is rendered, not trained), and the JAX loop's fused chunks of steps
 (`steps_per_call`): the port runs one step per iteration.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -39,6 +41,7 @@ from ..data.cameras import Camera
 from ..data.pipeline import EpochSampler, Prefetcher, gt_to_float, load_view, view_stack
 from ..data.scene import Scene
 from ..device import resolve_device
+from ..metrics.lpips import lpips as lpips_fn, maybe_load_default
 from ..models.binding import face_frames
 from ..models.densify import DensifyConfig, densify_and_prune, grow_capacity, reset_opacity
 from ..models.flame.assets import save_assets
@@ -212,18 +215,23 @@ def probe_tier_budgets(tcfg: TileConfig, cfg: Config, model: FlameModel, state: 
     return dataclasses.replace(tcfg, base_budget=probed.base_budget, tiers=probed.tiers)
 
 
-def make_render_fn(model: FlameModel, cfg: Config, tcfg: TileConfig):
+def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
     """Full-forward render for eval and offline use: render(state, camera,
-    timestep, bg, sh_degree) → image [H, W, 3]. The colour net is not
-    ported: a configuration with it raises."""
+    timestep, bg, sh_degree) → image [H, W, 3]. `model=None` renders the
+    stored Gaussians as they are (an unbound point cloud; `timestep` is
+    ignored). The colour net is not ported: a configuration with it
+    raises."""
     if cfg.opt.use_color_calibration:
         raise NotImplementedError("make_render_fn: the colour net is not ported")
 
     @torch.no_grad()
     def render(state: TrainState, camera: Camera, timestep: int, bg: torch.Tensor,
                sh_degree: int) -> torch.Tensor:
-        verts = model(_flame_params(state, int(timestep)))
-        wg = world_gaussians(state.params, state.aux, face_frames(verts[0], model.faces))
+        frames = None
+        if model is not None:
+            verts = model(_flame_params(state, int(timestep)))
+            frames = face_frames(verts[0], model.faces)
+        wg = world_gaussians(state.params, state.aux, frames)
         return render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
                             sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg).color
 
@@ -235,10 +243,19 @@ def _background(cfg: Config, device) -> torch.Tensor:
             else torch.zeros(3, device=device))
 
 
+@functools.lru_cache(maxsize=4)
+def _eval_lpips_params(device: str):
+    """LPIPS weights for eval ($GSAVATARS_LPIPS_WEIGHTS; the reference
+    evaluates LPIPS at every report, `train.py:375-384`), cached per device.
+    None when no weights file is given."""
+    return maybe_load_default(device=device)
+
+
 def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: int,
                    max_views: Optional[int] = None, bg: Optional[torch.Tensor] = None) -> dict:
-    """PSNR/SSIM over a split (`training_report`, `train.py:313-394`).
-    LPIPS is not ported yet (nor are its weights in the repository)."""
+    """PSNR/SSIM[/LPIPS] over a split (`training_report`, `train.py:313-394`).
+    LPIPS is included when `$GSAVATARS_LPIPS_WEIGHTS` names a converted
+    weights file (`metrics/lpips.py`)."""
     scene, cfg = harness.scene, harness.cfg
     cams = scene.cameras(split)
     recs = scene.records(split)
@@ -248,14 +265,20 @@ def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: in
     if bg is None:
         bg = _background(cfg, dev)
     n = len(cams) if max_views is None else min(max_views, len(cams))
-    psnrs, ssims = [], []
+    lp = _eval_lpips_params(str(dev))
+    psnrs, ssims, lpipss = [], [], []
     for i in range(n):
         gt = torch.from_numpy(load_view(recs[i], cams[i])).to(dev)
         img = torch.clamp(render_fn(harness.state, cams[i], cams[i].timestep, bg, sh_degree),
                           0.0, 1.0)
         psnrs.append(float(psnr_fn(img, gt)))
         ssims.append(float(ssim_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1))))
-    return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)), "n": n}
+        if lp is not None:
+            lpipss.append(float(lpips_fn(lp, img, gt)))
+    m = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)), "n": n}
+    if lpipss:
+        m["lpips"] = float(np.mean(lpipss))
+    return m
 
 
 def densify_event(harness: TrainerHarness, iteration: int) -> dict:
@@ -362,7 +385,8 @@ def _post_step_events(
             m = _timed(harness, "eval", it, lambda: evaluate_split(
                 harness, split, render_fn, sh_deg, max_views=eval_views, bg=bg), split=split)
             if m:
-                print(f"  [eval {split}] psnr={m['psnr']:.2f} ssim={m['ssim']:.4f}")
+                extra = f" lpips={m['lpips']:.4f}" if "lpips" in m else ""
+                print(f"  [eval {split}] psnr={m['psnr']:.2f} ssim={m['ssim']:.4f}{extra}")
     if it in save_set:
         def save():
             flame_param = flame_table_from_state(harness.state, scene.flame_table)
