@@ -99,7 +99,25 @@ non-zero):
                 override, `motion_path` and `disable_fid` each change it),
                 and the FPS benchmarks: `tools/fps_benchmark_demo` on the
                 fitted avatar and on the benchmark avatar written as a
-                model directory, `tools/fps_benchmark_dataset` on the fit.
+                model directory, `tools/fps_benchmark_dataset` on the fit;
+ 15. innovations — `tools/train_synthetic --all_innovations` on phase 12's
+                dataset (802×550, 900 iterations: scales 0.5 / 0.75 / 1.0
+                from 1 / 300 / 600, a smart densify event at 750, evals and
+                checkpoints at 450 and 900): every iteration at its scale's
+                size, the past scales' caches evicted, row 2 once a step and
+                row 1 once a step and an eval view, the thresholds at or
+                above their floors, the colour net stepped every iteration,
+                the contrastive cache full, loss and PSNR finite; a resume
+                from 450 (every leaf bit for bit, on at 0.75); then the bare
+                step at full width with the region-adaptive loss, the colour
+                net and the contrastive term: gradients with the kernel and
+                the plain backward (phase 6's tolerance), the region map
+                (exactly), the colour net, the pooled thumbnail and the
+                contrastive term's mean cosine (rtol 1e-5) on the card
+                against the CPU, steps/s with the
+                innovations on and off in alternating blocks, device ms per
+                stage, kernels a step, peak memory, and the synchronising
+                calls of a step, equal in both modes.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -173,7 +191,11 @@ N_PROFILE_STEPS = 10     # steps under torch.profiler
 TRAIN_TIMESTEPS = 2
 TRAIN_RANGES = ("train/geometry_fwd", "sort_gather/fwd", "train/image_fwd",
                 "train/image_bwd", "sort_gather/bwd", "train/densify_stats",
-                "train/geometry_bwd", "train/adam")
+                "train/geometry_bwd", "train/adam",
+                # The innovations' (phase 15): the region map and the colour
+                # net's forward inside train/image_fwd, the contrastive loss
+                # there and the cache update after the step.
+                "train/region_map", "train/color_net", "train/contrastive")
 
 
 def log(phase: str, **fields) -> None:
@@ -736,6 +758,9 @@ def profile_train(step, state, gt, cam, bg, steps_per_s: float) -> dict:
         "densify_stats": rng["train/densify_stats"],
         "geometry_bwd": rng["train/geometry_bwd"],
         "adam": rng["train/adam"],
+        "region_map": rng["train/region_map"],
+        "color_net_fwd": rng["train/color_net"],
+        "contrastive": rng["train/contrastive"],
     }
     return dict(
         stage_device_ms=stages,
@@ -1914,6 +1939,301 @@ def time_against(label: str, against, table, fwd_outputs, bwd_args) -> dict:
     return out
 
 
+INNOV_FLAGS = (*LOOP_FLAGS[:LOOP_FLAGS.index("--iterations")], "--iterations", "900",
+               "--log_every", "50", "--eval_every", "450", "--checkpoint_every", "450",
+               "--opacity_reset_interval", "600", "--all_innovations")
+INNOV_WORKDIR = os.path.join("build", "chip_smoke", "innovations")
+N_INNOV_BLOCK = 10       # steps per block of the innovations on/off alternation
+
+
+def copy_dataset(src: str, dst: str) -> None:
+    """Phase 12's rendered dataset (images, FLAME files, transforms, its
+    meta) into `dst`, without the model directory."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("model"))
+
+
+def cpu_camera(cam):
+    return dataclasses.replace(cam, **{f.name: getattr(cam, f.name).cpu()
+                                       for f in dataclasses.fields(cam)
+                                       if isinstance(getattr(cam, f.name), torch.Tensor)})
+
+
+def innovations_run(card) -> dict:
+    """Phase 15, part 1: `tools/train_synthetic --all_innovations` at
+    802×550 on phase 12's dataset (900 iterations: scales 0.5 / 0.75 / 1.0
+    from 1 / 300 / 600, a smart densify event at 750, an opacity reset at
+    600, evals and checkpoints at 450 and 900), then a resume from 450."""
+    from gaussianavatars_torch.config import from_json
+    from gaussianavatars_torch.models.flame.assets import load_assets
+    from gaussianavatars_torch.models.flame.flame_model import FlameConfig, FlameModel
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.tools import train_synthetic as ts
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.training.checkpoint import GENERATOR_KEY, flatten_state
+    from gaussianavatars_torch.training.innovations import resolution_scale_at
+
+    copy_dataset(LOOP_WORKDIR, INNOV_WORKDIR)
+    args = ts.parse_args([*INNOV_FLAGS, "--workdir", INNOV_WORKDIR])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mib = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    harness, result = ts.run(args)
+    torch.cuda.synchronize()
+    launches = dict(cp.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    logs, events, o = result["logs"], harness.events, harness.cfg.opt
+    iters = args.iterations
+    st = harness.state
+
+    # Each iteration at its scale's image size; the past scales evicted.
+    scene = harness.scene
+    size_of = {s: (scene.cameras("train", 1.0 / s)[0].height,
+                   scene.cameras("train", 1.0 / s)[0].width) for s in o.resolution_schedule}
+    want_sizes: dict = {}
+    for it in range(1, iters + 1):
+        k = size_of[resolution_scale_at(it, o.resolution_schedule, o.resolution_milestones)]
+        want_sizes[k] = want_sizes.get(k, 0) + 1
+    built = [(e["iteration"], e["scale"]) for e in events if e["kind"] == "gt_cache"]
+    evicted = [(e["iteration"], e["scale"]) for e in events if e["kind"] == "evict_scale"]
+    m1, m2 = o.resolution_milestones
+    held = all(r["cached_scales"] == [r["resolution_scale"]] for r in logs)
+    # Row 2 once a step; row 1 once a step, a rendered dataset view (none
+    # when phase 12's dataset is reused) and an eval view.
+    eval_views = sum(e["n"] for e in events if e["kind"] == "eval")
+    eval_views += sum(result[k]["n"] for k in result if k.startswith("eval_"))
+    written = result["dataset_write_s"] > 0
+    n_views = args.timesteps * args.cameras if written else 0
+    expect = {"composite_pairs_fwd": iters + n_views + eval_views, "composite_pairs_bwd": iters}
+    got = {k: launches[k] for k in expect}
+    stray = {k: v for k, v in launches.items() if v and k not in expect}
+    densify = [e for e in events if e["kind"] == "densify"]
+    # The floors as the thresholds hold them: in float32.
+    floors = tuple(float(np.float32(f * o.densify_grad_threshold)) for f in (0.3, 0.7))
+    thr = [(e["clone_threshold"], e["split_threshold"]) for e in densify]
+    psnr = {s: (result[f"eval_untrained_{s}"]["psnr"], result[f"eval_{s}"]["psnr"])
+            for s in ("val", "test")}
+    res = dict(steps_by_size={f"{h}x{w}": n for (h, w), n in harness.steps_by_size.items()},
+               expected_steps_by_size={f"{h}x{w}": n for (h, w), n in want_sizes.items()},
+               gt_caches_built=built, evicted=evicted, only_current_scale_cached=held,
+               launches=got, expected_launches=expect, stray_launches=stray,
+               dataset_reused=not written, densify=densify, threshold_floors=floors,
+               color_adam_step=int(st.color_adam.step),
+               contrastive_count=int(st.contrastive.count),
+               contrastive_head=int(st.contrastive.head),
+               loss_by_log=[r["loss"] for r in logs], psnr_untrained_vs_trained=psnr)
+    log("innovations/loop", **res)
+    checks = {
+        "sizes": harness.steps_by_size == want_sizes and len(want_sizes) == 3,
+        "eviction": built == [(1, 0.5), (m1, 0.75), (m2, 1.0)]
+        and evicted == [(m1, 0.5), (m2, 0.75)] and held,
+        "launches": got == expect and not stray,
+        "smart_densify": len(densify) == 1 and all(c >= floors[0] and s >= floors[1]
+                                                   for c, s in thr),
+        "color_net": int(st.color_adam.step) == iters,
+        "contrastive": int(st.contrastive.count) == min(iters, o.contrastive_cache_size),
+        "finite": all(map(math.isfinite, res["loss_by_log"]))
+        and all(math.isfinite(b) for _a, b in psnr.values()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"innovations loop checks failed: {checks}")
+    # Steps/s of each scale over the intervals between consecutive logs of
+    # that scale that hold no host event.
+    event_its = {e["iteration"] for e in events}
+    spans: dict = {}
+    for r0, r1 in zip(logs, logs[1:]):
+        if (r0["resolution_scale"] == r1["resolution_scale"]
+                and not any(r0["iteration"] <= e <= r1["iteration"] for e in event_its)):
+            n, sec = spans.get(r1["resolution_scale"], (0, 0.0))
+            spans[r1["resolution_scale"]] = (n + r1["iteration"] - r0["iteration"],
+                                             sec + r1["elapsed_s"] - r0["elapsed_s"])
+    seg_rate = {s: {"steps": n, "steps_per_s": n / sec} for s, (n, sec) in spans.items()}
+    by_kind: dict[str, list] = {}
+    for e in events:
+        by_kind.setdefault(e["kind"], []).append(e["ms"])
+    log("innovations/loop_numbers", card=card["nvidia_smi"],
+        steps_per_s_whole_loop=iters / result["train_s"],
+        steps_per_s_by_scale=seg_rate, event_host_ms=by_kind, peak_mem_mib=peak_mib,
+        peak_mem_above_start_mib=peak_mib - start_mib,
+        live_gaussians_final=logs[-1]["num_points"],
+        eval={k: v for k, v in result.items() if k.startswith("eval_")})
+
+    # --- resume from 450: every leaf bit for bit, and on at scale 0.75 ------
+    model_dir = os.path.join(INNOV_WORKDIR, "model")
+    cfg = from_json(open(os.path.join(model_dir, "cfg_args.json")).read())
+    model = FlameModel(load_assets(os.path.join(model_dir, "flame_assets.npz")),
+                       FlameConfig(n_shape=args.n_shape, n_expr=args.n_expr, add_teeth=False),
+                       device="cuda")
+    start = ts.checkpoint_iterations(args)[0]
+    ckpt = os.path.join(model_dir, f"chkpnt{start}.npz")
+    h2 = loop.build_harness(cfg, model=model, start_checkpoint=ckpt, device="cuda")
+    saved = np.load(ckpt)
+    leaves = flatten_state(h2.state)
+    unequal = [k for k, v in leaves.items()
+               if not torch.equal(v.cpu(), torch.as_tensor(saved[k]).to(v.dtype))
+               or saved[k].dtype != v.cpu().numpy().dtype]
+    innov_leaves = sorted(k for k in leaves if k.split("/")[0] in
+                          ("color_net", "color_adam", "contrastive"))
+    moved = any(not torch.equal(a, b) for a, b in zip(h2.state.color_net.weights,
+                                                      st.color_net.weights))
+    lg = loop.train(h2, iterations=start + 5, log_every=1, eval_every=0)
+    want_scales = [resolution_scale_at(start + i, o.resolution_schedule,
+                                       o.resolution_milestones) for i in range(1, 6)]
+    want_resumed: dict = {}
+    for s in want_scales:
+        want_resumed[size_of[s]] = want_resumed.get(size_of[s], 0) + 1
+    resumed = dict(start_iteration=h2.start_iteration, leaves=len(leaves),
+                   innovation_leaves=innov_leaves, unequal=unequal,
+                   color_net_moved_450_to_900=moved,
+                   scales=[r["resolution_scale"] for r in lg],
+                   steps_by_size={f"{h}x{w}": n for (h, w), n in h2.steps_by_size.items()})
+    log("innovations/resume", **resumed)
+    # 22 innovation leaves: the net's 6, their 12 moments, its Adam step,
+    # the cache's 3.
+    if (h2.start_iteration != start or unequal or len(innov_leaves) != 22 or not moved
+            or set(leaves) != set(saved.files) - {"__iteration__", "key", GENERATOR_KEY}
+            or resumed["scales"] != want_scales or want_scales[0] != 0.75
+            or h2.steps_by_size != want_resumed):
+        raise AssertionError(f"innovations resume: {resumed}")
+    return dict(launches=launches)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| of two tensors (b on any device)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def innovations_step(card, model, params, aux, cam, tile_cfg, setup) -> dict:
+    """Phase 15, part 2: the bare step at full width (phase 6's scene and
+    target) with the region-adaptive loss, the colour net and the
+    contrastive term: one step's gradients with the kernel and with the
+    plain backward compositor; the innovations' functions on the card
+    against the CPU on the same inputs; steps/s with the innovations on
+    and off in alternating blocks, device ms per stage, kernels a step and
+    peak memory; the synchronising calls of a step in each mode."""
+    from gaussianavatars_torch.config import Config
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.ops import rasterize_sorted as rs
+    from gaussianavatars_torch.training import innovations as inn
+    from gaussianavatars_torch.training.loop import _flame_params
+    from gaussianavatars_torch.training.optim import tree_leaves, tree_map
+    from gaussianavatars_torch.training.trainer import init_train_state, make_train_step
+
+    cfg_off, gt, bg, state_off = setup
+    o = dataclasses.replace(cfg_off.opt, use_region_adaptive_loss=True,
+                            use_color_calibration=True, use_contrastive_reg=True)
+    cfg_on = Config(model=cfg_off.model, pipeline=cfg_off.pipeline, opt=o)
+    state_on = init_train_state(
+        params, aux, cfg_on, num_timesteps=TRAIN_TIMESTEPS,
+        n_expr=state_off.flame.expr.shape[1], n_shape=state_off.flame_static.shape.shape[0],
+        num_verts=model.num_verts, generator=torch.Generator().manual_seed(13),
+        image_hw=(cam.height, cam.width))
+    step_on = make_train_step(model, cfg_on, tile_cfg)
+    step_off = make_train_step(model, cfg_off, tile_cfg)
+    # One step fills the cache, so the compared step has a contrastive term.
+    state1 = step_on(state_on, gt, cam, 0, bg, 3).state
+    out_k = step_on(state1, gt, cam, 1, bg, 3)
+    rs.bwd_call_pairs = cp.bwd_call_pairs_reference
+    try:
+        out_r = step_on(state1, gt, cam, 1, bg, 3)
+    finally:
+        rs.bwd_call_pairs = cp.bwd_call_pairs
+    grad_err = {**leaf_errors(out_k.state.adam.mu, out_r.state.adam.mu),
+                **{f"flame.{k}": v for k, v in
+                   leaf_errors(out_k.state.flame_adam.mu, out_r.state.flame_adam.mu).items()},
+                **{f"color_net.{i}": rel_err(a, b) for i, (a, b) in enumerate(zip(
+                    tree_leaves(out_k.state.color_adam.mu),
+                    tree_leaves(out_r.state.color_adam.mu)))}}
+    terms = {k: float(out_k.metrics[k]) for k in ("l1", "ssim", "color_reg", "contrastive")}
+    log("innovations/kernel_vs_plain_gradients", rel_err_per_leaf=grad_err, loss_terms=terms)
+    if not (max(grad_err.values()) <= 1e-4 and terms["contrastive"] > 0):
+        raise AssertionError(f"innovation step: gradients differ with the plain backward: "
+                             f"{grad_err}, {terms}")
+
+    # The innovations' functions on the card against the CPU, same inputs.
+    vids = {k: model.vid_by_region([k]) for k in ("eyes_left", "eyes_right", "mouth", "nose")}
+    with torch.no_grad():
+        verts = model(_flame_params(state1, 1))[0]
+        wmap = inn.flame_region_weight_map(verts, vids, cam, cam.height, cam.width,
+                                           o.region_weight_eyes, o.region_weight_mouth,
+                                           o.region_weight_nose)
+        wmap_cpu = inn.flame_region_weight_map(verts.cpu(), vids, cpu_camera(cam), cam.height,
+                                               cam.width, o.region_weight_eyes,
+                                               o.region_weight_mouth, o.region_weight_nose)
+        net_cpu = tree_map(lambda x: x.cpu(), state1.color_net)
+        cal = inn.color_net_apply(state1.color_net, gt)
+        cal_cpu = inn.color_net_apply(net_cpu, gt.cpu())
+        cache_cpu = tree_map(lambda x: x.cpu(), state1.contrastive)
+        d = o.contrastive_downsample
+        thumb = inn._downsample(out_k.image, d)
+        thumb_cpu = inn._downsample(out_k.image.cpu(), d)
+        closs = inn.contrastive_loss(state1.contrastive, out_k.image, d)
+        closs_cpu = inn.contrastive_loss(cache_cpu, out_k.image.cpu(), d)
+    # The loss is mean(1 − cos) with cos near 1: the difference scales the
+    # cosines' rounding by 1 / loss. The cosines' mean (1 − loss) is held to
+    # rtol 1e-5; the loss's own relative difference is logged.
+    on_card = dict(region_map_equal=bool(torch.equal(wmap.cpu(), wmap_cpu)),
+                   weighted_pixels={str(w): int((wmap_cpu == w).sum())
+                                    for w in torch.unique(wmap_cpu).tolist()},
+                   region_vertices={k: len(v) for k, v in vids.items()},
+                   color_net_rel_err=rel_err(cal, cal_cpu),
+                   thumbnail_rel_err=rel_err(thumb, thumb_cpu),
+                   contrastive_loss=float(closs_cpu),
+                   contrastive_cosine_rel_err=rel_err(1.0 - closs, 1.0 - closs_cpu),
+                   contrastive_loss_rel_diff=rel_err(closs, closs_cpu))
+    log("innovations/card_vs_cpu", **on_card)
+    if not (on_card["region_map_equal"] and float(wmap_cpu.max()) > 1.0
+            and on_card["color_net_rel_err"] <= 1e-5 and on_card["thumbnail_rel_err"] <= 1e-5
+            and on_card["contrastive_cosine_rel_err"] <= 1e-5):
+        raise AssertionError(f"innovations on the card differ from the CPU: {on_card}")
+
+    # Host synchronisations of one step in each mode.
+    syncs = {"off": sync_count(lambda: step_off(state_off, gt, cam, 1, bg, 3)),
+             "on": sync_count(lambda: step_on(state1, gt, cam, 1, bg, 3))}
+
+    # Steps/s in alternating blocks (off, on, on, off), each mode continuing
+    # its own state; each block's peak memory over the same live set.
+    states = {False: state_off, True: state1}
+    block_s = {False: [], True: []}
+    block_peak = {False: 0.0, True: 0.0}
+    reset_launches()
+    for on in (False, True, True, False):
+        st, step = states[on], (step_on if on else step_off)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(N_INNOV_BLOCK):
+            st = step(st, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+        torch.cuda.synchronize()
+        block_s[on].append(time.perf_counter() - t0)
+        block_peak[on] = max(block_peak[on], torch.cuda.max_memory_allocated() / 2**20)
+        states[on] = st
+    launches = dict(cp.LAUNCHES)
+    n = 4 * N_INNOV_BLOCK
+    if {k: v for k, v in launches.items() if v} != {"composite_pairs_fwd": n,
+                                                    "composite_pairs_bwd": n}:
+        raise AssertionError(f"innovation blocks: launches {launches} for {n} steps")
+    if not (all(bool(torch.isfinite(x).all()) for x in tree_leaves(states[True].color_net))
+            and all_finite(states[True].params)):
+        raise AssertionError("innovation blocks: non-finite state")
+    rate = {on: N_INNOV_BLOCK * len(b) / sum(b) for on, b in block_s.items()}
+    prof = {"off": profile_train(step_off, states[False], gt, cam, bg, rate[False]),
+            "on": profile_train(step_on, states[True], gt, cam, bg, rate[True])}
+    res = dict(card=card["nvidia_smi"], resolution=f"{cam.width}x{cam.height}",
+               alternating_steps_per_s={"off": rate[False], "on": rate[True]},
+               alternating_block_ms_per_step={
+                   "off": [1e3 * b / N_INNOV_BLOCK for b in block_s[False]],
+                   "on": [1e3 * b / N_INNOV_BLOCK for b in block_s[True]]},
+               peak_mem_mib={"off": block_peak[False], "on": block_peak[True]},
+               syncs_per_step=syncs, profile=prof)
+    log("innovations/step_numbers", **res)
+    if syncs["on"] != syncs["off"]:
+        raise AssertionError(f"the innovations add host synchronisations: {syncs}")
+    return dict(launches=launches)
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -2145,10 +2465,19 @@ def main(argv=None) -> int:
     log("replay/seconds", seconds=time.perf_counter() - t0)
     del harness
 
+    # --- 15. the training innovations -------------------------------------------
+    t0 = time.perf_counter()
+    torch.set_grad_enabled(True)
+    innov_loop = innovations_run(card)
+    innov_step = innovations_step(card, model, params, aux, cam, cfg, setup)
+    log("innovations/seconds", seconds=time.perf_counter() - t0)
+
     # Launches per entry point over the main paths: serving, training,
-    # the A/B (float32 and amp), amp training, the loop and the replay.
+    # the A/B (float32 and amp), amp training, the loop, the replay and
+    # the innovations' loop and step.
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
-                loop_res["launches"], replay_launches):
+                loop_res["launches"], replay_launches, innov_loop["launches"],
+                innov_step["launches"]):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)

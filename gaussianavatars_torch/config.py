@@ -6,13 +6,10 @@ reference's argparse groups, `arguments/__init__.py:47-144`), as frozen
 dataclasses, serialisable to and from JSON (`cfg_args.json`). Here are the
 model and dataset knobs (`ModelConfig`, without the JAX package's
 `data_device`), the tile geometry and tier budgets (`PipelineConfig`), the
-training step's learning rates, loss weights and regularisers, and the
-host loop's schedule (iterations, densification, opacity resets). The
-innovations' flags are here so that a configuration naming one is
-rejected, not silently ignored: `make_train_step` raises on the three it
-does not run, `training.loop.build_harness` on smart densification and
-progressive resolution. Their own settings and the device mesh come with
-those parts.
+training step's learning rates, loss weights and regularisers, the
+host loop's schedule (iterations, densification, opacity resets), and the
+five training innovations' flags and settings. The device mesh
+(`ParallelConfig`) is not ported.
 """
 from __future__ import annotations
 
@@ -103,17 +100,32 @@ class OptimizationConfig:
     # bf16 blur operands (float32 accumulation in both).
     use_amp: bool = False
 
-    # Not ported: `make_train_step` raises when any of these is set.
+    # The five training innovations (`training/innovations.py`).
+    # 1: region-adaptive loss.
     use_region_adaptive_loss: bool = False
-    use_color_calibration: bool = False
-    use_contrastive_reg: bool = False
-    # Not ported: `training.loop.build_harness` raises when either is set.
+    region_weight_eyes: float = 2.0
+    region_weight_mouth: float = 2.0
+    region_weight_nose: float = 1.5
+    region_weight_face: float = 1.2
+    # 2: smart densification.
     use_smart_densification: bool = False
     densify_percentile_clone: float = 75.0
     densify_percentile_split: float = 90.0
+    # 3: progressive resolution.
     use_progressive_resolution: bool = False
     resolution_schedule: Tuple[float, ...] = (0.5, 0.75, 1.0)
     resolution_milestones: Tuple[int, ...] = (100_000, 300_000)
+    # 4: colour calibration network.
+    use_color_calibration: bool = False
+    color_net_hidden_dim: int = 16
+    color_net_layers: int = 3
+    color_net_lr: float = 1e-3      # reference: Adam(lr=1e-3), train.py:94
+    lambda_color_reg: float = 1e-4
+    # 5: contrastive regularisation.
+    use_contrastive_reg: bool = False
+    lambda_contrastive: float = 0.01
+    contrastive_cache_size: int = 2
+    contrastive_downsample: int = 8
 
 
 @dataclasses.dataclass(frozen=True)

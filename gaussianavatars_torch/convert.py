@@ -7,7 +7,7 @@ numpy arrays keyed by field name.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ from .metrics.lpips import LpipsParams, params_from_hwio
 from .models.flame.assets import FlameAssets
 from .models.flame.flame_model import FlameParams
 from .models.gaussians import GaussianAux, GaussianParams
+from .training.innovations import ColorNetParams, ContrastiveCache
 from .training.optim import AdamState
 from .training.trainer import FlameStatic, FlameTrainable, TrainState
 
@@ -82,22 +83,54 @@ def _flame_trainable(d: Mapping[str, np.ndarray], dev) -> FlameTrainable:
     })
 
 
+def _adam_state(d: Mapping, like, dev) -> AdamState:
+    return AdamState(mu=like(d["mu"]), nu=like(d["nu"]), step=_tensor(d["step"], dev, torch.int32))
+
+
+def color_net_from_numpy(d: Mapping, device="cuda") -> ColorNetParams:
+    """The colour net from {"weights": [[in, out], ...], "biases": [[out], ...]}
+    (the JAX package's `ColorNetParams` leaves, the same layout)."""
+    dev = resolve_device(device)
+    return ColorNetParams(weights=tuple(_tensor(w, dev, torch.float32) for w in d["weights"]),
+                          biases=tuple(_tensor(b, dev, torch.float32) for b in d["biases"]))
+
+
+def color_adam_from_numpy(d: Mapping, device="cuda") -> AdamState:
+    """The colour net's Adam state from {"mu": {...}, "nu": {...}, "step"}
+    with the moments as `color_net_from_numpy` takes them."""
+    dev = resolve_device(device)
+    return _adam_state(d, lambda m: color_net_from_numpy(m, device=dev), dev)
+
+
+def contrastive_from_numpy(d: Mapping, device="cuda") -> ContrastiveCache:
+    """The contrastive cache from {"images": [cache, d, d, 3], "count",
+    "head"} (int32 scalars)."""
+    dev = resolve_device(device)
+    return ContrastiveCache(images=_tensor(d["images"], dev, torch.float32),
+                            count=_tensor(d["count"], dev, torch.int32),
+                            head=_tensor(d["head"], dev, torch.int32))
+
+
 def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, np.ndarray],
                            adam: Mapping, flame: Mapping[str, np.ndarray],
                            flame_static: Mapping[str, np.ndarray], flame_adam: Mapping,
+                           color_net: Optional[Mapping] = None,
+                           color_adam: Optional[Mapping] = None,
+                           contrastive: Optional[Mapping] = None,
                            device="cuda") -> TrainState:
     """TrainState from arrays keyed by field name.
 
     `adam` and `flame_adam` are {"mu": {...}, "nu": {...}, "step": int}
     with the moments keyed like `params` and `flame`; fields that are None
-    (or missing) in `flame`/`flame_static` stay None.
+    (or missing) in `flame`/`flame_static` stay None. The innovations'
+    leaves, when given, as `color_net_from_numpy`, `color_adam_from_numpy`
+    and `contrastive_from_numpy` take them.
     """
     dev = resolve_device(device)
     p, a = gaussian_state_from_numpy(params, aux, device=dev)
 
     def adam_state(d, like):
-        return AdamState(mu=like(d["mu"]), nu=like(d["nu"]),
-                         step=_tensor(d["step"], dev, torch.int32))
+        return _adam_state(d, like, dev)
 
     def gauss(d):
         return gaussian_state_from_numpy(d, aux, device=dev)[0]
@@ -110,6 +143,10 @@ def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, n
                                  static_offset=None if so is None
                                  else _tensor(so, dev, torch.float32)),
         flame_adam=adam_state(flame_adam, lambda d: _flame_trainable(d, dev)),
+        color_net=None if color_net is None else color_net_from_numpy(color_net, device=dev),
+        color_adam=None if color_adam is None else color_adam_from_numpy(color_adam, device=dev),
+        contrastive=None if contrastive is None else contrastive_from_numpy(contrastive,
+                                                                            device=dev),
     )
 
 

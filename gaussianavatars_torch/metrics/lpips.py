@@ -26,7 +26,9 @@ serves both packages, and transposed to OIHW once, at load:
     (`$GSAVATARS_LPIPS_WEIGHTS`);
   * `synthetic_lpips_params(generator, net_type)` — random but fixed
     weights, so tests and smoke runs drive the same graph without the
-    artifacts. Their values say nothing of image quality.
+    artifacts (`python -m gaussianavatars_torch.metrics.lpips OUT.npz`
+    writes them as a weights file). Their values say nothing of image
+    quality.
 
 The convolutions run in float32 (TF32 off) on every device, and the metric
 is differentiable.
@@ -240,3 +242,25 @@ def maybe_load_default(device="cuda") -> Optional[LpipsParams]:
     if path and os.path.exists(path):
         return load_lpips_weights(path, device=device)
     return None
+
+
+def main(argv=None) -> str:
+    """Write `synthetic_lpips_params` to a weights file, for smoke runs
+    that score LPIPS without the licensed weights:
+
+        python -m gaussianavatars_torch.metrics.lpips OUT.npz [--net vgg] [--seed 0]
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(description="write synthetic LPIPS weights")
+    p.add_argument("out_npz")
+    p.add_argument("--net", default="vgg", choices=("vgg", "alex"))
+    p.add_argument("--seed", type=int, default=0)
+    a = p.parse_args(argv)
+    os.makedirs(os.path.dirname(a.out_npz) or ".", exist_ok=True)
+    return save_lpips_weights(synthetic_lpips_params(torch.Generator().manual_seed(a.seed),
+                                                     a.net, device="cpu"), a.out_npz)
+
+
+if __name__ == "__main__":
+    print(main())

@@ -121,13 +121,16 @@ def densify_and_prune(
     frames: Optional[FaceFrames] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    clone_threshold: Optional[torch.Tensor] = None,
+    split_threshold: Optional[torch.Tensor] = None,
 ):
     """One densify+prune event. Returns (params, aux, mu, nu, report).
 
     The split's unit normals: `noise` ([cap, 3] each, on the parameters'
     device) when given, else two draws from `generator` (a CPU generator;
-    None: the global one). Smart densification's per-Gaussian thresholds
-    are not ported (`training.loop.build_harness` raises on them).
+    None: the global one). `clone_threshold`/`split_threshold` (tensors,
+    0-dim or per Gaussian: smart densification's, innovation 2) replace
+    the scalar `cfg.grad_threshold` for the clone and the split.
     """
     cap = params.capacity
     dev = params.means.device
@@ -137,9 +140,11 @@ def densify_and_prune(
     grads = torch.nan_to_num(grads)
     max_wscale = torch.amax(world_scale_of(params, aux, frames), dim=1)
     small = cfg.percent_dense * extent
+    thr_c = cfg.grad_threshold if clone_threshold is None else clone_threshold
+    thr_s = cfg.grad_threshold if split_threshold is None else split_threshold
 
     # ---------------- clone ----------------
-    sel_clone = aux.alive & (grads >= cfg.grad_threshold) & (max_wscale <= small)
+    sel_clone = aux.alive & (grads >= thr_c) & (max_wscale <= small)
     src = _padded_nonzero(sel_clone)
     dst = _padded_nonzero(~aux.alive)
     valid = (src >= 0) & (dst >= 0)
@@ -155,7 +160,7 @@ def densify_and_prune(
 
     # ---------------- split ----------------
     # Cloned slots have zero accumulated grads, so they are never re-split.
-    sel_split = aux.alive & (grads >= cfg.grad_threshold) & (max_wscale > small)
+    sel_split = aux.alive & (grads >= thr_s) & (max_wscale > small)
     src_s = _padded_nonzero(sel_split)
     dst_s = _padded_nonzero(~aux.alive)
     valid_s = (src_s >= 0) & (dst_s >= 0)

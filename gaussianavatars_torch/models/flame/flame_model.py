@@ -221,8 +221,8 @@ class FlameModel(nn.Module):
     def vid_by_region(self, regions: list[str]) -> np.ndarray:
         """Sorted unique vertex ids of the union of the named regions; ids
         beyond this topology's vertex count (region tables are FLAME-5023
-        data) are dropped. No caller in the port yet: the region-adaptive
-        loss that uses it raises in `make_train_step` until it is ported."""
+        data) are dropped. The region-adaptive loss of `make_train_step`
+        builds its region tables with it."""
         out = [self.assets.vertex_masks[r] for r in regions if r in self.assets.vertex_masks]
         if not out:
             return np.zeros((0,), np.int32)

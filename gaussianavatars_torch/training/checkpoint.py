@@ -5,13 +5,15 @@ The port of the JAX package's `training/checkpoint.py` (the reference's
 `torch.save((gaussians.capture(), iteration))` → `chkpnt{iter}.pth`,
 `train.py:287-289`): the whole `TrainState` — Gaussian parameters, alive
 and binding masks, densification statistics, the Adam moments of the
-Gaussians and of FLAME — flattened by key path into one `.npz`, with the
-JAX package's key-path names (`params/means`, `adam/mu/means`,
-`adam/step`, `flame/expr`, `flame_static/shape`, …), so that a checkpoint
+Gaussians and of FLAME, and with the innovations the colour net, its Adam
+moments and the contrastive cache — flattened by key path into one
+`.npz`, with the JAX package's key-path names (`params/means`,
+`adam/mu/means`, `adam/step`, `flame/expr`, `flame_static/shape`,
+`color_net/weights/0`, `color_adam/mu/biases/2`, `color_adam/step`,
+`contrastive/images`, `contrastive/count`, …), so that a checkpoint
 written by either package loads into the other.
 
-Leaves of the JAX state that the port does not have (`key`, `color_net`,
-`color_adam`, `contrastive`) are skipped on load. The port's random
+The JAX state's PRNG `key` is skipped on load. The port's random
 generator is saved under `__torch_generator__`; for the JAX loader, which
 expects every leaf of its template, the port also writes `key`: the raw
 bits of JAX's default PRNG key for the generator's seed, `[0, seed]`.
@@ -33,11 +35,14 @@ ITERATION_KEY = "__iteration__"
 
 
 def _children(obj):
-    """(name, child) of a dataclass or NamedTuple, None children left out."""
+    """(name, child) of a dataclass, a NamedTuple or a tuple (named by
+    index, as JAX names a sequence's leaves), None children left out."""
     if dataclasses.is_dataclass(obj):
         items = [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
-    else:
+    elif hasattr(obj, "_asdict"):
         items = list(obj._asdict().items())
+    else:
+        items = [(str(i), x) for i, x in enumerate(obj)]
     return [(k, v) for k, v in items if v is not None and not isinstance(v, torch.Generator)]
 
 
@@ -63,7 +68,9 @@ def _rebuild(obj, prefix, leaves):
            for name, child in _children(obj)}
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **new)
-    return obj._replace(**new)
+    if hasattr(obj, "_replace"):
+        return obj._replace(**new)
+    return tuple(new[str(i)] for i in range(len(obj)))
 
 
 def save_train_state(path: str, state, iteration: int) -> None:

@@ -10,7 +10,13 @@ The port of the JAX package's `training/loop.py` (the reference training script,
   * opacity reset every `opacity_reset_interval`,
   * eval reports (`training_report`, `train.py:313-394`: PSNR, SSIM, and
     LPIPS when `$GSAVATARS_LPIPS_WEIGHTS` names a weights file), PLY saves
-    and full resume checkpoints (`train.py:287-289`).
+    and full resume checkpoints (`train.py:287-289`),
+
+and the host side of the innovations: progressive resolution (the scale
+of each iteration from `innovations.resolution_scale_at`, one ground-truth
+cache and sampler per scale, the scales that cannot recur evicted), smart
+densification's thresholds at each densify event, and the colour net in
+`make_render_fn`, so that eval scores the calibrated image.
 
 The loop owns host-side state (the ground-truth cache, the sampler, logs);
 everything numeric is in the `TrainState` on the device. The step's
@@ -19,11 +25,10 @@ at the log cadence: an iteration that does not log makes no host read of
 a device value beyond what the step itself does.
 
 Not ported, each named in `ROADMAP.md`: `train_sharded` (multi-device),
-the TensorBoard writer, the GUI service, `debug_from`, progressive
-resolution and smart densification (`build_harness` raises on both), the
-colour net in `make_render_fn`, unbound (point-cloud) training (an unbound
-model is rendered, not trained), and the JAX loop's fused chunks of steps
-(`steps_per_call`): the port runs one step per iteration.
+the TensorBoard writer, the GUI service, `debug_from`, unbound
+(point-cloud) training (an unbound model is rendered, not trained), and
+the JAX loop's fused chunks of steps (`steps_per_call`): the port runs
+one step per iteration.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from ..ops.rasterize_tiled import TileConfig, render_tiled
 from ..ops.sort_binning import grow_tiers
 from ..render import probe_tile_config
 from .checkpoint import load_train_state, save_train_state
+from .innovations import color_net_apply, resolution_scale_at, smart_thresholds
 from .loss import psnr as psnr_fn, ssim as ssim_fn
 from .trainer import TrainState, active_sh_degree, init_train_state, make_train_step
 
@@ -126,13 +132,20 @@ class TrainerHarness:
     # Every host event: {"kind", "iteration", "ms" (host milliseconds), and
     # what it reported (the densify counts, the eval metrics, ...)}.
     events: List[dict] = dataclasses.field(default_factory=list)
+    # Training steps taken at each image size (height, width): host counts.
+    steps_by_size: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+
+
+def image_scales(cfg: Config) -> tuple:
+    """The image-scale factors a run trains at, largest first: the
+    progressive schedule's, else (1.0,)."""
+    o = cfg.opt
+    if o.use_progressive_resolution:
+        return tuple(sorted(set(o.resolution_schedule), reverse=True))
+    return (1.0,)
 
 
 def _check_supported(cfg: Config) -> None:
-    o = cfg.opt
-    for flag in ("use_smart_densification", "use_progressive_resolution"):
-        if getattr(o, flag):
-            raise NotImplementedError(f"training.loop: {flag} is not ported")
     if not cfg.model.bind_to_mesh:
         raise NotImplementedError("training.loop: unbound training (init_from_points) is "
                                   "not ported")
@@ -159,6 +172,9 @@ def build_harness(
         white_background=m.white_background, eval_split=m.eval,
         target_path=m.target_path, select_camera_id=m.select_camera_id,
         num_verts_hint=model.num_verts, device=dev,
+        # The schedule's image-scale factors (< 1: smaller); Scene takes
+        # divisors.
+        resolution_scales=tuple(1.0 / s for s in image_scales(cfg)),
     )
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     params, aux = init_bound(model.num_faces, capacity=m.capacity, generator=gen, device=dev)
@@ -219,10 +235,8 @@ def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
     """Full-forward render for eval and offline use: render(state, camera,
     timestep, bg, sh_degree) → image [H, W, 3]. `model=None` renders the
     stored Gaussians as they are (an unbound point cloud; `timestep` is
-    ignored). The colour net is not ported: a configuration with it
-    raises."""
-    if cfg.opt.use_color_calibration:
-        raise NotImplementedError("make_render_fn: the colour net is not ported")
+    ignored). A state with a colour net gets the calibrated image, as in
+    the JAX package; a render-only state (`tools/render`) has none."""
 
     @torch.no_grad()
     def render(state: TrainState, camera: Camera, timestep: int, bg: torch.Tensor,
@@ -232,8 +246,11 @@ def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
             verts = model(_flame_params(state, int(timestep)))
             frames = face_frames(verts[0], model.faces)
         wg = world_gaussians(state.params, state.aux, frames)
-        return render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
-                            sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg).color
+        img = render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
+                           sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg).color
+        if state.color_net is not None:
+            img = color_net_apply(state.color_net, img)
+        return img
 
     return render
 
@@ -291,15 +308,24 @@ def densify_event(harness: TrainerHarness, iteration: int) -> dict:
         min_opacity=0.005,
         max_screen_size=20.0 if iteration > o.opacity_reset_interval else 0.0,
     )
+    clone_thr = split_thr = None
+    if o.use_smart_densification:
+        clone_thr, split_thr = smart_thresholds(
+            state.aux.grad_accum, state.aux.denom, o.densify_grad_threshold,
+            o.densify_percentile_clone, o.densify_percentile_split)
     with torch.no_grad():
         frames = face_frames(model(_flame_params(state, 0))[0], model.faces)
     params, aux, mu, nu, report = densify_and_prune(
         state.params, state.aux, state.adam.mu, state.adam.nu,
         extent=harness.spatial_lr_scale, cfg=dcfg, frames=frames, generator=state.generator,
+        clone_threshold=clone_thr, split_threshold=split_thr,
     )
     harness.state = dataclasses.replace(state, params=params, aux=aux,
                                         adam=state.adam._replace(mu=mu, nu=nu))
-    return {k: int(v) for k, v in report._asdict().items()}
+    out = {k: int(v) for k, v in report._asdict().items()}
+    if clone_thr is not None:
+        out.update(clone_threshold=float(clone_thr), split_threshold=float(split_thr))
+    return out
 
 
 def grow_gauss_capacity_event(harness: TrainerHarness, factor: int = 2) -> int:
@@ -432,7 +458,13 @@ def train(
 
     The ground truth comes from a device cache of every training view
     (uint8) when it fits in `device_cache_bytes`, else from a threaded
-    prefetcher. `gui_service` and `debug_from` are not ported and raise."""
+    prefetcher; one per image scale under progressive resolution, built
+    when its scale first runs and dropped once it cannot recur (the JAX
+    loop's eviction, `loop.py:759-777`). The tier budgets are probed at
+    scale 1.0. A log record also holds the iteration's
+    `resolution_scale` and the scales whose caches are held
+    (`cached_scales`). `gui_service` and `debug_from` are not ported and
+    raise."""
     if gui_service is not None:
         raise NotImplementedError("train: the GUI service is not ported")
     if debug_from >= 0:
@@ -442,14 +474,41 @@ def train(
     iterations = iterations if iterations is not None else o.iterations
     dev = scene.device
     tcfg = tile_config(cfg)
-    cams_all = scene.cameras("train")
     recs = scene.records("train")
-    if cams_all:
-        tcfg = probe_tier_budgets(tcfg, cfg, model, harness.state, cams_all[0])
+    if recs:
+        tcfg = probe_tier_budgets(tcfg, cfg, model, harness.state, scene.cameras("train")[0])
     bg = _background(cfg, dev)
 
     step = None
-    source = sampler = None
+    # Per image divisor (1 / scale): the GT source and its sampler.
+    sources: Dict[float, object] = {}
+    samplers: Dict[float, object] = {}
+
+    def source_for(div: float, it: int):
+        if div not in sources:
+            cams = scene.cameras("train", div)
+            try:
+                sources[div] = _timed(harness, "gt_cache", it, lambda: DeviceGtCache(
+                    recs, cams, dev, max_bytes=device_cache_bytes), views=len(recs),
+                    scale=1.0 / div)
+                samplers[div] = iter(EpochSampler(len(recs), seed))
+            except MemoryError:
+                sources[div] = Prefetcher(recs, cams, dev, seed=seed, workers=prefetch_workers)
+                samplers[div] = None
+        return sources[div], samplers[div], scene.cameras("train", div)
+
+    def evict_past(it: int) -> None:
+        """Drop the sources of scales that cannot recur after `it`."""
+        seg = sum(1 for m in o.resolution_milestones if it >= m)
+        future = {1.0 / s for s in o.resolution_schedule[seg:]}
+        for d in [k for k in sources if k not in future]:
+            src = sources.pop(d)
+            samplers.pop(d)
+            if isinstance(src, Prefetcher):
+                src.close()
+            harness.events.append({"kind": "evict_scale", "iteration": it, "ms": 0.0,
+                                   "scale": 1.0 / d})
+
     render_fn = make_render_fn(model, cfg, tcfg)
     logs: List[dict] = []
     ema = None
@@ -465,13 +524,11 @@ def train(
         while it <= iterations:
             if step is None:
                 step = make_train_step(model, cfg, tcfg, spatial_lr_scale=harness.spatial_lr_scale)
-            if source is None:
-                try:
-                    source = _timed(harness, "gt_cache", it, lambda: DeviceGtCache(
-                        recs, cams_all, dev, max_bytes=device_cache_bytes), views=len(recs))
-                    sampler = iter(EpochSampler(len(recs), seed))
-                except MemoryError:
-                    source = Prefetcher(recs, cams_all, dev, seed=seed, workers=prefetch_workers)
+            scale = 1.0
+            if o.use_progressive_resolution:
+                scale = resolution_scale_at(it, o.resolution_schedule, o.resolution_milestones)
+                evict_past(it)
+            source, sampler, cams_all = source_for(1.0 / scale, it)
             sh_deg = active_sh_degree(it, cfg.model.sh_degree)
             if sampler is not None:
                 v = next(sampler)
@@ -480,6 +537,8 @@ def train(
                 views, gt = source.next()
                 v, gt0 = views[0], gt[0]
             cam = cams_all[v]
+            size = (cam.height, cam.width)
+            harness.steps_by_size[size] = harness.steps_by_size.get(size, 0) + 1
             out = step(harness.state, gt0, cam, cam.timestep, bg, sh_deg)
             harness.state = out.state
             metrics = out.metrics
@@ -512,6 +571,8 @@ def train(
                     "psnr": float(metrics["psnr"]),
                     "num_points": int(num_alive(harness.state.aux)),
                     "budget_overflow": budget_overflow_seen,
+                    "resolution_scale": scale,
+                    "cached_scales": sorted(1.0 / d for d in sources),
                     "elapsed_s": time.time() - t0,
                 }
                 logs.append(rec)
@@ -527,6 +588,7 @@ def train(
             )
             it += 1
     finally:
-        if isinstance(source, Prefetcher):
-            source.close()
+        for src in sources.values():
+            if isinstance(src, Prefetcher):
+                src.close()
     return logs

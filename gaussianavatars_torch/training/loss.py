@@ -30,15 +30,13 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """Mean squared error. No caller in the port yet: kept for parity with
-    the JAX package until the innovations are ported."""
+    """Mean squared error. No caller, in the port as in the JAX package:
+    kept for parity with it."""
     return torch.mean((pred - target) ** 2)
 
 
 def weighted_l1_loss(pred, target, weight) -> torch.Tensor:
-    """Σ w·|pred − gt| / Σ w (innovation 1, `region_adaptive_loss.py:107-110`).
-    No caller in the port yet: the region-adaptive loss raises in
-    `make_train_step` until it is ported."""
+    """Σ w·|pred − gt| / Σ w (innovation 1, `region_adaptive_loss.py:107-110`)."""
     diff = torch.abs(pred - target)
     return torch.sum(weight * diff) / torch.clamp_min(torch.sum(weight) * diff.shape[-1], 1e-8)
 

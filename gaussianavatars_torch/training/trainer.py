@@ -18,10 +18,18 @@ backward of [*screen, reg_total] with [*g_screen, 1] takes the image and
 regulariser gradients into the Gaussian parameters and the FLAME leaves
 together, and per-group Adam (the exponential xyz schedule included)
 updates both. `use_amp` runs the compositor's backward with its bf16
-contraction and SSIM's blurs on bf16 operands, as the JAX step does. The
-innovations and the padded-table pipeline are not ported: their flags
-raise. Each stage is a `torch.profiler` range
-(`train/*`), so a profile splits the step's device time by stage.
+contraction and SSIM's blurs on bf16 operands, as the JAX step does.
+
+The step-level innovations (`training/innovations.py`) sit in the image
+stage, as in the JAX step: the colour net calibrates the rasterised image
+(whose gradient drives the net's own Adam), the region-adaptive L1 weighs
+it by the FLAME region map of the detached posed vertices, and the
+colour-net and contrastive terms join the loss; the contrastive cache
+takes the detached calibrated image after the step. The padded-table
+pipeline and unbound training are not ported: they raise. Each stage is a
+`torch.profiler` range (`train/*`; the innovations' `train/region_map`,
+`train/color_net` and `train/contrastive` inside `train/image_fwd`), so
+a profile splits the step's device time by stage.
 """
 from __future__ import annotations
 
@@ -40,8 +48,9 @@ from ..models.gaussians import GaussianAux, GaussianParams, world_gaussians
 from ..ops.projection import project_from_params
 from ..ops.rasterize_sorted import rasterize_sorted
 from ..ops.rasterize_tiled import TileConfig, view_colors
-from .loss import l1_loss, psnr, safe_norm, ssim
-from .optim import AdamState, adam_init, adam_update, expon_lr
+from . import innovations as inn
+from .loss import l1_loss, psnr, safe_norm, ssim, weighted_l1_loss
+from .optim import AdamState, adam_init, adam_update, expon_lr, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -74,8 +83,14 @@ class TrainState:
     flame: FlameTrainable
     flame_static: FlameStatic
     flame_adam: AdamState
-    # The host loop's random draws (the densify split's normals): a CPU
-    # generator, where the JAX state carries a PRNG key.
+    # Innovations 4 and 5: None when off (the contrastive cache also when
+    # `init_train_state` had no image size).
+    color_net: Optional[inn.ColorNetParams] = None
+    color_adam: Optional[AdamState] = None
+    contrastive: Optional[inn.ContrastiveCache] = None
+    # The host loop's random draws (the colour net's initial weights, the
+    # densify split's normals): a CPU generator, where the JAX state
+    # carries a PRNG key.
     generator: Optional[torch.Generator] = None
 
 
@@ -91,10 +106,12 @@ def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
                      generator: Optional[torch.Generator] = None,
                      image_hw: Optional[tuple] = None) -> TrainState:
     """Fresh Adam moments and FLAME leaves (zeros, or `flame_init`'s tensors)
-    on the device of `params`. `generator` (default: a CPU generator seeded
+    on the device of `params`; the colour net (weights drawn from
+    `generator`) and its Adam moments with `use_color_calibration`; the
+    contrastive cache with `use_contrastive_reg` when `image_hw` is given,
+    as in the JAX package. `generator` (default: a CPU generator seeded
     with 0, as the JAX package defaults to PRNGKey(0)) is carried in the
-    state for the loop's draws. `image_hw` is taken for the JAX signature;
-    only the contrastive cache, which is not ported, reads it there."""
+    state for the loop's draws."""
     dev = params.means.device
     fi = flame_init or {}
 
@@ -122,8 +139,18 @@ def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
     flame_static = FlameStatic(shape=get("shape", (n_shape,)), static_offset=static_offset)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    o = cfg.opt
+    color_net = color_adam = contrastive = None
+    if o.use_color_calibration:
+        color_net = inn.color_net_init(o.color_net_hidden_dim, o.color_net_layers,
+                                       generator=generator, device=dev)
+        color_adam = adam_init(color_net)
+    if o.use_contrastive_reg and image_hw is not None:
+        contrastive = inn.contrastive_init(o.contrastive_cache_size, image_hw[0], image_hw[1],
+                                           o.contrastive_downsample, device=dev)
     return TrainState(params=params, aux=aux, adam=adam_init(params), flame=flame,
                       flame_static=flame_static, flame_adam=adam_init(flame),
+                      color_net=color_net, color_adam=color_adam, contrastive=contrastive,
                       generator=generator)
 
 
@@ -152,31 +179,21 @@ def flame_lr_tree(cfg: Config, flame: Optional[FlameTrainable] = None) -> FlameT
 
 
 def _check_supported(model, cfg: Config) -> None:
-    o = cfg.opt
     if model is None:
         raise NotImplementedError("make_train_step: only the FLAME-bound step is ported")
     if not (cfg.pipeline.use_sorted and cfg.pipeline.use_pallas):
         raise NotImplementedError("make_train_step: only the sorted pipeline is ported")
-    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg"):
-        if getattr(o, flag):
-            raise NotImplementedError(f"make_train_step: {flag} is not ported")
 
 
-def _leaves(obj):
-    """A copy of a dataclass of tensors whose tensors are fresh leaves that
+def _leaves(tree):
+    """A copy of a tree of tensors whose tensors are fresh leaves that
     require grad (None fields stay None)."""
-    return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).detach().requires_grad_()
-        for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None
-    })
+    return tree_map(lambda x: x.detach().requires_grad_(), tree)
 
 
 def _grads(leaves):
     """The leaves' gradients, zeros where none reached a leaf."""
-    return dataclasses.replace(leaves, **{
-        f.name: (torch.zeros_like(x) if x.grad is None else x.grad)
-        for f in dataclasses.fields(leaves) for x in [getattr(leaves, f.name)] if x is not None
-    })
+    return tree_map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad, leaves)
 
 
 def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
@@ -190,6 +207,13 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
     _check_supported(model, cfg)
     o = cfg.opt
     faces = model.faces
+    # The region tables clipped to the model's vertex count
+    # (`vid_by_region`), as device index tensors built once.
+    region_idx = None
+    if o.use_region_adaptive_loss:
+        region_idx = inn.region_index_tensors(
+            {k: model.vid_by_region([k]) for k in ("eyes_left", "eyes_right", "mouth", "nose")
+             if k in model.assets.vertex_masks}, faces.device)
 
     def geometry(state: TrainState, params: GaussianParams, flame: FlameTrainable, ts: int,
                  camera: Camera, sh_degree: int):
@@ -238,18 +262,37 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
         if o.lambda_laplacian != 0:
             reg_terms["lap"] = model.laplacian_loss(verts, verts_cano) * o.lambda_laplacian
         reg_total = sum(reg_terms.values())
-        return screen, reg_total, proj, reg_terms
+        return screen, reg_total, proj, reg_terms, verts[0]
 
-    def image_loss(screen, proj, gt_image, camera, bg_color):
+    def image_loss(screen, color_net, proj, gt_image, camera, bg_color, verts_sg, contrastive):
         mean2d, conic, colors, opac = screen
+        h, w = camera.height, camera.width
         img, _alpha, plan = rasterize_sorted(
             proj._replace(mean2d=mean2d, conic=conic), colors, opac,
-            camera.height, camera.width, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
+            h, w, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
             tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
-        losses = {"l1": l1_loss(img, gt_image) * (1.0 - o.lambda_dssim)}
+        if color_net is not None:
+            with record_function("train/color_net"):
+                img = inn.color_net_apply(color_net, img)
+        if region_idx is not None:
+            with record_function("train/region_map"):
+                wmap = inn.flame_region_weight_map(
+                    verts_sg, region_idx, camera, h, w, o.region_weight_eyes,
+                    o.region_weight_mouth, o.region_weight_nose)
+            losses = {"l1": weighted_l1_loss(img, gt_image, wmap[..., None])
+                      * (1.0 - o.lambda_dssim)}
+        else:
+            losses = {"l1": l1_loss(img, gt_image) * (1.0 - o.lambda_dssim)}
         chw = img.permute(2, 0, 1)
         gt_chw = gt_image.permute(2, 0, 1)
         losses["ssim"] = (1.0 - ssim(chw, gt_chw, amp=o.use_amp)) * o.lambda_dssim
+        if color_net is not None and o.lambda_color_reg > 0:
+            losses["color_reg"] = inn.color_net_reg(color_net) * o.lambda_color_reg
+        if contrastive is not None and o.lambda_contrastive > 0:
+            with record_function("train/contrastive"):
+                losses["contrastive"] = (inn.contrastive_loss(contrastive, img,
+                                                              o.contrastive_downsample)
+                                         * o.lambda_contrastive)
         return sum(losses.values()), losses, img, plan
 
     def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep: int,
@@ -257,11 +300,13 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
         ts = int(timestep)
         params = _leaves(state.params)
         flame = _leaves(state.flame)
+        color = _leaves(state.color_net)
+        color_leaves = [] if color is None else tree_leaves(color)
 
         # ---- stage 1: geometry and regularisers, under autograd
         with torch.enable_grad():
             with record_function("train/geometry_fwd"):
-                screen, reg_total, proj, reg_terms = geometry(
+                screen, reg_total, proj, reg_terms, verts = geometry(
                     state, params, flame, ts, camera, sh_degree)
             proj_sg = proj._replace(**{k: v.detach() for k, v in proj._asdict().items()})
 
@@ -269,9 +314,11 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
             screen_in = [x.detach().requires_grad_() for x in screen]
             with record_function("train/image_fwd"):
                 img_total, loss_terms, img, plan = image_loss(
-                    screen_in, proj_sg, gt_image, camera, bg_color)
+                    screen_in, color, proj_sg, gt_image, camera, bg_color, verts.detach(),
+                    state.contrastive)
             with record_function("train/image_bwd"):
-                g_screen = torch.autograd.grad(img_total, screen_in)
+                g_all = torch.autograd.grad(img_total, screen_in + color_leaves)
+            g_screen, g_color = g_all[:4], iter(g_all[4:])
             # ∂loss/∂mean2d → densification statistics.
             with record_function("train/densify_stats"):
                 aux_new = add_densification_stats(state.aux, g_screen[0], proj_sg.radius,
@@ -289,7 +336,17 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
             new_flame, new_flame_adam = adam_update(state.flame, _grads(flame),
                                                     state.flame_adam,
                                                     flame_lr_tree(cfg, state.flame))
+            new_color, new_color_adam = state.color_net, state.color_adam
+            if color is not None:
+                new_color, new_color_adam = adam_update(
+                    state.color_net, tree_map(lambda _: next(g_color), color), state.color_adam,
+                    tree_map(lambda _: o.color_net_lr, color))
         img = img.detach()
+        new_contrastive = state.contrastive
+        if state.contrastive is not None:
+            with record_function("train/contrastive"):
+                new_contrastive = inn.contrastive_update(state.contrastive, img,
+                                                         o.contrastive_downsample)
         metrics = {
             "loss": (img_total + reg_total).detach(),
             "psnr": psnr(img, gt_image),
@@ -300,7 +357,8 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
         }
         new_state = TrainState(params=new_params, aux=aux_new, adam=new_adam, flame=new_flame,
                                flame_static=state.flame_static, flame_adam=new_flame_adam,
-                               generator=state.generator)
+                               color_net=new_color, color_adam=new_color_adam,
+                               contrastive=new_contrastive, generator=state.generator)
         return StepOutput(state=new_state, metrics=metrics, image=img)
 
     return train_step

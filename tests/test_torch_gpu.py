@@ -336,3 +336,31 @@ def test_train_synthetic_loop_on_the_card(cuda_device, tmp_path):
     model = tmp_path / "syn" / "model"
     for f in ("chkpnt425.npz", "chkpnt850.npz", "point_cloud/iteration_850/point_cloud.ply"):
         assert (model / f).exists(), f
+
+
+def test_adam_update_makes_no_host_sync(cuda_device):
+    """Adam's step on the card reads nothing back and copies nothing from
+    the host: its bias corrections are computed from the device step (a
+    base built from a Python number was a synchronising copy, two an
+    update, and so two a step more with the colour net's Adam)."""
+    import warnings
+
+    from gaussianavatars_torch.training import innovations as inn
+    from gaussianavatars_torch.training.optim import adam_init, adam_update, tree_map
+
+    net = inn.color_net_init(16, 3, generator=torch.Generator().manual_seed(0),
+                             device=cuda_device)
+    state = adam_init(net)
+    grads = tree_map(torch.ones_like, net)
+    lr = tree_map(lambda _: 1e-3, net)
+    adam_update(net, grads, state, lr)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            new, state = adam_update(net, grads, state, lr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    assert int(state.step) == 1 and not torch.equal(new.weights[0], net.weights[0])

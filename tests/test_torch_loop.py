@@ -263,26 +263,22 @@ def test_loop_artifacts_and_resume(short_runs, models, tmp_path):
     assert len(logs3) == 2 and np.isfinite(logs3[-1]["loss"])
     with pytest.raises(NotImplementedError):
         tloop.train(h3, iterations=3, debug_from=0)
-    for flag in ("use_smart_densification", "use_progressive_resolution"):
-        bad = dataclasses.replace(cfg, opt=dataclasses.replace(cfg.opt, **{flag: True}))
-        with pytest.raises(NotImplementedError, match=flag):
-            tloop.build_harness(bad, model=tmodel, device="cpu")
     with pytest.raises(NotImplementedError):
-        tloop.make_render_fn(tmodel, dataclasses.replace(cfg, opt=dataclasses.replace(
-            cfg.opt, use_color_calibration=True)), tloop.tile_config(cfg))
+        tloop.train(h3, iterations=3, gui_service=lambda it: False)
+    with pytest.raises(NotImplementedError, match="unbound"):
+        tloop.build_harness(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, bind_to_mesh=False)), model=tmodel, device="cpu")
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--quality"], NotImplementedError),
-    (["--all_innovations"], NotImplementedError),
     (["--no_pallas"], NotImplementedError),
     (["--cameras", "1"], SystemExit),
     (["--steps_per_call", "1"], SystemExit),
 ])
 def test_train_synthetic_rejects_what_is_not_ported(argv, error, tmp_path):
-    """`tools/train_synthetic` refuses the innovations, the table pipeline
-    and a lone camera before it writes anything, and has no
-    `--steps_per_call` (the port runs one step per iteration)."""
+    """`tools/train_synthetic` refuses the table pipeline and a lone
+    camera before it writes anything, and has no `--steps_per_call` (the
+    port runs one step per iteration)."""
     from gaussianavatars_torch.tools import train_synthetic
 
     with pytest.raises(error):

@@ -411,10 +411,6 @@ def test_unported_options_raise(avatar):
                             tfm.FlameConfig(fa.N_SHAPE, fa.N_EXPR, add_teeth=False),
                             device="cpu")
     tile = TileConfig(tile_h=TH, tile_w=TW)
-    for flag in ("use_region_adaptive_loss", "use_color_calibration", "use_contrastive_reg"):
-        cfg = tconfig.Config(opt=tconfig.OptimizationConfig(**{flag: True}))
-        with pytest.raises(NotImplementedError, match=flag):
-            ttrainer.make_train_step(tmodel, cfg, tile)
     with pytest.raises(NotImplementedError):
         ttrainer.make_train_step(tmodel, tconfig.Config(
             pipeline=tconfig.PipelineConfig(use_sorted=False)), tile)
