@@ -117,7 +117,27 @@ non-zero):
                 against the CPU, steps/s with the
                 innovations on and off in alternating blocks, device ms per
                 stage, kernels a step, peak memory, and the synchronising
-                calls of a step, equal in both modes.
+                calls of a step, equal in both modes;
+ 16. cli      — the training CLI, `tools.train.main` in-process: FLAME-bound
+                on phase 12's dataset (802×550, 300 iterations: an opacity
+                reset at 200, a densify event at 250, evals and checkpoints
+                at 150 and 300) with the viewer server on a free port and a
+                `RemoteClient` thread that holds the loop (its splat frame
+                equal byte for byte to `make_render_fn` on the held state,
+                its mesh frame different, `num_points` the live count, the
+                round trip timed), finite checks on every step from 160,
+                then 5 steps under `--detect_anomaly`, then `tools.render`
+                and `tools.metrics` on the model directory; unbound on a
+                NeRF-synthetic scene of the fitted avatar (32 orbit views at
+                800×800 on white, no `points3d.ply`: the reader's 100,000
+                random points; 300 iterations, a densify event at 250), the
+                knn of those points on the card against the CPU on 4,096
+                sampled rows (rtol 1e-4); unbound on the same views as a
+                COLMAP scene (`sparse/0/*.bin` from the port's writers, 20,000
+                points of the avatar; 100 iterations; the `llffhold` 8
+                split). Every run: rows 1 and 2 once a step (and row 1 once
+                an eval view, a served frame, a rendered view), its events
+                at its flags' cadences, the loss falling.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -2234,6 +2254,478 @@ def innovations_step(card, model, params, aux, cam, tile_cfg, setup) -> dict:
     return dict(launches=launches)
 
 
+# --- 16. the training CLI ----------------------------------------------------
+
+CLI_DIR = os.path.join("build", "chip_smoke", "cli")
+CLI_DEVICE = "cuda"
+CLI_ITERS = 300
+# FLAME-bound on phase 12's dataset: an opacity reset at 200, a densify
+# event at 250, evals and checkpoints at 150 and 300, finite checks from
+# 160 on.
+CLI_FLAME_FLAGS = ("--bind_to_mesh", "--eval", "--iterations", str(CLI_ITERS),
+                   "--interval", "150", "--checkpoint_iterations", "150", "300",
+                   "--densify_from_iter", "100", "--densification_interval", "250",
+                   "--densify_until_iter", str(CLI_ITERS), "--opacity_reset_interval", "200",
+                   "--log_every", "10", "--debug_from", "160")
+CLI_ANOMALY_FLAGS = ("--bind_to_mesh", "--iterations", "5", "--test_iterations",
+                     "--save_iterations", "--checkpoint_iterations", "--port", "0",
+                     "--detect_anomaly", "--log_every", "1")
+# Unbound, Blender layout, white background: an opacity reset at 100
+# (densify_from_iter, white background), a densify event at 250, eval,
+# save and checkpoint at 300.
+CLI_BLENDER_FLAGS = ("-w", "--eval", "--iterations", str(CLI_ITERS), "--interval", "300",
+                     "--densify_from_iter", "100", "--densification_interval", "250",
+                     "--densify_until_iter", str(CLI_ITERS), "--opacity_reset_interval", "3000",
+                     "--log_every", "10", "--port", "0")
+CLI_COLMAP_FLAGS = ("-w", "--eval", "--iterations", "100", "--interval", "100",
+                    "--densify_from_iter", "1000", "--opacity_reset_interval", "3000",
+                    "--log_every", "10", "--port", "0")
+ORBIT_VIEWS = 32          # every 4th a Blender test view; COLMAP holds out every 8th by name
+ORBIT_SIZE = 800          # NeRF-synthetic's 800×800
+ORBIT_FOV = 0.6911112070083618   # NeRF-synthetic lego's camera_angle_x
+# World units per avatar unit: the fitted avatar (radius 0.1 at the origin)
+# becomes a head 2 units wide inside the reader's random-point cube
+# [-1.3, 1.3]³, the cameras orbit at radius 4: NeRF-synthetic's scale.
+ORBIT_SCALE = 10.0
+COLMAP_POINTS = 20_000
+NERF_RANDOM_POINTS = 100_000   # the reader's draw when a Blender scene has no points3d.ply
+KNN_SAMPLE_ROWS = 4096
+N_GUI_TIMED = 5           # held splat requests timed for the round trip
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def loss_falls(logs) -> bool:
+    """Finite losses whose mean over the last three logs is below that of
+    the first three (one view a step: a single log is noisy)."""
+    loss = [r["loss"] for r in logs]
+    return (all(map(math.isfinite, loss)) and len(loss) >= 6
+            and sum(loss[-3:]) < sum(loss[:3]))
+
+
+def rate_between_events(logs, events, exclude=()) -> dict:
+    """Steps/s over the intervals between consecutive logs that hold no
+    host event and no iteration of `exclude`."""
+    busy = {e["iteration"] for e in events} | set(exclude)
+    n, sec = 0, 0.0
+    for r0, r1 in zip(logs, logs[1:]):
+        if not any(r0["iteration"] <= i <= r1["iteration"] for i in busy):
+            n += r1["iteration"] - r0["iteration"]
+            sec += r1["elapsed_s"] - r0["elapsed_s"]
+    return {"steps": n, "steps_per_s": n / sec if sec else None}
+
+
+def gui_client(port: int, captured: dict, box: dict) -> None:
+    """Phase 16's viewer: connects to the trainer's GUI server, holds the
+    loop (`do_training=False`) for a splat frame, which must equal byte for
+    byte the uint8 of `make_render_fn` on the held state at the camera the
+    server decodes, a mesh frame, which must differ, and N_GUI_TIMED timed
+    splat frames; then lets the loop go on."""
+    import traceback
+
+    from gaussianavatars_torch.models.gaussians import num_alive
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.viewers import network_gui as gui
+
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                client = gui.RemoteClient("127.0.0.1", port, timeout=120)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+        try:
+            h = captured["harness"]          # built before the server listens
+            cam = h.scene.cameras("train")[0]
+            frame, stats = client.request(cam, do_training=False)
+            # Held: the loop waits in `service` for our next request.
+            wire_cam = gui._camera_from_msg(gui.camera_message(cam), CLI_DEVICE)
+            t = min(wire_cam.timestep, max(h.scene.num_timesteps - 1, 0))
+            want = loop.make_render_fn(h.model, h.cfg, h.live_tile_config)(
+                h.state, wire_cam, t, torch.zeros(3, device=CLI_DEVICE), h.cfg.model.sh_degree)
+            want_u8 = (np.clip(want.cpu().numpy(), 0.0, 1.0) * 255).astype(np.uint8)
+            got_u8 = np.rint(frame * 255).astype(np.uint8)
+            mesh, _stats = client.request(cam, do_training=False, show_mesh=True)
+            t0 = time.perf_counter()
+            for _ in range(N_GUI_TIMED):
+                client.request(cam, do_training=False)
+            rt_ms = 1e3 * (time.perf_counter() - t0) / N_GUI_TIMED
+            box.update(
+                frame_equal=bool(np.array_equal(got_u8, want_u8)),
+                frame_max_diff=int(np.abs(got_u8.astype(int) - want_u8).max()),
+                frame_nonzero=bool(got_u8.any()),
+                mesh_differs=bool(not np.array_equal(np.rint(mesh * 255).astype(np.uint8),
+                                                     got_u8)),
+                num_points=stats["num_points"], live=int(num_alive(h.state.aux)),
+                num_timesteps=stats["num_timesteps"], round_trip_ms=rt_ms,
+                resolution=f"{cam.width}x{cam.height}",
+                # Row 1: the served splat frames (the mesh request renders
+                # the splats under its overlay) and our own check.
+                fwd_launches=2 + N_GUI_TIMED + 1)
+            client.request(None, do_training=True)
+        finally:
+            client.close()
+    except Exception:
+        box["error"] = traceback.format_exc()
+
+
+def expected_events(argv) -> set:
+    """(kind, iteration) of the host events `tools.train.main(argv)` must
+    record: densify, opacity reset, eval, save and checkpoint, from its
+    flags and `training.loop`'s cadences."""
+    from gaussianavatars_torch.tools import train as ttrain
+
+    a = ttrain.parse_args(argv)
+    tests, saves, ckpts = ttrain.event_iterations(a)
+    out = set()
+    for it in range(1, a.iterations + 1):
+        if a.densify_from_iter < it < a.densify_until_iter and it % a.densification_interval == 0:
+            out.add(("densify", it))
+        if it < a.densify_until_iter and (it % a.opacity_reset_interval == 0 or (
+                a.white_background and it == a.densify_from_iter)):
+            out.add(("opacity_reset", it))
+    return (out | {("eval", i) for i in tests} | {("save", i) for i in saves}
+            | {("checkpoint", i) for i in ckpts})
+
+
+def recorded_events(events) -> set:
+    return {(e["kind"], e["iteration"]) for e in events
+            if e["kind"] in ("densify", "opacity_reset", "eval", "save", "checkpoint")}
+
+
+def cli_flame(card) -> dict:
+    """Phase 16, FLAME-bound: `tools.train.main` on phase 12's dataset at
+    802×550 with the GUI on a free port and a viewer holding the loop,
+    finite checks from `--debug_from` on, then a short `--detect_anomaly`
+    run, then `tools.render` and `tools.metrics` on the model directory."""
+    import threading
+
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.tools import metrics as tmetrics
+    from gaussianavatars_torch.tools import render as trender
+    from gaussianavatars_torch.tools import train as ttrain
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.viewers import network_gui as gui
+
+    model_dir = os.path.join(CLI_DIR, "flame")
+    argv = ["-s", LOOP_WORKDIR, "-m", model_dir, *CLI_FLAME_FLAGS, "--port", str(free_port()),
+            "--device", CLI_DEVICE]
+    a = ttrain.parse_args(argv)
+    captured, box, served, checks_run = {}, {}, [], []
+    build, service, check = ttrain.build_harness, gui.TrainingGuiServer.service, loop.assert_finite
+
+    def capture(*args, **kw):
+        captured["harness"] = build(*args, **kw)
+        return captured["harness"]
+
+    def traced(self, harness, it):
+        on = service(self, harness, it)
+        if on:
+            served.append(it)
+        return on
+
+    def counted(tree, name="tree"):
+        checks_run.append(name)
+        return check(tree, name)
+
+    client = threading.Thread(target=gui_client, args=(a.port, captured, box), daemon=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ttrain.build_harness, gui.TrainingGuiServer.service, loop.assert_finite = (
+        capture, traced, counted)
+    client.start()
+    t0 = time.perf_counter()
+    try:
+        h, logs = ttrain.main(argv)
+    finally:
+        ttrain.build_harness, gui.TrainingGuiServer.service, loop.assert_finite = (
+            build, service, check)
+        client.join(timeout=120)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cp_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if client.is_alive() or "error" in box:
+        raise AssertionError(f"cli/flame: the viewer failed: {box.get('error', 'hung')}")
+    events = h.events
+    eval_views = sum(e.get("n", 0) for e in events if e["kind"] == "eval")
+    expect = {"composite_pairs_fwd": a.iterations + eval_views + box["fwd_launches"],
+              "composite_pairs_bwd": a.iterations}
+    got = {k: launches[k] for k in expect}
+    stray = {k: v for k, v in launches.items() if v and k not in expect}
+    want_events = expected_events(argv)
+    _tests, saves, ckpts = ttrain.event_iterations(a)
+    artifacts = ["cfg_args.json", "cameras.json", "flame_assets.npz",
+                 *(f"chkpnt{i}.npz" for i in ckpts),
+                 *(f"point_cloud/iteration_{i}/{f}" for i in saves
+                   for f in ("point_cloud.ply", "flame_param.npz"))]
+    missing = [f for f in artifacts if not os.path.exists(os.path.join(model_dir, f))]
+    tb_events = [f for f in os.listdir(model_dir) if f.startswith("events.out.tfevents")]
+    n_checks = 2 * (a.iterations - a.debug_from + 1)
+    res = dict(launches=got, expected_launches=expect, stray_launches=stray,
+               events=sorted(recorded_events(events)), expected_events=sorted(want_events),
+               gui={k: v for k, v in box.items() if k != "fwd_launches"}, gui_held_at=served,
+               finite_checks=len(checks_run), expected_finite_checks=n_checks,
+               missing_artifacts=missing, summary_writer_events=tb_events,
+               loss_by_log=[r["loss"] for r in logs],
+               points_by_log=[r["num_points"] for r in logs])
+    log("cli/flame", **res)
+    checks = {
+        "launches": got == expect and not stray,
+        "events": recorded_events(events) == want_events
+        and any(k == "densify" for k, _i in want_events)
+        and any(k == "opacity_reset" for k, _i in want_events),
+        "gui": (box["frame_equal"] and box["frame_nonzero"] and box["mesh_differs"]
+                and box["num_points"] == box["live"] and len(served) == 1),
+        "debug_from": len(checks_run) == n_checks,
+        "loss": loss_falls(logs),
+        "artifacts": not missing,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"cli/flame checks failed: {checks}")
+    log("cli/flame_numbers", card=card["nvidia_smi"], resolution="802x550",
+        steps_per_s_whole_run=a.iterations / wall,
+        steps_per_s_between_events=rate_between_events(logs, events, served),
+        gui_round_trip_ms=box["round_trip_ms"], gui_resolution=box["resolution"],
+        fwd_launches_per_step=(got["composite_pairs_fwd"] - eval_views - box["fwd_launches"])
+        / a.iterations, bwd_launches_per_step=got["composite_pairs_bwd"] / a.iterations,
+        peak_mem_mib=peak_mib, live_gaussians_final=logs[-1]["num_points"],
+        summary_writer="importable, events written" if tb_events else
+        "not importable: no TensorBoard records",
+        event_host_ms={f"{e['kind']}@{e['iteration']}": e["ms"] for e in events})
+
+    # --- --detect_anomaly: a few steps under autograd's anomaly mode ----------
+    reset_launches()
+    t0 = time.perf_counter()
+    argv2 = ["-s", LOOP_WORKDIR, "-m", os.path.join(CLI_DIR, "anomaly"), *CLI_ANOMALY_FLAGS,
+             "--device", CLI_DEVICE]
+    n2 = ttrain.parse_args(argv2).iterations
+    _h2, logs2 = ttrain.main(argv2)
+    torch.cuda.synchronize()
+    an = dict(logs=len(logs2), finite=all(math.isfinite(r["loss"]) for r in logs2),
+              launches=cp_launches(), anomaly_mode_after=torch.is_anomaly_enabled(),
+              seconds=time.perf_counter() - t0)
+    log("cli/detect_anomaly", **an)
+    if not (an["logs"] == n2 and an["finite"] and not an["anomaly_mode_after"]
+            and an["launches"]["composite_pairs_fwd"] == n2
+            and an["launches"]["composite_pairs_bwd"] == n2):
+        raise AssertionError(f"cli/detect_anomaly: {an}")
+    for k in got:
+        got[k] += an["launches"][k]
+
+    # --- tools/render and tools/metrics, as run_ablation.sh runs them ------------
+    n_views = sum(len(h.scene.cameras(s)) for s in ("val", "test"))
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = trender.main(["-m", model_dir, "--skip_train", "--quiet", "--device", CLI_DEVICE])
+    render_s = time.perf_counter() - t0
+    got["composite_pairs_fwd"] += fwd_launches_only(n_views, "cli/render")
+    scores = tmetrics.main(["-m", model_dir, "--device", CLI_DEVICE])[model_dir]["results"]
+    log("cli/render_metrics", render=stats, render_s=render_s, views=n_views, metrics=scores,
+        card=card["nvidia_smi"])
+    # The metrics tool scores the test split by default (`scripts/metrics.py`).
+    if list(scores) != [f"test/ours_{a.iterations}"] or not all(
+            math.isfinite(v["psnr"]) for v in scores.values()):
+        raise AssertionError(f"cli/render_metrics: {scores}")
+    return got
+
+
+def orbit_cameras(dev):
+    """ORBIT_VIEWS look-at cameras around the fitted avatar (in its units:
+    radius 4 / ORBIT_SCALE), ORBIT_SIZE square, elevations ±0.3 rad."""
+    from gaussianavatars_torch.data.cameras import look_at_camera
+
+    r = 4.0 / ORBIT_SCALE
+    cams = []
+    for i in range(ORBIT_VIEWS):
+        az = 2 * math.pi * i / ORBIT_VIEWS
+        el = 0.3 if i % 2 else -0.15
+        eye = r * np.array([math.cos(el) * math.sin(az), math.sin(el),
+                            -math.cos(el) * math.cos(az)])
+        cams.append(look_at_camera(eye=eye, target=np.zeros(3), fovy=ORBIT_FOV,
+                                   width=ORBIT_SIZE, height=ORBIT_SIZE, device=dev))
+    return cams
+
+
+def write_orbit_scenes(fitted, root: str) -> dict:
+    """The fitted avatar (timestep 0, white background) from the orbit
+    cameras, written twice with the world scaled by ORBIT_SCALE: a
+    NeRF-synthetic layout (`blender/`: `transforms_{train,test}.json`,
+    every 4th view a test view, no `points3d.ply`) and a COLMAP layout
+    (`colmap/`: `images/`, `sparse/0/{cameras,images,points3D}.bin`,
+    PINHOLE, COLMAP_POINTS points sampled from the avatar's live means
+    with their DC colours)."""
+    from PIL import Image
+
+    from gaussianavatars_torch.data import colmap
+    from gaussianavatars_torch.data.readers import fov_to_focal
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.sh import C0
+    from gaussianavatars_torch.training import loop
+
+    model, st, cfg = fitted.model, fitted.state, fitted.cfg
+    blender, cm = os.path.join(root, "blender"), os.path.join(root, "colmap")
+    for d in ("train", "test"):
+        os.makedirs(os.path.join(blender, d))
+    os.makedirs(os.path.join(cm, "images"))
+    os.makedirs(os.path.join(cm, "sparse", "0"))
+    white = torch.ones(3, device=CLI_DEVICE)
+    frames = {"train": [], "test": []}
+    images = {}
+    reset_launches()
+    for i, cam in enumerate(orbit_cameras(CLI_DEVICE)):
+        tcfg = loop.probe_tier_budgets(loop.tile_config(cfg), cfg, model, st, cam, verbose=False)
+        img = loop.make_render_fn(model, cfg, tcfg)(st, cam, 0, white, 0)
+        u8 = (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        split = "test" if i % 4 == 3 else "train"
+        Image.fromarray(u8).save(os.path.join(blender, split, f"r_{i}.png"))
+        Image.fromarray(u8).save(os.path.join(cm, "images", f"view_{i:03d}.png"))
+        w2c = cam.world_view.double().cpu().numpy()
+        w2c[:3, 3] *= ORBIT_SCALE
+        c2w = np.linalg.inv(w2c)
+        c2w[:3, 1:3] *= -1                      # COLMAP → OpenGL axes
+        frames[split].append({"file_path": f"{split}/r_{i}", "transform_matrix": c2w.tolist()})
+        images[i + 1] = colmap.ColmapImage(i + 1, colmap.rotmat_to_qvec(w2c[:3, :3]),
+                                           w2c[:3, 3], 1, f"view_{i:03d}.png",
+                                           np.zeros((0, 2)), np.zeros((0,), np.int64))
+    render_launches = dict(cp_launches())
+    for split, fr in frames.items():
+        with open(os.path.join(blender, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": ORBIT_FOV, "frames": fr}, f)
+    focal = fov_to_focal(ORBIT_FOV, ORBIT_SIZE)
+    colmap.write_cameras_binary({1: colmap.ColmapCamera(
+        1, "PINHOLE", ORBIT_SIZE, ORBIT_SIZE,
+        np.array([focal, focal, ORBIT_SIZE / 2, ORBIT_SIZE / 2]))},
+        os.path.join(cm, "sparse", "0", "cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(cm, "sparse", "0", "images.bin"))
+    with torch.no_grad():
+        wg = world_gaussians(st.params, st.aux, face_frames(
+            model(loop._flame_params(st, 0))[0], model.faces))
+    live = torch.nonzero(st.aux.alive)[:, 0]
+    pick = live[torch.randperm(len(live), generator=torch.Generator().manual_seed(16))
+                [:COLMAP_POINTS].to(live.device)]
+    rgb = torch.clamp(st.params.sh_dc[pick, 0] * C0 + 0.5, 0, 1)
+    colmap.write_points3d_binary(colmap.ColmapPoints(
+        wg.means[pick].double().cpu().numpy() * ORBIT_SCALE,
+        (rgb * 255).round().to(torch.uint8).cpu().numpy(), np.zeros(len(pick))),
+        os.path.join(cm, "sparse", "0", "points3D.bin"))
+    return dict(blender=blender, colmap=cm, views=ORBIT_VIEWS, colmap_points=len(pick),
+                render_launches=render_launches)
+
+
+def cp_launches() -> dict:
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    return dict(cp.LAUNCHES)
+
+
+def cli_unbound(card, source: str, name: str, flags) -> tuple:
+    """`tools.train.main` unbound on `source`: its launches (rows 1 and 2
+    once a step and an eval view), the loss falling, no FLAME leaves."""
+    from gaussianavatars_torch.data import ply
+
+    from gaussianavatars_torch.tools import train as ttrain
+
+    model_dir = os.path.join(CLI_DIR, name)
+    argv = ["-s", source, "-m", model_dir, *flags, "--device", CLI_DEVICE]
+    iters = ttrain.parse_args(argv).iterations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    h, logs = ttrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cp_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    events = h.events
+    eval_views = sum(e.get("n", 0) for e in events if e["kind"] == "eval")
+    expect = {"composite_pairs_fwd": iters + eval_views, "composite_pairs_bwd": iters}
+    got = {k: launches[k] for k in expect}
+    stray = {k: v for k, v in launches.items() if v and k not in expect}
+    saved = ply.load_gaussian_ply(os.path.join(model_dir, "point_cloud", f"iteration_{iters}",
+                                               "point_cloud.ply"))
+    res = dict(launches=got, expected_launches=expect, stray_launches=stray,
+               events=sorted(recorded_events(events)),
+               expected_events=sorted(expected_events(argv)),
+               initial_points=logs[0]["num_points"], final_points=logs[-1]["num_points"],
+               ply_binding=saved["binding"] is not None, ply_points=len(saved["means"]),
+               flame_leaves=h.state.flame is not None,
+               loss_by_log=[r["loss"] for r in logs])
+    log(f"cli/{name}", **res)
+    checks = {"launches": got == expect and not stray, "loss": loss_falls(logs),
+              "events": recorded_events(events) == expected_events(argv),
+              "unbound": h.model is None and not res["flame_leaves"]
+              and not res["ply_binding"] and res["ply_points"] == res["final_points"]}
+    if not all(checks.values()):
+        raise AssertionError(f"cli/{name} checks failed: {checks}")
+    numbers = dict(card=card["nvidia_smi"], steps_per_s_whole_run=iters / wall,
+                   steps_per_s_between_events=rate_between_events(logs, events),
+                   peak_mem_mib=peak_mib,
+                   event_host_ms={f"{e['kind']}@{e['iteration']}": e["ms"] for e in events})
+    return h, got, res, numbers
+
+
+def phase_cli(card, fitted) -> dict:
+    """Phase 16: the training CLI through `tools.train.main`, FLAME-bound
+    (with the viewer, the debug hooks, render and metrics) and unbound on
+    a Blender and a COLMAP scene of the fitted avatar. Returns rows 1 and
+    2's launches on these paths."""
+    from gaussianavatars_torch.ops.knn import mean_sq_dist_3nn, rows_mean_sq_dist_3nn
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    got = cli_flame(card)
+
+    # --- unbound, Blender layout --------------------------------------------------
+    t0 = time.perf_counter()
+    scenes = write_orbit_scenes(fitted, os.path.join(CLI_DIR, "scenes"))
+    log("cli/scenes", **scenes, seconds=time.perf_counter() - t0)
+    h, b_got, b_res, b_num = cli_unbound(card, scenes["blender"], "blender", CLI_BLENDER_FLAGS)
+    # The reader's 100,000 random points: the knn on the card against the
+    # CPU's on a sample of rows (each against all the points).
+    pts = torch.as_tensor(h.scene.info.point_cloud.points, dtype=torch.float32)
+    pts_dev = pts.to(CLI_DEVICE)
+    knn_card = mean_sq_dist_3nn(pts_dev)
+    knn_ms = cuda_ms(lambda: mean_sq_dist_3nn(pts_dev), 3)
+    rows = torch.randperm(len(pts), generator=torch.Generator().manual_seed(7))[:KNN_SAMPLE_ROWS]
+    t0 = time.perf_counter()
+    knn_cpu = rows_mean_sq_dist_3nn(pts, rows)
+    cpu_s = time.perf_counter() - t0
+    rel = float(((knn_card.cpu()[rows] - knn_cpu).abs() / knn_cpu.abs()).max())
+    knn = dict(points=len(pts), sample_rows=KNN_SAMPLE_ROWS, max_rel_err=rel,
+               card_ms=knn_ms, cpu_s_sample=cpu_s)
+    log("cli/knn", **knn, card=card["nvidia_smi"])
+    if not (len(pts) == NERF_RANDOM_POINTS == b_res["initial_points"] and rel <= 1e-4):
+        raise AssertionError(f"cli/knn: {knn}, initial points {b_res['initial_points']}")
+    log("cli/blender_numbers", **b_num, resolution=f"{ORBIT_SIZE}x{ORBIT_SIZE}",
+        knn_ms_100k=knn_ms)
+    del h
+
+    # --- unbound, COLMAP layout ------------------------------------------------------
+    h, c_got, c_res, c_num = cli_unbound(card, scenes["colmap"], "colmap", CLI_COLMAP_FLAGS)
+    names = sorted(f"view_{i:03d}" for i in range(ORBIT_VIEWS))
+    split = dict(train=[c.image_name for c in h.scene.cameras("train")],
+                 test=[c.image_name for c in h.scene.cameras("test")])
+    log("cli/colmap_numbers", **c_num, split=split, resolution=f"{ORBIT_SIZE}x{ORBIT_SIZE}")
+    if split["test"] != names[::8] or split["train"] != [n for n in names if n not in names[::8]]:
+        raise AssertionError(f"cli/colmap: the split is not llffhold 8: {split}")
+    for k in got:
+        got[k] += b_got[k] + c_got[k]
+    return got
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -2247,6 +2739,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2463,7 +2956,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     replay_launches = phase_replay(card, harness, loop_res, (renderer, poses, N_FRAMES / wall_s))
     log("replay/seconds", seconds=time.perf_counter() - t0)
-    del harness
 
     # --- 15. the training innovations -------------------------------------------
     t0 = time.perf_counter()
@@ -2472,12 +2964,18 @@ def main(argv=None) -> int:
     innov_step = innovations_step(card, model, params, aux, cam, cfg, setup)
     log("innovations/seconds", seconds=time.perf_counter() - t0)
 
+    # --- 16. the training CLI ------------------------------------------------------
+    t0 = time.perf_counter()
+    cli_launches = phase_cli(card, harness)
+    log("cli/seconds", seconds=time.perf_counter() - t0)
+    del harness
+
     # Launches per entry point over the main paths: serving, training,
-    # the A/B (float32 and amp), amp training, the loop, the replay and
-    # the innovations' loop and step.
+    # the A/B (float32 and amp), amp training, the loop, the replay, the
+    # innovations' loop and step, and the CLI.
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
                 loop_res["launches"], replay_launches, innov_loop["launches"],
-                innov_step["launches"]):
+                innov_step["launches"], cli_launches):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)
@@ -2506,6 +3004,7 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    log("seconds", script_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

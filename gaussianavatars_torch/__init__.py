@@ -12,11 +12,14 @@ CPU tensors run each kernel's plain PyTorch version.
 
 Ported so far: the render path, FLAME → binding → world Gaussians →
 projection + SH → sorted binning → pair compositor (`render.AvatarRenderer`),
-and the FLAME-bound training step over it, with the backward compositor
-kernel (`training.trainer.make_train_step`), in float32 or with `use_amp`;
+and the training step over it, FLAME-bound or unbound (a point cloud),
+with the backward compositor kernel (`training.trainer.make_train_step`),
+in float32 or with `use_amp`;
 every implementation of the compositor kernels (v2, v3, v4) and the A/B of
 them (`tools.kernel_ab`); the host loop that fits an avatar
-(`tools.train_synthetic`); and the replay of a trained avatar: loading
+(`tools.train_synthetic`) and the training CLI over it (`tools.train`,
+with the viewer server of `viewers.network_gui` and the debug hooks of
+`utils.debug`; Blender, DynamicNerf and COLMAP datasets); and the replay of a trained avatar: loading
 (`models.io`), offline render and metrics with LPIPS (`tools.render`,
 `tools.metrics`, `metrics`), the headless viewer core
 (`viewers.local.AvatarViewerCore`) and the FPS benchmarks.

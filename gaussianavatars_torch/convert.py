@@ -112,8 +112,9 @@ def contrastive_from_numpy(d: Mapping, device="cuda") -> ContrastiveCache:
 
 
 def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, np.ndarray],
-                           adam: Mapping, flame: Mapping[str, np.ndarray],
-                           flame_static: Mapping[str, np.ndarray], flame_adam: Mapping,
+                           adam: Mapping, flame: Optional[Mapping[str, np.ndarray]] = None,
+                           flame_static: Optional[Mapping[str, np.ndarray]] = None,
+                           flame_adam: Optional[Mapping] = None,
                            color_net: Optional[Mapping] = None,
                            color_adam: Optional[Mapping] = None,
                            contrastive: Optional[Mapping] = None,
@@ -122,7 +123,8 @@ def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, n
 
     `adam` and `flame_adam` are {"mu": {...}, "nu": {...}, "step": int}
     with the moments keyed like `params` and `flame`; fields that are None
-    (or missing) in `flame`/`flame_static` stay None. The innovations'
+    (or missing) in `flame`/`flame_static` stay None, and an unbound state
+    has no `flame`, `flame_static` or `flame_adam`. The innovations'
     leaves, when given, as `color_net_from_numpy`, `color_adam_from_numpy`
     and `contrastive_from_numpy` take them.
     """
@@ -135,14 +137,16 @@ def train_state_from_numpy(params: Mapping[str, np.ndarray], aux: Mapping[str, n
     def gauss(d):
         return gaussian_state_from_numpy(d, aux, device=dev)[0]
 
-    fl = _flame_trainable(flame, dev)
-    so = flame_static.get("static_offset")
+    fl = fs = fa = None
+    if flame is not None:
+        fl = _flame_trainable(flame, dev)
+        so = flame_static.get("static_offset")
+        fs = FlameStatic(shape=_tensor(flame_static["shape"], dev, torch.float32),
+                         static_offset=None if so is None else _tensor(so, dev, torch.float32))
+        fa = adam_state(flame_adam, lambda d: _flame_trainable(d, dev))
     return TrainState(
-        params=p, aux=a, adam=adam_state(adam, gauss), flame=fl,
-        flame_static=FlameStatic(shape=_tensor(flame_static["shape"], dev, torch.float32),
-                                 static_offset=None if so is None
-                                 else _tensor(so, dev, torch.float32)),
-        flame_adam=adam_state(flame_adam, lambda d: _flame_trainable(d, dev)),
+        params=p, aux=a, adam=adam_state(adam, gauss), flame=fl, flame_static=fs,
+        flame_adam=fa,
         color_net=None if color_net is None else color_net_from_numpy(color_net, device=dev),
         color_adam=None if color_adam is None else color_adam_from_numpy(color_adam, device=dev),
         contrastive=None if contrastive is None else contrastive_from_numpy(contrastive,

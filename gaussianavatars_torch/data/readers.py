@@ -1,11 +1,10 @@
-"""Dataset readers: NeRF-synthetic (Blender) and DynamicNerf (avatars).
+"""Dataset readers: COLMAP, NeRF-synthetic (Blender), DynamicNerf (avatars).
 
 The port's own copy of the JAX package's `data/readers.py` (numpy only),
 with the same on-disk formats as the reference
 (`scene/dataset_readers.py:42-352`): readers return lightweight
 `CameraRecord`s (paths + geometry, **no pixels**); decoding happens later
-in `data/pipeline.py`. COLMAP scenes raise `NotImplementedError` until
-`data/colmap.py` is ported.
+in `data/pipeline.py`. COLMAP scenes are parsed by `data/colmap.py`.
 
 The avatar path (`read_dynamic_nerf`, reference `readDynamicNerfInfo`
 `scene/dataset_readers.py:297-352`) reads `transforms_{train,val,test}.json`
@@ -22,6 +21,15 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
+from .colmap import (
+    qvec_to_rotmat,
+    read_cameras_binary,
+    read_cameras_text,
+    read_images_binary,
+    read_images_text,
+    read_points3d_binary,
+    read_points3d_text,
+)
 
 
 def fov_to_focal(fov: float, pixels: float) -> float:
@@ -105,9 +113,69 @@ def read_colmap_scene(
     path: str, images_dir: Optional[str] = None, eval_split: bool = True,
     llffhold: int = 8, white_background: bool = False,
 ) -> SceneInfo:
-    """`readColmapSceneInfo` (`scene/dataset_readers.py:142-187`): not ported
-    yet (it needs `data/colmap.py`)."""
-    raise NotImplementedError("COLMAP scenes are not ported yet (data/colmap.py)")
+    """`readColmapSceneInfo` equivalent (`scene/dataset_readers.py:142-187`):
+    PINHOLE and SIMPLE_PINHOLE cameras, every `llffhold`-th image (sorted
+    by name) held out for test, the point cloud from `points3D.bin` or
+    `.txt`."""
+    sparse = os.path.join(path, "sparse", "0")
+    if os.path.exists(os.path.join(sparse, "images.bin")):
+        extr = read_images_binary(os.path.join(sparse, "images.bin"))
+        intr = read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+    else:
+        extr = read_images_text(os.path.join(sparse, "images.txt"))
+        intr = read_cameras_text(os.path.join(sparse, "cameras.txt"))
+
+    folder = os.path.join(path, images_dir or "images")
+    bg = np.ones(3) if white_background else np.zeros(3)
+    records = []
+    for key in extr:
+        im = extr[key]
+        cam = intr[im.camera_id]
+        R = qvec_to_rotmat(im.qvec).T
+        T = np.array(im.tvec)
+        if cam.model == "SIMPLE_PINHOLE":
+            fx = fy = cam.params[0]
+        elif cam.model == "PINHOLE":
+            fx, fy = cam.params[0], cam.params[1]
+        else:
+            raise ValueError(
+                f"unsupported COLMAP camera model {cam.model}; undistort first "
+                "(PINHOLE/SIMPLE_PINHOLE only, as in the reference)"
+            )
+        image_path = os.path.join(folder, os.path.basename(im.name))
+        w, h = _image_size(image_path) if os.path.exists(image_path) else (cam.width, cam.height)
+        records.append(CameraRecord(
+            uid=cam.id, R=R, T=T,
+            fovx=focal_to_fov(fx, w), fovy=focal_to_fov(fy, h),
+            width=w, height=h, image_path=image_path,
+            image_name=os.path.basename(image_path).split(".")[0], bg=bg,
+        ))
+    records.sort(key=lambda c: c.image_name)
+
+    if eval_split:
+        train = [c for i, c in enumerate(records) if i % llffhold != 0]
+        test = [c for i, c in enumerate(records) if i % llffhold == 0]
+    else:
+        train, test = records, []
+
+    ply_path = os.path.join(sparse, "points3D.ply")
+    pcd = None
+    for cand in (
+        os.path.join(sparse, "points3D.bin"),
+        os.path.join(sparse, "points3D.txt"),
+    ):
+        if os.path.exists(cand):
+            pts = (read_points3d_binary if cand.endswith(".bin") else read_points3d_text)(cand)
+            pcd = PointCloud(
+                points=pts.xyz, colors=pts.rgb / 255.0, normals=np.zeros_like(pts.xyz)
+            )
+            break
+
+    return SceneInfo(
+        point_cloud=pcd, train_cameras=train, val_cameras=[], test_cameras=test,
+        nerf_normalization=nerfpp_norm(train), ply_path=ply_path,
+        train_meshes={}, test_meshes={}, tgt_train_meshes={}, tgt_test_meshes={},
+    )
 
 
 # ---------------------------------------------------------------------------

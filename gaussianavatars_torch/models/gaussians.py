@@ -12,9 +12,11 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.knn import mean_sq_dist_3nn
 from ..ops.quaternion import quat_mul, quat_normalize, quat_rotate
 from ..ops.sh import num_sh_coeffs, rgb_to_sh0
 
@@ -136,6 +138,54 @@ def init_bound(
     aux = GaussianAux(
         alive=torch.arange(capacity, device=dev) < n,
         binding=binding,
+        grad_accum=zeros,
+        denom=zeros.clone(),
+        max_radii2d=zeros.clone(),
+    )
+    return params, aux
+
+
+def init_from_points(
+    points: np.ndarray,
+    colors: np.ndarray,
+    capacity: int,
+    device="cuda",
+) -> tuple[GaussianParams, GaussianAux]:
+    """Unbound init from a point cloud (`create_from_pcd`, unbound branch):
+    log-scale from the 3-NN mean distance (`ops/knn.py`, on `device`),
+    opacity 0.1, colour → SH DC, binding 0, padded to `capacity`."""
+    dev = resolve_device(device)
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"capacity {capacity} < point count {n}")
+    f32 = torch.float32
+    pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
+    scale = torch.sqrt(torch.clamp_min(mean_sq_dist_3nn(pts), 1e-7))
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((capacity,) + tuple(x.shape[1:]), dtype=f32, device=dev)
+        out[:n] = x
+        return out
+
+    quats = torch.zeros((n, 4), dtype=f32, device=dev)
+    quats[:, 0] = 1.0
+    # The colour → SH DC in the colours' own precision, then float32, as
+    # the JAX package computes it (numpy arithmetic on the host).
+    sh_dc = rgb_to_sh0(torch.as_tensor(np.asarray(colors))).to(device=dev, dtype=f32)
+    # The JAX package takes the logit in float32: log(float32(0.1 / 0.9)).
+    logit = torch.log(torch.tensor(0.1 / (1.0 - 0.1), dtype=f32))
+    params = GaussianParams(
+        means=pad(pts),
+        log_scales=pad(torch.log(scale)[:, None].repeat(1, 3)),
+        quats=pad(quats),
+        sh_dc=pad(sh_dc[:, None, :]),
+        sh_rest=torch.zeros((capacity, SH_REST, 3), dtype=f32, device=dev),
+        logit_opacity=pad(torch.full((n, 1), float(logit), dtype=f32, device=dev)),
+    )
+    zeros = torch.zeros((capacity,), dtype=f32, device=dev)
+    aux = GaussianAux(
+        alive=torch.arange(capacity, device=dev) < n,
+        binding=torch.zeros((capacity,), dtype=torch.int64, device=dev),
         grad_accum=zeros,
         denom=zeros.clone(),
         max_radii2d=zeros.clone(),

@@ -1,1 +1,1 @@
-"""Training: losses, Adam and the FLAME-bound train step."""
+"""Training: losses, Adam, the train step (FLAME-bound or unbound) and the host loop."""

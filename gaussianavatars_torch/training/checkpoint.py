@@ -35,10 +35,12 @@ ITERATION_KEY = "__iteration__"
 
 
 def _children(obj):
-    """(name, child) of a dataclass, a NamedTuple or a tuple (named by
-    index, as JAX names a sequence's leaves), None children left out."""
+    """(name, child) of a dataclass, a NamedTuple, a dict or a tuple (named
+    by index, as JAX names a sequence's leaves), None children left out."""
     if dataclasses.is_dataclass(obj):
         items = [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
+    elif isinstance(obj, dict):
+        items = [(str(k), v) for k, v in obj.items()]
     elif hasattr(obj, "_asdict"):
         items = list(obj._asdict().items())
     else:

@@ -1,4 +1,5 @@
-"""Host training loop: the library behind `tools/train_synthetic.py`.
+"""Host training loop: the library behind `tools/train.py` and
+`tools/train_synthetic.py`.
 
 The port of the JAX package's `training/loop.py` (the reference training script,
 `train.py:45-311`): one training step per iteration
@@ -12,7 +13,11 @@ The port of the JAX package's `training/loop.py` (the reference training script,
     LPIPS when `$GSAVATARS_LPIPS_WEIGHTS` names a weights file), PLY saves
     and full resume checkpoints (`train.py:287-289`),
 
-and the host side of the innovations: progressive resolution (the scale
+TensorBoard scalars, images and histograms at the JAX loop's events and
+tags (`_maybe_tensorboard`; none when the package is missing), the viewer
+GUI service after every step (`gui_service`, for
+`viewers/network_gui.TrainingGuiServer`), per-step finite assertions from
+`debug_from` on, and the host side of the innovations: progressive resolution (the scale
 of each iteration from `innovations.resolution_scale_at`, one ground-truth
 cache and sampler per scale, the scales that cannot recur evicted), smart
 densification's thresholds at each densify event, and the colour net in
@@ -24,10 +29,13 @@ budget counters are kept as running maxima on the device and read only
 at the log cadence: an iteration that does not log makes no host read of
 a device value beyond what the step itself does.
 
+The harness is FLAME-bound (`bind_to_mesh`) or unbound: a point cloud of
+the dataset (COLMAP, or Blender's `points3d.ply` or random points)
+initialised by `models/gaussians.init_from_points`, trained with no FLAME
+leaves.
+
 Not ported, each named in `ROADMAP.md`: `train_sharded` (multi-device),
-the TensorBoard writer, the GUI service, `debug_from`, unbound
-(point-cloud) training (an unbound model is rendered, not trained), and
-the JAX loop's fused chunks of steps (`steps_per_call`): the port runs
+and the JAX loop's fused chunks of steps (`steps_per_call`): the port runs
 one step per iteration.
 """
 from __future__ import annotations
@@ -35,7 +43,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import sys
 import time
+import types
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -51,10 +61,12 @@ from ..models.binding import face_frames
 from ..models.densify import DensifyConfig, densify_and_prune, grow_capacity, reset_opacity
 from ..models.flame.assets import save_assets
 from ..models.flame.flame_model import FlameModel, FlameParams
-from ..models.gaussians import init_bound, num_alive, world_gaussians
+from ..models.gaussians import init_bound, init_from_points, num_alive, world_gaussians
 from ..ops.rasterize_tiled import TileConfig, render_tiled
 from ..ops.sort_binning import grow_tiers
 from ..render import probe_tile_config
+from ..utils.debug import assert_finite
+from ..utils.image import error_map
 from .checkpoint import load_train_state, save_train_state
 from .innovations import color_net_apply, resolution_scale_at, smart_thresholds
 from .loss import psnr as psnr_fn, ssim as ssim_fn
@@ -123,7 +135,7 @@ class TrainerHarness:
 
     cfg: Config
     scene: Scene
-    model: FlameModel
+    model: Optional[FlameModel]   # None: unbound
     state: TrainState
     spatial_lr_scale: float
     start_iteration: int = 0
@@ -145,12 +157,6 @@ def image_scales(cfg: Config) -> tuple:
     return (1.0,)
 
 
-def _check_supported(cfg: Config) -> None:
-    if not cfg.model.bind_to_mesh:
-        raise NotImplementedError("training.loop: unbound training (init_from_points) is "
-                                  "not ported")
-
-
 def build_harness(
     cfg: Config,
     model: Optional[FlameModel] = None,
@@ -158,34 +164,49 @@ def build_harness(
     start_checkpoint: str = "",
     device="cuda",
 ) -> TrainerHarness:
-    """Scene, FLAME-bound initial state (or `start_checkpoint`'s), and the
-    model directory's `cfg_args.json` and `flame_assets.npz`. `generator`
-    (default: seeded with 0) draws the initial colours and the split noise."""
-    _check_supported(cfg)
-    if model is None:
-        raise ValueError("bind_to_mesh requires a FlameModel")
+    """Scene, initial state (or `start_checkpoint`'s), and the model
+    directory's `cfg_args.json` (and `flame_assets.npz` when bound).
+
+    With `cfg.model.bind_to_mesh` the Gaussians are bound to `model`'s
+    faces; without it (the model is ignored) they start from the dataset's
+    point cloud. `generator` (default: seeded with 0) draws the initial
+    colours and the split noise."""
     dev = resolve_device(device)
     m = cfg.model
-    model = model.to(dev)
+    if m.bind_to_mesh:
+        if model is None:
+            raise ValueError("bind_to_mesh requires a FlameModel")
+        model = model.to(dev)
+    else:
+        model = None
     scene = Scene(
         m.source_path, model_path=m.model_path, resolution=m.resolution,
         white_background=m.white_background, eval_split=m.eval,
         target_path=m.target_path, select_camera_id=m.select_camera_id,
-        num_verts_hint=model.num_verts, device=dev,
+        num_verts_hint=model.num_verts if model is not None else 0, device=dev,
         # The schedule's image-scale factors (< 1: smaller); Scene takes
         # divisors.
         resolution_scales=tuple(1.0 / s for s in image_scales(cfg)),
     )
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
-    params, aux = init_bound(model.num_faces, capacity=m.capacity, generator=gen, device=dev)
-    flame_init = flame_init_from_table(scene.flame_table, n_shape=model.cfg.n_shape,
-                                       n_expr=model.cfg.n_expr)
     cam0 = scene.train_cameras()[0]
-    state = init_train_state(
-        params, aux, cfg, num_timesteps=scene.num_timesteps, n_expr=model.cfg.n_expr,
-        n_shape=model.cfg.n_shape, num_verts=model.num_verts, flame_init=flame_init,
-        generator=gen, image_hw=(cam0.height, cam0.width),
-    )
+    if model is not None:
+        params, aux = init_bound(model.num_faces, capacity=m.capacity, generator=gen,
+                                 device=dev)
+        flame_init = flame_init_from_table(scene.flame_table, n_shape=model.cfg.n_shape,
+                                           n_expr=model.cfg.n_expr)
+        state = init_train_state(
+            params, aux, cfg, num_timesteps=scene.num_timesteps, n_expr=model.cfg.n_expr,
+            n_shape=model.cfg.n_shape, num_verts=model.num_verts, flame_init=flame_init,
+            generator=gen, image_hw=(cam0.height, cam0.width),
+        )
+    else:
+        pcd = scene.info.point_cloud
+        if pcd is None:
+            raise ValueError("unbound training requires a dataset point cloud")
+        params, aux = init_from_points(pcd.points, pcd.colors, capacity=m.capacity, device=dev)
+        state = init_train_state(params, aux, cfg, generator=gen,
+                                 image_hw=(cam0.height, cam0.width))
     start_iteration = 0
     if start_checkpoint:
         state, start_iteration = load_train_state(start_checkpoint, state)
@@ -195,9 +216,10 @@ def build_harness(
         os.makedirs(m.model_path, exist_ok=True)
         with open(os.path.join(m.model_path, "cfg_args.json"), "w") as f:
             f.write(to_json(cfg))
-        # A self-contained model directory: render and viewers reload this
-        # exact topology without the original template.
-        save_assets(model.assets, os.path.join(m.model_path, "flame_assets.npz"))
+        if model is not None:
+            # A self-contained model directory: render and viewers reload
+            # this exact topology without the original template.
+            save_assets(model.assets, os.path.join(m.model_path, "flame_assets.npz"))
 
     return TrainerHarness(cfg=cfg, scene=scene, model=model, state=state,
                           spatial_lr_scale=scene.cameras_extent,
@@ -214,15 +236,15 @@ def _flame_params(state: TrainState, t: int) -> FlameParams:
     )
 
 
-def probe_tier_budgets(tcfg: TileConfig, cfg: Config, model: FlameModel, state: TrainState,
-                       camera: Camera, verbose: bool = True) -> TileConfig:
+def probe_tier_budgets(tcfg: TileConfig, cfg: Config, model: Optional[FlameModel],
+                       state: TrainState, camera: Camera, verbose: bool = True) -> TileConfig:
     """Tier budgets sized from the first training frame's footprints, when
     none are configured: `render.probe_tile_config`, the serving path's
-    probe, at the camera's timestep."""
+    probe, at the camera's timestep (no FLAME when `model` is None)."""
     if tcfg.tiers:
         return tcfg
-    probed = probe_tile_config(model, state.params, state.aux,
-                               _flame_params(state, int(camera.timestep or 0)), camera,
+    fp = None if model is None else _flame_params(state, int(camera.timestep or 0))
+    probed = probe_tile_config(model, state.params, state.aux, fp, camera,
                                tcfg.tile_h, tcfg.tile_w)
     if verbose:
         spec = probed.tier_spec(state.params.capacity)
@@ -269,25 +291,30 @@ def _eval_lpips_params(device: str):
 
 
 def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: int,
-                   max_views: Optional[int] = None, bg: Optional[torch.Tensor] = None) -> dict:
+                   max_views: Optional[int] = None, bg: Optional[torch.Tensor] = None,
+                   return_images: bool = False):
     """PSNR/SSIM[/LPIPS] over a split (`training_report`, `train.py:313-394`).
     LPIPS is included when `$GSAVATARS_LPIPS_WEIGHTS` names a converted
-    weights file (`metrics/lpips.py`)."""
+    weights file (`metrics/lpips.py`). `return_images=True` also returns
+    the first (render, ground truth) pair as numpy, for TensorBoard."""
     scene, cfg = harness.scene, harness.cfg
     cams = scene.cameras(split)
     recs = scene.records(split)
     if not cams:
-        return {}
+        return ({}, None) if return_images else {}
     dev = scene.device
     if bg is None:
         bg = _background(cfg, dev)
     n = len(cams) if max_views is None else min(max_views, len(cams))
     lp = _eval_lpips_params(str(dev))
     psnrs, ssims, lpipss = [], [], []
+    first_pair = None
     for i in range(n):
         gt = torch.from_numpy(load_view(recs[i], cams[i])).to(dev)
         img = torch.clamp(render_fn(harness.state, cams[i], cams[i].timestep, bg, sh_degree),
                           0.0, 1.0)
+        if i == 0 and return_images:
+            first_pair = (img.cpu().numpy(), gt.cpu().numpy())
         psnrs.append(float(psnr_fn(img, gt)))
         ssims.append(float(ssim_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1))))
         if lp is not None:
@@ -295,6 +322,8 @@ def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: in
     m = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)), "n": n}
     if lpipss:
         m["lpips"] = float(np.mean(lpipss))
+    if return_images:
+        return m, first_pair
     return m
 
 
@@ -313,8 +342,10 @@ def densify_event(harness: TrainerHarness, iteration: int) -> dict:
         clone_thr, split_thr = smart_thresholds(
             state.aux.grad_accum, state.aux.denom, o.densify_grad_threshold,
             o.densify_percentile_clone, o.densify_percentile_split)
-    with torch.no_grad():
-        frames = face_frames(model(_flame_params(state, 0))[0], model.faces)
+    frames = None
+    if model is not None:
+        with torch.no_grad():
+            frames = face_frames(model(_flame_params(state, 0))[0], model.faces)
     params, aux, mu, nu, report = densify_and_prune(
         state.params, state.aux, state.adam.mu, state.adam.nu,
         extent=harness.spatial_lr_scale, cfg=dcfg, frames=frames, generator=state.generator,
@@ -364,12 +395,13 @@ class DeviceGtCache:
 
 def _timed(harness: TrainerHarness, kind: str, it: int, fn, **info):
     """fn() on the host clock, recorded in `harness.events` with `info` and,
-    when fn returns a dict, its items."""
+    when fn returns a dict (or a tuple that starts with one), its items."""
     t0 = time.perf_counter()
     out = fn()
     ev = {"kind": kind, "iteration": it, "ms": 1e3 * (time.perf_counter() - t0), **info}
-    if isinstance(out, dict):
-        ev.update(out)
+    rec = out[0] if isinstance(out, tuple) else out
+    if isinstance(rec, dict):
+        ev.update(rec)
     harness.events.append(ev)
     return out
 
@@ -379,6 +411,7 @@ def _post_step_events(
     it: int,
     sh_deg: int,
     *,
+    writer,
     render_fn,
     eval_every: Optional[int],
     eval_views: int,
@@ -388,7 +421,8 @@ def _post_step_events(
     eval_set: frozenset = frozenset(),
 ) -> None:
     """Densify / opacity reset / eval / save / checkpoint at the standard
-    cadences (`train.py:264-289`). Each event's host milliseconds go to
+    cadences (`train.py:264-289`), with the JAX loop's TensorBoard records
+    when `writer` is given. Each event's host milliseconds go to
     `harness.events`."""
     cfg, scene, model = harness.cfg, harness.scene, harness.model
     o = cfg.opt
@@ -396,6 +430,9 @@ def _post_step_events(
     if o.densify_from_iter < it < o.densify_until_iter and it % o.densification_interval == 0:
         report = _timed(harness, "densify", it, lambda: densify_event(harness, it))
         print(f"  [densify {it}] {report}")
+        if writer:
+            for k in ("cloned", "split", "pruned", "dropped"):
+                writer.add_scalar(f"densify/{k}", report[k], it)
         if report.get("dropped", 0) > 0:
             new_cap = grow_gauss_capacity_event(harness)
             print(f"[warn] densify dropped {report['dropped']} grow requests "
@@ -408,14 +445,34 @@ def _post_step_events(
         _timed(harness, "opacity_reset", it, lambda: opacity_reset_event(harness))
     if (eval_every and it % eval_every == 0) or it in eval_set:
         for split in ("val", "test"):
-            m = _timed(harness, "eval", it, lambda: evaluate_split(
-                harness, split, render_fn, sh_deg, max_views=eval_views, bg=bg), split=split)
+            res = _timed(harness, "eval", it, lambda: evaluate_split(
+                harness, split, render_fn, sh_deg, max_views=eval_views, bg=bg,
+                return_images=writer is not None), split=split)
+            m, pair = res if writer else (res, None)
             if m:
                 extra = f" lpips={m['lpips']:.4f}" if "lpips" in m else ""
                 print(f"  [eval {split}] psnr={m['psnr']:.2f} ssim={m['ssim']:.4f}{extra}")
+                if writer:
+                    for k in ("psnr", "ssim", "lpips"):
+                        if k in m:
+                            writer.add_scalar(f"{split}/{k}", m[k], it)
+            if writer and pair is not None:
+                # Render / GT / seismic error map images + opacity histogram
+                # (reference logging set, train.py:326-346,385-391).
+                img, gt = pair
+                writer.add_image(f"{split}/render", img, it, dataformats="HWC")
+                writer.add_image(f"{split}/gt", gt, it, dataformats="HWC")
+                writer.add_image(f"{split}/error", error_map(img, gt), it, dataformats="HWC")
+        if writer:
+            alive = harness.state.aux.alive
+            opac = torch.sigmoid(harness.state.params.logit_opacity[:, 0])[alive]
+            if opac.numel():
+                writer.add_histogram("scene/opacity", opac.cpu().numpy(), it)
+            writer.add_scalar("scene/total_points", int(alive.sum()), it)
     if it in save_set:
         def save():
-            flame_param = flame_table_from_state(harness.state, scene.flame_table)
+            flame_param = (flame_table_from_state(harness.state, scene.flame_table)
+                           if model is not None else None)
             scene.save(it, harness.state.params, harness.state.aux, flame_param)
         _timed(harness, "save", it, save)
     if it in ckpt_set:
@@ -463,12 +520,15 @@ def train(
     loop's eviction, `loop.py:759-777`). The tier budgets are probed at
     scale 1.0. A log record also holds the iteration's
     `resolution_scale` and the scales whose caches are held
-    (`cached_scales`). `gui_service` and `debug_from` are not ported and
-    raise."""
-    if gui_service is not None:
-        raise NotImplementedError("train: the GUI service is not ported")
-    if debug_from >= 0:
-        raise NotImplementedError("train: debug_from is not ported")
+    (`cached_scales`).
+
+    `gui_service(it)` is called after every step (the reference services
+    its viewer socket every iteration, `train.py:143-172`). From
+    `debug_from` on (when >= 0), every step's metrics and the parameters
+    are checked finite (`utils/debug.assert_finite`, which raises
+    `FloatingPointError`; the reference's `--debug_from`,
+    `train.py:189-190`). TensorBoard records go to `model_path` when the
+    package is importable (`_maybe_tensorboard`)."""
     cfg, scene, model = harness.cfg, harness.scene, harness.model
     o = cfg.opt
     iterations = iterations if iterations is not None else o.iterations
@@ -518,6 +578,7 @@ def train(
     # Running maxima of the step's budget counters, on the device.
     bovf_dev = mfp_dev = None
     harness.live_tile_config = tcfg
+    writer = _maybe_tensorboard(cfg.model.model_path)
     t0 = time.time()
     try:
         it = harness.start_iteration + 1
@@ -546,6 +607,11 @@ def train(
                         else torch.maximum(bovf_dev, metrics["budget_overflow"]))
             mfp_dev = (metrics["max_footprint"] if mfp_dev is None
                        else torch.maximum(mfp_dev, metrics["max_footprint"]))
+            if gui_service is not None:
+                gui_service(it)
+            if 0 <= debug_from <= it:
+                assert_finite(metrics, f"metrics@it{it}")
+                assert_finite(harness.state.params, f"params@it{it}")
 
             if it % log_every == 0 or it == iterations:
                 budget_overflow_seen = int(bovf_dev)
@@ -576,6 +642,9 @@ def train(
                     "elapsed_s": time.time() - t0,
                 }
                 logs.append(rec)
+                if writer:
+                    for k in ("loss", "psnr", "num_points"):
+                        writer.add_scalar(f"train/{k}", rec[k], it)
                 print(f"[{it}/{iterations}] loss={loss:.5f} ema={ema:.5f} "
                       f"psnr={rec['psnr']:.2f} pts={rec['num_points']}")
                 if on_step:
@@ -583,7 +652,8 @@ def train(
 
             _post_step_events(
                 harness, it, active_sh_degree(it, cfg.model.sh_degree),
-                render_fn=render_fn, eval_every=eval_every, eval_views=eval_views, bg=bg,
+                writer=writer, render_fn=render_fn, eval_every=eval_every,
+                eval_views=eval_views, bg=bg,
                 save_set=save_set, ckpt_set=ckpt_set, eval_set=eval_set,
             )
             it += 1
@@ -591,4 +661,26 @@ def train(
         for src in sources.values():
             if isinstance(src, Prefetcher):
                 src.close()
+        if writer:
+            writer.close()
     return logs
+
+
+def _maybe_tensorboard(model_path: str):
+    """A `SummaryWriter` on `model_path`; None when the path is empty or
+    TensorBoard is not installed.
+
+    The writer needs nothing of TensorFlow, whose import costs seconds,
+    so unless TensorFlow is already loaded TensorBoard is given the marker
+    module of its TensorFlow-free build (`tensorboard.compat.notf`), with
+    which it uses its own stub."""
+    if not model_path:
+        return None
+    if "tensorflow" not in sys.modules:
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(model_path)

@@ -1,5 +1,5 @@
-"""The FLAME-bound training step: one function over a `TrainState` of
-tensors.
+"""The training step, FLAME-bound or unbound: one function over a
+`TrainState` of tensors.
 
 The port of the JAX package's `training/trainer.make_train_step` on the
 sorted-data pipeline (the reference's train loop body, `train.py:174-290`).
@@ -25,8 +25,12 @@ stage, as in the JAX step: the colour net calibrates the rasterised image
 (whose gradient drives the net's own Adam), the region-adaptive L1 weighs
 it by the FLAME region map of the detached posed vertices, and the
 colour-net and contrastive terms join the loss; the contrastive cache
-takes the detached calibrated image after the step. The padded-table
-pipeline and unbound training are not ported: they raise. Each stage is a
+takes the detached calibrated image after the step. An unbound step
+(`model=None`, a point cloud) has no FLAME forward, no binding
+regularisers and no FLAME Adam group, and its region-adaptive L1 weighs
+by the heuristic face prior (`innovations.heuristic_weight_map`), as the
+JAX step's `use_flame=False` branches do. The padded-table pipeline is not
+ported: it raises. Each stage is a
 `torch.profiler` range (`train/*`; the innovations' `train/region_map`,
 `train/color_net` and `train/contrastive` inside `train/image_fwd`), so
 a profile splits the step's device time by stage.
@@ -80,9 +84,10 @@ class TrainState:
     params: GaussianParams
     aux: GaussianAux
     adam: AdamState
-    flame: FlameTrainable
-    flame_static: FlameStatic
-    flame_adam: AdamState
+    # None for an unbound (point-cloud) model.
+    flame: Optional[FlameTrainable]
+    flame_static: Optional[FlameStatic]
+    flame_adam: Optional[AdamState]
     # Innovations 4 and 5: None when off (the contrastive cache also when
     # `init_train_state` had no image size).
     color_net: Optional[inn.ColorNetParams] = None
@@ -101,12 +106,13 @@ class StepOutput(NamedTuple):
 
 
 def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
-                     num_timesteps: int, n_expr: int = 100, n_shape: int = 300,
+                     num_timesteps: int = 0, n_expr: int = 100, n_shape: int = 300,
                      num_verts: int = 0, flame_init: Optional[dict] = None,
                      generator: Optional[torch.Generator] = None,
                      image_hw: Optional[tuple] = None) -> TrainState:
     """Fresh Adam moments and FLAME leaves (zeros, or `flame_init`'s tensors)
-    on the device of `params`; the colour net (weights drawn from
+    on the device of `params`, no FLAME leaves when `num_timesteps` is 0
+    (an unbound model); the colour net (weights drawn from
     `generator`) and its Adam moments with `use_color_calibration`; the
     contrastive cache with `use_contrastive_reg` when `image_hw` is given,
     as in the JAX package. `generator` (default: a CPU generator seeded
@@ -121,22 +127,25 @@ def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
             return torch.zeros(shape, dtype=torch.float32, device=dev)
         return torch.as_tensor(v, dtype=torch.float32, device=dev)
 
-    t = num_timesteps
-    dyn = fi.get("dynamic_offset")
-    if dyn is None and num_verts > 0 and (
-            cfg.opt.lambda_dynamic_offset != 0 or cfg.opt.lambda_dynamic_offset_std != 0):
-        dyn = torch.zeros((t, num_verts, 3))
-    flame = FlameTrainable(
-        expr=get("expr", (t, n_expr)), rotation=get("rotation", (t, 3)),
-        neck=get("neck", (t, 3)), jaw=get("jaw", (t, 3)), eyes=get("eyes", (t, 6)),
-        translation=get("translation", (t, 3)),
-        dynamic_offset=None if dyn is None else torch.as_tensor(
-            dyn, dtype=torch.float32, device=dev),
-    )
-    static_offset = None
-    if "static_offset" in fi or num_verts:
-        static_offset = get("static_offset", (num_verts, 3))
-    flame_static = FlameStatic(shape=get("shape", (n_shape,)), static_offset=static_offset)
+    flame = flame_static = flame_adam = None
+    if num_timesteps > 0:
+        t = num_timesteps
+        dyn = fi.get("dynamic_offset")
+        if dyn is None and num_verts > 0 and (
+                cfg.opt.lambda_dynamic_offset != 0 or cfg.opt.lambda_dynamic_offset_std != 0):
+            dyn = torch.zeros((t, num_verts, 3))
+        flame = FlameTrainable(
+            expr=get("expr", (t, n_expr)), rotation=get("rotation", (t, 3)),
+            neck=get("neck", (t, 3)), jaw=get("jaw", (t, 3)), eyes=get("eyes", (t, 6)),
+            translation=get("translation", (t, 3)),
+            dynamic_offset=None if dyn is None else torch.as_tensor(
+                dyn, dtype=torch.float32, device=dev),
+        )
+        static_offset = None
+        if "static_offset" in fi or num_verts:
+            static_offset = get("static_offset", (num_verts, 3))
+        flame_static = FlameStatic(shape=get("shape", (n_shape,)), static_offset=static_offset)
+        flame_adam = adam_init(flame)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     o = cfg.opt
@@ -149,7 +158,7 @@ def init_train_state(params: GaussianParams, aux: GaussianAux, cfg: Config,
         contrastive = inn.contrastive_init(o.contrastive_cache_size, image_hw[0], image_hw[1],
                                            o.contrastive_downsample, device=dev)
     return TrainState(params=params, aux=aux, adam=adam_init(params), flame=flame,
-                      flame_static=flame_static, flame_adam=adam_init(flame),
+                      flame_static=flame_static, flame_adam=flame_adam,
                       color_net=color_net, color_adam=color_adam, contrastive=contrastive,
                       generator=generator)
 
@@ -178,11 +187,10 @@ def flame_lr_tree(cfg: Config, flame: Optional[FlameTrainable] = None) -> FlameT
     )
 
 
-def _check_supported(model, cfg: Config) -> None:
-    if model is None:
-        raise NotImplementedError("make_train_step: only the FLAME-bound step is ported")
+def _check_supported(cfg: Config) -> None:
     if not (cfg.pipeline.use_sorted and cfg.pipeline.use_pallas):
-        raise NotImplementedError("make_train_step: only the sorted pipeline is ported")
+        raise NotImplementedError("make_train_step: only the sorted pipeline is ported "
+                                  "(ROADMAP queue A item 3)")
 
 
 def _leaves(tree):
@@ -196,43 +204,57 @@ def _grads(leaves):
     return tree_map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad, leaves)
 
 
-def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
+def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
                     spatial_lr_scale: float = 1.0):
-    """Build the FLAME-bound train step.
+    """Build the train step: FLAME-bound, or unbound with `model=None`.
 
     Call: step(state, gt_image [H, W, 3], camera, timestep (int), bg_color [3],
     sh_degree) → StepOutput(new state, metrics (0-dim tensors), image). The
-    given state is not modified.
+    given state is not modified. An unbound step ignores `timestep`.
     """
-    _check_supported(model, cfg)
+    _check_supported(cfg)
     o = cfg.opt
-    faces = model.faces
+    use_flame = model is not None
+    faces = model.faces if use_flame else None
     # The region tables clipped to the model's vertex count
-    # (`vid_by_region`), as device index tensors built once.
+    # (`vid_by_region`), as device index tensors built once; unbound, the
+    # heuristic prior, built once an image size.
     region_idx = None
-    if o.use_region_adaptive_loss:
+    heuristic_maps: dict = {}
+    if o.use_region_adaptive_loss and use_flame:
         region_idx = inn.region_index_tensors(
             {k: model.vid_by_region([k]) for k in ("eyes_left", "eyes_right", "mouth", "nose")
              if k in model.assets.vertex_masks}, faces.device)
 
-    def geometry(state: TrainState, params: GaussianParams, flame: FlameTrainable, ts: int,
-                 camera: Camera, sh_degree: int):
-        fp = FlameParams(
-            shape=state.flame_static.shape,
-            expr=flame.expr[ts][None], rotation=flame.rotation[ts][None],
-            neck=flame.neck[ts][None], jaw=flame.jaw[ts][None], eyes=flame.eyes[ts][None],
-            translation=flame.translation[ts][None],
-            static_offset=state.flame_static.static_offset,
-            dynamic_offset=None if flame.dynamic_offset is None
-            else flame.dynamic_offset[ts][None],
-        )
-        verts, verts_cano = model(fp, return_verts_cano=True)
-        frames = face_frames(verts[0], faces)
+    def heuristic_map(h: int, w: int, device) -> torch.Tensor:
+        if (h, w) not in heuristic_maps:
+            heuristic_maps[h, w] = inn.heuristic_weight_map(
+                h, w, o.region_weight_eyes, o.region_weight_mouth, o.region_weight_nose,
+                o.region_weight_face, device=device)
+        return heuristic_maps[h, w]
+
+    def geometry(state: TrainState, params: GaussianParams, flame: Optional[FlameTrainable],
+                 ts: int, camera: Camera, sh_degree: int):
+        frames = None
+        if use_flame:
+            fp = FlameParams(
+                shape=state.flame_static.shape,
+                expr=flame.expr[ts][None], rotation=flame.rotation[ts][None],
+                neck=flame.neck[ts][None], jaw=flame.jaw[ts][None], eyes=flame.eyes[ts][None],
+                translation=flame.translation[ts][None],
+                static_offset=state.flame_static.static_offset,
+                dynamic_offset=None if flame.dynamic_offset is None
+                else flame.dynamic_offset[ts][None],
+            )
+            verts, verts_cano = model(fp, return_verts_cano=True)
+            frames = face_frames(verts[0], faces)
         wg = world_gaussians(params, state.aux, frames)
         proj = project_from_params(wg.means, wg.scales, wg.quats, camera, alive=wg.alive)
         colors = view_colors(wg.means, wg.sh, camera, sh_degree)
         opac_eff = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
         screen = (proj.mean2d, proj.conic, colors, opac_eff)
+        if not use_flame:   # no binding, no regulariser
+            return screen, torch.zeros((), device=opac_eff.device), proj, {}, None
 
         # Binding regularisers (`train.py:229-243`).
         reg_terms = {}
@@ -281,6 +303,10 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
                     o.region_weight_mouth, o.region_weight_nose)
             losses = {"l1": weighted_l1_loss(img, gt_image, wmap[..., None])
                       * (1.0 - o.lambda_dssim)}
+        elif o.use_region_adaptive_loss:
+            wmap = heuristic_map(h, w, img.device)
+            losses = {"l1": weighted_l1_loss(img, gt_image, wmap[..., None])
+                      * (1.0 - o.lambda_dssim)}
         else:
             losses = {"l1": l1_loss(img, gt_image) * (1.0 - o.lambda_dssim)}
         chw = img.permute(2, 0, 1)
@@ -314,8 +340,8 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
             screen_in = [x.detach().requires_grad_() for x in screen]
             with record_function("train/image_fwd"):
                 img_total, loss_terms, img, plan = image_loss(
-                    screen_in, color, proj_sg, gt_image, camera, bg_color, verts.detach(),
-                    state.contrastive)
+                    screen_in, color, proj_sg, gt_image, camera, bg_color,
+                    None if verts is None else verts.detach(), state.contrastive)
             with record_function("train/image_bwd"):
                 g_all = torch.autograd.grad(img_total, screen_in + color_leaves)
             g_screen, g_color = g_all[:4], iter(g_all[4:])
@@ -324,18 +350,24 @@ def make_train_step(model: FlameModel, cfg: Config, tile_cfg: TileConfig,
                 aux_new = add_densification_stats(state.aux, g_screen[0], proj_sg.radius,
                                                   camera.width, camera.height)
             # One backward: screen cotangents and a unit cotangent on the
-            # regularisers, into the Gaussian parameters and FLAME.
+            # regularisers (none unbound), into the Gaussian parameters and
+            # FLAME.
+            outs, cots = [*screen], [*g_screen]
+            if reg_total.requires_grad:
+                outs.append(reg_total)
+                cots.append(torch.ones_like(reg_total))
             with record_function("train/geometry_bwd"):
-                torch.autograd.backward([*screen, reg_total],
-                                        [*g_screen, torch.ones_like(reg_total)])
+                torch.autograd.backward(outs, cots)
 
         with record_function("train/adam"):
             lr_tree = gaussian_lr_tree(state.params, state.adam.step + 1, cfg, spatial_lr_scale)
             new_params, new_adam = adam_update(state.params, _grads(params), state.adam,
                                                lr_tree)
-            new_flame, new_flame_adam = adam_update(state.flame, _grads(flame),
-                                                    state.flame_adam,
-                                                    flame_lr_tree(cfg, state.flame))
+            new_flame, new_flame_adam = state.flame, state.flame_adam
+            if flame is not None:
+                new_flame, new_flame_adam = adam_update(state.flame, _grads(flame),
+                                                        state.flame_adam,
+                                                        flame_lr_tree(cfg, state.flame))
             new_color, new_color_adam = state.color_net, state.color_adam
             if color is not None:
                 new_color, new_color_adam = adam_update(

@@ -83,10 +83,37 @@ def test_readers_match_jax(dataset, tmp_path):
     (blender / "transforms_train.json").write_text(json.dumps(meta))
     recs = treaders.read_cameras_from_transforms(str(blender), "transforms_train.json", False)
     assert (recs[0].width, recs[0].height) == (64, 48)
-    # COLMAP scenes wait for data/colmap.py.
-    (tmp_path / "colmap" / "sparse").mkdir(parents=True)
-    with pytest.raises(NotImplementedError):
-        TScene(str(tmp_path / "colmap"), device="cpu")
+    # The same views as a COLMAP scene (written by the port), read by both.
+    from gaussianavatars_torch.data import colmap as tcolmap
+
+    colmap = tmp_path / "colmap"
+    sparse = colmap / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    shutil.copytree(os.path.join(root, "images"), colmap / "images")
+    recs = t_info.train_cameras + t_info.test_cameras
+    w, h = recs[0].width, recs[0].height
+    fx, fy = treaders.fov_to_focal(recs[0].fovx, w), treaders.fov_to_focal(recs[0].fovy, h)
+    tcolmap.write_cameras_binary(
+        {1: tcolmap.ColmapCamera(1, "PINHOLE", w, h, np.array([fx, fy, w / 2, h / 2]))},
+        str(sparse / "cameras.bin"))
+    tcolmap.write_images_binary({i + 1: tcolmap.ColmapImage(
+        i + 1, tcolmap.rotmat_to_qvec(r.R.T), r.T, 1, os.path.basename(r.image_path),
+        np.zeros((0, 2)), np.zeros((0,), np.int64)) for i, r in enumerate(recs)},
+        str(sparse / "images.bin"))
+    pcd = t_info.point_cloud
+    tcolmap.write_points3d_binary(tcolmap.ColmapPoints(
+        pcd.points[:500], (pcd.colors[:500] * 255).astype(np.uint8), np.zeros(500)),
+        str(sparse / "points3D.bin"))
+    t_scene, j_scene = TScene(str(colmap), device="cpu"), JScene(str(colmap))
+    assert t_scene.kind == "colmap" and t_scene.cameras_extent == j_scene.cameras_extent
+    for split in ("train", "test"):
+        tc, jc = t_scene.cameras(split), j_scene.cameras(split)
+        assert len(tc) == len(jc) and len(t_scene.cameras("train")) == len(recs) - 1
+        for a, b in zip(tc, jc):
+            assert (a.width, a.height, a.image_name) == (b.width, b.height, b.image_name)
+            np.testing.assert_allclose(a.full_proj.numpy(), np.asarray(b.full_proj), atol=1e-6)
+    np.testing.assert_array_equal(t_scene.info.point_cloud.colors,
+                                  j_scene.info.point_cloud.colors)
 
 
 def test_scene_cameras_flame_table_and_cameras_json(dataset, tmp_path):

@@ -364,3 +364,63 @@ def test_adam_update_makes_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     assert not [w for w in caught if "synchroniz" in str(w.message)]
     assert int(state.step) == 1 and not torch.equal(new.weights[0], net.weights[0])
+
+
+def test_knn_on_card_matches_cpu(cuda_device):
+    """`ops/knn.mean_sq_dist_3nn` on the card against the CPU on 20,000
+    points (20 blocks, duplicates included): rtol 1e-4. The products are
+    elementwise, so the two devices round them alike."""
+    from gaussianavatars_torch.ops.knn import mean_sq_dist_3nn
+
+    g = torch.Generator().manual_seed(3)
+    pts = torch.rand((20_000, 3), generator=g) * 2.6 - 1.3
+    pts[10_000:10_050] = pts[:50]
+    cpu = mean_sq_dist_3nn(pts)
+    card = mean_sq_dist_3nn(pts.to(cuda_device)).cpu()
+    torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-7)
+
+
+def test_unbound_step_kernel_matches_plain_backward(cuda_device):
+    """One unbound (point-cloud) step on the card with the backward kernel
+    and with the plain backward compositor, from one state: each gradient
+    leaf (Adam's first moment, 0.1·g) within 1e-4 of the leaf's largest,
+    as phase 6 of chip_smoke.py holds the FLAME-bound step."""
+    from gaussianavatars_torch.models.gaussians import init_from_points
+    from gaussianavatars_torch.ops import rasterize_sorted as rs
+
+    rng = np.random.RandomState(5)
+    pts = rng.randn(4000, 3).astype(np.float32) * np.array([0.5, 0.4, 0.2], np.float32)
+    params, aux = init_from_points(pts, rng.uniform(0, 1, (4000, 3)), capacity=4096,
+                                   device=cuda_device)
+    # Visible, anisotropic and rotated (an isotropic splat has no rotation
+    # gradient).
+    g = torch.Generator().manual_seed(4)
+    params = dataclasses.replace(
+        params, logit_opacity=torch.where(aux.alive[:, None],
+                                          torch.ones_like(params.logit_opacity),
+                                          params.logit_opacity),
+        log_scales=params.log_scales + (torch.rand((4096, 3), generator=g) - 0.5).to(
+            cuda_device),
+        quats=torch.randn((4096, 4), generator=g).to(cuda_device))
+    cam = look_at_camera(eye=np.array([0.2, 0.1, -2.5]), target=np.zeros(3), fovy=0.8,
+                         width=320, height=240, device=cuda_device)
+    cfg = Config()
+    state = init_train_state(params, aux, cfg)
+    tile = probe_tile_config(None, params, aux, None, cam)
+    step = make_train_step(None, cfg, tile)
+    gt = torch.rand((240, 320, 3), generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    bg = torch.ones(3, device=cuda_device)
+    before = tcp.LAUNCHES["composite_pairs_bwd"]
+    out_k = step(state, gt, cam, 0, bg, 1)
+    assert tcp.LAUNCHES["composite_pairs_bwd"] == before + 1
+    rs.bwd_call_pairs = tcp.bwd_call_pairs_reference
+    try:
+        out_r = step(state, gt, cam, 0, bg, 1)
+    finally:
+        rs.bwd_call_pairs = tcp.bwd_call_pairs
+    assert out_k.state.flame is None and int(out_k.metrics["budget_overflow"]) == 0
+    torch.testing.assert_close(out_k.metrics["loss"], out_r.metrics["loss"], rtol=1e-6, atol=0)
+    for name, x in vars(out_r.state.adam.mu).items():
+        y = getattr(out_k.state.adam.mu, name)
+        assert float((y - x).abs().max()) <= 1e-4 * float(x.abs().max()), name
+        assert float(x.abs().max()) > 0 or name == "sh_rest", name

@@ -257,15 +257,15 @@ def test_loop_artifacts_and_resume(short_runs, models, tmp_path):
         np.testing.assert_array_equal(v.numpy(), saved[k].astype(v.numpy().dtype), err_msg=k)
     logs2 = tloop.train(h2, iterations=7, log_every=2, eval_every=0, prefetch_workers=2)
     assert [r["iteration"] for r in logs2] == [6, 7] and np.isfinite(logs2[-1]["loss"])
-    # Prefetcher path (no device cache) and unported options.
+    # Prefetcher path (no device cache), with the GUI service after every
+    # step and the finite checks from iteration 0 on.
     h3 = tloop.build_harness(cfg, model=tmodel, device="cpu")
-    logs3 = tloop.train(h3, iterations=2, log_every=1, device_cache_bytes=0, prefetch_workers=2)
-    assert len(logs3) == 2 and np.isfinite(logs3[-1]["loss"])
-    with pytest.raises(NotImplementedError):
-        tloop.train(h3, iterations=3, debug_from=0)
-    with pytest.raises(NotImplementedError):
-        tloop.train(h3, iterations=3, gui_service=lambda it: False)
-    with pytest.raises(NotImplementedError, match="unbound"):
+    served = []
+    logs3 = tloop.train(h3, iterations=2, log_every=1, device_cache_bytes=0, prefetch_workers=2,
+                        debug_from=0, gui_service=served.append)
+    assert len(logs3) == 2 and np.isfinite(logs3[-1]["loss"]) and served == [1, 2]
+    # Unbound training needs a point cloud, which a DynamicNerf dataset lacks.
+    with pytest.raises(ValueError, match="point cloud"):
         tloop.build_harness(dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, bind_to_mesh=False)), model=tmodel, device="cpu")
 
