@@ -138,6 +138,36 @@ non-zero):
                 split). Every run: rows 1 and 2 once a step (and row 1 once
                 an eval view, a served frame, a rendered view), its events
                 at its flags' cadences, the loss falling.
+ 17. table    — the table pipeline and the tools: (a) `render_tiled(
+                use_pallas=False)` at the benchmark frame with the default
+                `TileConfig` (capacity 1,024, 32 tiles a Gaussian: its
+                overflow reported) and with the table sized to the frame
+                (`probe_tile_config(table=True)`: no overflow; image and
+                alpha equal to the sorted kernel path's within 1e-5), and on
+                phase 12's fitted avatar through `AvatarViewerCore(
+                use_pallas=False)` at 802×550 (no overflow, the sorted core's
+                image within 1e-5, the CPU's table core within one alpha-
+                cutoff step, 1/255, on at most 1e-3 of the values); frames/s
+                of both paths in turns, the table compositor's device ms
+                and launches; (b) one table step against the sorted step
+                on the same state (the benchmark state and the fitted one,
+                each with its sized table; loss and Adam's first moments
+                within 1e-4), steps/s of both, kernels a step, peak memory;
+                (c) `tools.train_synthetic --no_pallas` (802×550, 4 × 4
+                views, 80 iterations) at 3/4 of the initial fullest tile:
+                the capacity doubled once, the loss falling, rows 1 and 2
+                never launched; (d) `tools.stage_timings --iters 20` with
+                and without `--no_pallas`; (e) the H100's primitive rates
+                (`utils.roofline.measure_primitive_rates`) and both
+                rooflines at the benchmark frame against the measured
+                frames/s and steps/s, every share of speed of light at most
+                1.05; (f) `utils.profiling.trace` around 3 steps (every
+                `train/*` range and both kernels' names in the trace) and
+                `StepTimer`; (g) `tools.local_viewer --headless` on phase
+                12's model directory (equal byte for byte to
+                `AvatarViewerCore`, the `--no_pallas` frame within 1/255)
+                and `tools.remote_viewer --headless` taking 2 frames from a
+                `TrainingGuiServer`.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -2726,6 +2756,557 @@ def phase_cli(card, fitted) -> dict:
     return got
 
 
+# --- phase 17: the table pipeline, the stage timings, the roofline, the
+# profiler and the two viewer tools ------------------------------------------
+
+TABLE_DIR = os.path.join("build", "chip_smoke", "table")
+N_TABLE_FRAMES = 30      # frames of each path in the table/sorted serving timing
+N_TABLE_STEPS = 5        # steps of each path in the fitted table/sorted step timing
+N_TABLE_STEPS_BENCH = 2  # the same at the benchmark frame (~1.5 s a table step)
+# The table fit: `train_synthetic --no_pallas` at 802×550 on 4 timesteps ×
+# 4 cameras, 80 iterations, the tiles a Gaussian probed on the initial
+# state's train views and a capacity of 3/4 of its fullest tile: the first
+# window overflows and the loop doubles the capacity once, to 1.5× it.
+TABLE_FIT_FLAGS = ("--no_pallas", "--width", "802", "--height", "550", "--capacity", "65536",
+                   "--per_face", "2", "--timesteps", "4", "--cameras", "4",
+                   "--log_every", "15", "--eval_every", "0")
+TABLE_FIT_ITERS = 80
+TABLE_IMG_ATOL = 1e-5    # tests/test_torch_rasterize_tiled.py: table = sorted = JAX at 1e-5
+# The card against the CPU on a whole frame: the two round exp and the
+# FLAME forward differently by an ulp, which can move a Gaussian's alpha
+# across the 1/255 cutoff at a pixel; that pixel then moves by up to
+# 1/255 · T · colour. So at most 1/255 anywhere, and above TABLE_IMG_ATOL
+# on at most 1e-3 of the values (3.83e-3 at one pixel of phase 12's fitted view on an
+# NVIDIA H100 80GB HBM3).
+CARD_CPU_MAX = 1.0 / 255.0 + 1e-6
+CARD_CPU_SHARE = 1e-3
+TABLE_DEVICE = "cuda"
+TABLE_GRAD_REL = 1e-4    # the same file: the gradients within 1e-4 of their largest
+STAGE_ITERS = 20
+ROOFLINE_SHARE_MAX = 1.05
+TRACE_RANGES = ("train/geometry_fwd", "train/image_fwd", "train/image_bwd",
+                "train/densify_stats", "train/geometry_bwd", "train/adam")
+
+
+def kernels_per_call(fn, calls: int = 3) -> float:
+    """CUDA kernels a call of `fn` launches (torch.profiler's device events,
+    the compositor kernels' ctypes launches included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.events()
+               if e.device_type == cuda and not e.is_user_annotation) / calls
+
+
+def host_rate(fn, n: int) -> float:
+    """Calls a second of `fn` over `n` calls, host clock, synchronised at
+    both ends."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def table_render(scene, flp, use_pallas: bool, tile=None):
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.rasterize_tiled import render_tiled
+
+    model, params, aux, cam = scene["model"], scene["params"], scene["aux"], scene["cam"]
+    wg = world_gaussians(params, aux, face_frames(model(flp)[0], model.faces))
+    return render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, cam,
+                        torch.zeros(3, device=cam.world_view.device), sh=wg.sh, sh_degree=3,
+                        alive=wg.alive, cfg=tile or scene["tile"], use_pallas=use_pallas)
+
+
+def table_binning(scene, tile):
+    """The benchmark frame's table binning with `tile`, and the largest
+    bbox footprint (tiles) of a live Gaussian."""
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.projection import project_from_params
+    from gaussianavatars_torch.ops.rasterize_tiled import bin_gaussians
+    from gaussianavatars_torch.ops.sort_binning import bbox_tiles
+
+    model, params, aux, cam = scene["model"], scene["params"], scene["aux"], scene["cam"]
+    wg = world_gaussians(params, aux, face_frames(model(scene["fl"])[0], model.faces))
+    proj = project_from_params(wg.means, wg.scales, wg.quats, cam, alive=wg.alive)
+    opac = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
+    _x, _y, _bw, ntiles, _ny, _nx = bbox_tiles(proj, cam.height, cam.width, tile.tile_h,
+                                               tile.tile_w, opacity=opac)
+    footprint = int(torch.where(proj.mask, ntiles, torch.zeros_like(ntiles)).max())
+    return bin_gaussians(proj, cam.height, cam.width, tile, opacity=opac), footprint
+
+
+def table_frame_numbers(scene, tile, label: str) -> dict:
+    """The table render at the benchmark frame with `tile`: its overflow,
+    frames/s against the sorted path's in turns, and the compositor's
+    device ms and launches (CUDA events and the profiler, a forward on the
+    frame's fixed slots)."""
+    from gaussianavatars_torch.ops import rasterize_tiled as rt
+
+    binned, footprint = table_binning(scene, tile)
+    poses = scene["poses"]
+    rates = {}
+    n = N_TABLE_FRAMES if min(int(binned.counts.max()), tile.capacity) <= 1024 else 3
+    for name, use_pallas in (("table", False), ("sorted", True), ("table_again", False)):
+        rates[name] = host_rate(lambda i, u=use_pallas: table_render(
+            scene, poses[i % len(poses)], u, tile), n)
+    calls = []
+    real = rt.composite_tiles
+
+    def spy(*a):
+        calls.append(a)
+        return real(*a)
+
+    rt.composite_tiles = spy
+    try:
+        table_render(scene, scene["fl"], False, tile)
+    finally:
+        rt.composite_tiles = real
+    slots = calls[0]
+    fixed = lambda: real(*slots)   # noqa: E731
+    return dict(label=label, capacity=tile.capacity,
+                max_tiles_per_gaussian=tile.max_tiles_per_gaussian,
+                overflow=int(binned.overflow), budget_overflow=int(binned.budget_overflow),
+                fullest_tile=int(binned.counts.max()), largest_footprint=footprint,
+                pairs_binned=int(binned.counts.sum()), slots_composited=slots[4].shape[1],
+                frames_per_s=rates, frames_timed=n, compositor_device_ms=cuda_ms(fixed, 3),
+                compositor_launches_per_frame=kernels_per_call(fixed, 2),
+                frame_launches=kernels_per_call(
+                    lambda: table_render(scene, scene["fl"], False, tile), 2))
+
+
+def table_phase_render(card, scene, fitted_ply: str) -> dict:
+    """17a: `render_tiled(use_pallas=False)`. At the benchmark frame with
+    the default `TileConfig` (its overflow reported) and with a table
+    sized to the frame (no overflow; image and alpha against the sorted
+    kernel path); on the fitted avatar (phase 12) through
+    `AvatarViewerCore(use_pallas=False)` with the default table, against
+    the sorted core and the CPU's table core."""
+    from gaussianavatars_torch.ops.rasterize_tiled import TileConfig
+    from gaussianavatars_torch.render import probe_tile_config
+    from gaussianavatars_torch.viewers.local import AvatarViewerCore
+
+    default = scene["tile"]
+    assert (default.capacity, default.max_tiles_per_gaussian) == (
+        TileConfig().capacity, TileConfig().max_tiles_per_gaussian)
+    res = {"default": table_frame_numbers(scene, default, "default TileConfig")}
+    # The table that holds the frame (`probe_tile_config(table=True)`).
+    sized = probe_tile_config(scene["model"], scene["params"], scene["aux"], scene["fl"],
+                              scene["cam"], default.tile_h, default.tile_w, table=True)
+    res["sized"] = table_frame_numbers(scene, sized, "sized to the frame")
+    res["sized_counts"] = table_binning(scene, sized)[0].counts
+    table = table_render(scene, scene["fl"], False, sized)
+    sorted_ = table_render(scene, scene["fl"], True)
+    res["benchmark_errors"] = dict(
+        table_vs_sorted_color=float((table.color - sorted_.color).abs().max()),
+        table_vs_sorted_alpha=float((table.alpha - sorted_.alpha).abs().max()))
+
+    # The fitted avatar through the viewer core, at the orbit camera (the
+    # table cores size their table to that view).
+    cores = {name: AvatarViewerCore(fitted_ply, use_pallas=use_pallas, device=dev)
+             for name, use_pallas, dev in (("table", False, TABLE_DEVICE),
+                                           ("sorted", None, TABLE_DEVICE),
+                                           ("table_cpu", False, "cpu"))}
+    imgs = {}
+    for name, core in cores.items():
+        cam = core.cam.to_camera(device=core.device)
+        imgs[name] = core.render_tensor(core.flame_params_at(0), cam).cpu()
+    tcore = cores["table"]
+    fit_scene = dict(model=tcore.model, params=tcore.params, aux=tcore.aux,
+                     cam=tcore.cam.to_camera(device=TABLE_DEVICE), fl=tcore.flame_params_at(0))
+    fit_binned, fit_fp = table_binning(fit_scene, tcore.tile)
+    fcam = fit_scene["cam"]
+    rates = {}
+    for name in ("table", "sorted", "table_again"):
+        core = cores[name.replace("_again", "")]
+        rates[name] = host_rate(lambda i, c=core: c.render_tensor(
+            c.flame_params_at(0), fcam), N_TABLE_FRAMES)
+    res["fitted"] = dict(
+        gaussians=tcore.num_points, overflow=int(fit_binned.overflow),
+        budget_overflow=int(fit_binned.budget_overflow),
+        fullest_tile=int(fit_binned.counts.max()), largest_footprint=fit_fp,
+        table_vs_sorted_color=float((imgs["table"] - imgs["sorted"]).abs().max()),
+        card_vs_cpu_color=float((imgs["table"] - imgs["table_cpu"]).abs().max()),
+        card_vs_cpu_share_above_atol=float(
+            ((imgs["table"] - imgs["table_cpu"]).abs() > TABLE_IMG_ATOL).float().mean()),
+        frames_per_s=rates,
+        frame_launches=kernels_per_call(lambda: tcore.render_tensor(tcore.flame_params_at(0),
+                                                                    fcam), 2))
+    log("table/render", **{k: v for k, v in res.items() if k != "sized_counts"},
+        card=card["nvidia_smi"])
+    errs = [res["benchmark_errors"]["table_vs_sorted_color"],
+            res["benchmark_errors"]["table_vs_sorted_alpha"],
+            res["fitted"]["table_vs_sorted_color"]]
+    f = res["fitted"]
+    if not (res["sized"]["overflow"] == res["sized"]["budget_overflow"] == 0
+            and f["overflow"] == f["budget_overflow"] == 0
+            and max(errs) <= TABLE_IMG_ATOL and f["card_vs_cpu_color"] <= CARD_CPU_MAX
+            and f["card_vs_cpu_share_above_atol"] <= CARD_CPU_SHARE):
+        raise AssertionError(f"table/render: {res}")
+    res["sized_tile"] = sized
+    return res
+
+
+def table_step_pair(model, cfg0, tile_t, tile_s, state0, gt, cam, bg, ts: int, n_steps: int):
+    """One table-path step against the sorted step on `state0` (loss and
+    Adam's first moments), then steps/s of both in turns, kernels a step
+    and the peak memory above the start."""
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    cfg_t = dataclasses.replace(cfg0, pipeline=dataclasses.replace(cfg0.pipeline,
+                                                                   use_pallas=False))
+    step_t = make_train_step(model, cfg_t, tile_t)
+    step_s = make_train_step(model, cfg0, tile_s)
+    out_t = step_t(state0, gt, cam, ts, bg, 3)
+    out_s = step_s(state0, gt, cam, ts, bg, 3)
+    loss_rel = abs(float(out_t.metrics["loss"]) / float(out_s.metrics["loss"]) - 1.0)
+    mu_err = leaf_errors(out_t.state.adam.mu, out_s.state.adam.mu)
+    if state0.flame_adam is not None:
+        mu_err.update({f"flame.{k}": v for k, v in
+                       leaf_errors(out_t.state.flame_adam.mu, out_s.state.flame_adam.mu).items()})
+    rates, peak = {}, {}
+    for name, step in (("table", step_t), ("sorted", step_s), ("table_again", step_t)):
+        st = {"s": state0}
+
+        def run(i, step=step, st=st):
+            st["s"] = step(st["s"], gt, cam, ts, bg, 3).state
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rates[name] = host_rate(run, n_steps)
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return dict(loss_rel_err=loss_rel, adam_mu_rel_err=mu_err,
+                overflow=int(out_t.metrics["overflow"]),
+                budget_overflow=int(out_t.metrics["budget_overflow"]),
+                steps_per_s=rates, steps_timed=n_steps, peak_mem_above_start_mib=peak,
+                table_kernels_per_step=kernels_per_call(
+                    lambda: step_t(state0, gt, cam, ts, bg, 3), 1),
+                sorted_kernels_per_step=kernels_per_call(
+                    lambda: step_s(state0, gt, cam, ts, bg, 3), 1))
+
+
+def table_phase_step(card, scene, setup, harness, sized_tile) -> dict:
+    """17b: the table step against the sorted step on the same state: the
+    benchmark state and phase 12's fitted state on its first train view,
+    each with the table sized to its frame."""
+    from gaussianavatars_torch.data.pipeline import load_view
+    from gaussianavatars_torch.render import probe_tile_config
+    from gaussianavatars_torch.training import loop
+
+    cfg0, gt, bg, state0 = setup
+    res = {"benchmark": table_step_pair(scene["model"], cfg0, sized_tile, scene["tile"],
+                                        state0, gt, scene["cam"], bg, 0, N_TABLE_STEPS_BENCH)}
+    cam = harness.scene.cameras("train")[0]
+    rec = harness.scene.records("train")[0]
+    gt_f = torch.from_numpy(load_view(rec, cam)).to(TABLE_DEVICE)
+    live = harness.live_tile_config
+    ts = int(cam.timestep or 0)
+    probed = probe_tile_config(harness.model, harness.state.params, harness.state.aux,
+                               loop._flame_params(harness.state, ts), cam, live.tile_h,
+                               live.tile_w, table=True)
+    tile_t = dataclasses.replace(live, capacity=probed.capacity,
+                                 max_tiles_per_gaussian=probed.max_tiles_per_gaussian)
+    res["fitted"] = table_step_pair(harness.model, harness.cfg, tile_t, live, harness.state,
+                                    gt_f, cam, torch.zeros(3, device=TABLE_DEVICE), ts,
+                                    N_TABLE_STEPS)
+    res["fitted"]["table"] = [tile_t.capacity, tile_t.max_tiles_per_gaussian]
+    res["benchmark"]["table"] = [sized_tile.capacity, sized_tile.max_tiles_per_gaussian]
+    log("table/step", **res, card=card["nvidia_smi"])
+    for r in res.values():
+        if not (r["loss_rel_err"] <= TABLE_GRAD_REL
+                and max(r["adam_mu_rel_err"].values()) <= TABLE_GRAD_REL
+                and r["overflow"] == 0 and r["budget_overflow"] == 0):
+            raise AssertionError(f"table/step: the table step differs from the sorted one: {res}")
+    return res
+
+
+def fullest_train_tile(harness) -> tuple:
+    """(the most Gaussians binned to one tile, the probed tiles a Gaussian)
+    over the train views of the harness's state, no bbox cut."""
+    from gaussianavatars_torch.render import probe_tile_config
+    from gaussianavatars_torch.training import loop
+
+    st, model = harness.state, harness.model
+    fullest = tiles = 0
+    for cam in harness.scene.cameras("train"):
+        fp = loop._flame_params(st, int(cam.timestep or 0))
+        t = probe_tile_config(model, st.params, st.aux, fp, cam, table=True)
+        scene = dict(model=model, params=st.params, aux=st.aux, cam=cam, fl=fp)
+        counts = table_binning(scene, dataclasses.replace(t, capacity=1))[0].counts
+        fullest = max(fullest, int(counts.max()))
+        tiles = max(tiles, t.max_tiles_per_gaussian)
+    return fullest, tiles
+
+
+def table_phase_fit(card) -> dict:
+    """17c: `tools.train_synthetic --no_pallas`; the capacity doubles once,
+    the loss falls, rows 1 and 2 never launch. A run of 0 iterations writes
+    the dataset (which the fit then reuses) and gives the initial state."""
+    from gaussianavatars_torch.tools import train_synthetic as ts
+
+    workdir = os.path.join(TABLE_DIR, "fit")
+    shutil.rmtree(workdir, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    h0, _r0 = ts.run(ts.parse_args([*TABLE_FIT_FLAGS, "--iterations", "0",
+                                    "--workdir", workdir]))
+    # The tiles a Gaussian of the probed table (a power of two at or above
+    # every bbox: no budget overflow) and 3/4 of the initial fullest tile.
+    fullest, tiles = fullest_train_tile(h0)
+    capacity = 3 * fullest // 4
+    del h0
+    args = ts.parse_args([*TABLE_FIT_FLAGS, "--iterations", str(TABLE_FIT_ITERS),
+                          "--capacity_per_tile", str(capacity),
+                          "--max_tiles_per_gaussian", str(tiles), "--workdir", workdir])
+    harness, result = ts.run(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = cp_launches()
+    logs = result["logs"]
+    grows = [e for e in harness.events if e["kind"] in ("grow_table", "grow_tiers")]
+    capacity_grows = [e for e in grows if e["overflow"] > 0]
+    live = harness.live_tile_config
+    res = dict(launches=launches, fullest_initial_tile=fullest, tiles_per_gaussian=tiles,
+               capacity=capacity, grows=grows,
+               loss_by_log=[r["loss"] for r in logs],
+               overflow_by_log=[r["overflow"] for r in logs],
+               capacity_final=live.capacity, steps_per_s=args.iterations / result["train_s"],
+               between_events=rate_between_events(logs, harness.events),
+               eval_val=result.get("eval_val"), eval_untrained_val=result.get("eval_untrained_val"),
+               seconds=seconds)
+    log("table/fit", **res, card=card["nvidia_smi"])
+    ok = (not any(launches.values()) and len(capacity_grows) == 1
+          and all(e["kind"] == "grow_table" for e in grows)
+          and capacity_grows[0]["capacity"] == 2 * capacity
+          and live.capacity == 2 * capacity and loss_falls(logs))
+    if not ok:
+        raise AssertionError(f"table/fit: {res}")
+    return res
+
+
+def table_phase_stages(card) -> tuple:
+    """17d: `tools.stage_timings` on both pipelines; rows 1 and 2's
+    launches of the sorted run."""
+    from gaussianavatars_torch.tools import stage_timings
+
+    out = {}
+    reset_launches()
+    out["sorted"] = stage_timings.main(["--iters", str(STAGE_ITERS)])
+    launches = cp_launches()
+    reset_launches()
+    out["table"] = stage_timings.main(["--iters", str(STAGE_ITERS), "--no_pallas"])
+    table_launches = cp_launches()
+    log("table/stage_timings", ms=out, iters=STAGE_ITERS, card=card["nvidia_smi"])
+    bad = {p: k for p, rows in out.items() for k, v in rows.items()
+           if not (math.isfinite(v) and v > 0)}
+    if bad or len(out["sorted"]) != 8 or len(out["table"]) != 8 or any(table_launches.values()):
+        raise AssertionError(f"table/stage_timings: {bad}, table launches {table_launches}")
+    return out, launches
+
+
+def table_phase_roofline(card, scene, serving_fps, train_steps_s, render_res, step_res):
+    """17e: the H100's primitive rates, and both rooflines at the benchmark
+    frame against the measured frames/s and steps/s (the table path's with
+    the table sized to the frame)."""
+    from gaussianavatars_torch.utils.roofline import (
+        ChipSpec, compositor_roofline, measure_primitive_rates, sorted_roofline,
+    )
+
+    rates = measure_primitive_rates(TABLE_DEVICE)
+    log("table/primitive_rates", **rates, n=1 << 20, card=card["nvidia_smi"])
+    params, cam, tile = scene["params"], scene["cam"], scene["tile"]
+    sized = render_res["sized_tile"]
+    cap = params.capacity
+    p_px = tile.tile_h * tile.tile_w
+    counts_sorted = scene["plan_counts"].cpu().numpy()
+    counts_table = render_res["sized_counts"].cpu().numpy()
+    n_expand = tile.tier_spec(cap).expansion_size(cap)
+    measured = dict(serving_frames_per_s=serving_fps, train_steps_per_s=train_steps_s,
+                    table_frames_per_s=render_res["sized"]["frames_per_s"]["table"],
+                    table_steps_per_s=step_res["benchmark"]["steps_per_s"]["table"])
+    out = {}
+    for name, spec in (("default_spec", ChipSpec()),
+                       ("this_run", dataclasses.replace(ChipSpec(), **rates))):
+        srt = sorted_roofline(counts_sorted, p_px, cap, n_expand, cam.height, cam.width,
+                              chip=spec)
+        tab = compositor_roofline(counts_table, sized.capacity, p_px, cap,
+                                  sized.max_tiles_per_gaussian, cam.height, cam.width,
+                                  chip=spec)
+        shares = {
+            "sorted_render": serving_fps / srt["sol_render_fps"],
+            "sorted_train": train_steps_s / srt["sol_train_iters_s"],
+            "table_render": measured["table_frames_per_s"] / tab["sol_render_fps"],
+            "table_train": measured["table_steps_per_s"] / tab["sol_train_iters_s"],
+        }
+        out[name] = dict(sorted=srt, table=tab, share_of_speed_of_light=shares)
+    log("table/roofline", **out, measured=measured, table_capacity=sized.capacity,
+        table_tiles_per_gaussian=sized.max_tiles_per_gaussian, card=card["nvidia_smi"])
+    worst = max(v for r in out.values() for v in r["share_of_speed_of_light"].values())
+    if not worst <= ROOFLINE_SHARE_MAX:
+        raise AssertionError(f"table/roofline: a share of speed of light is {worst}")
+    return out
+
+
+def table_phase_profiler(card, scene, setup) -> dict:
+    """17f: `utils.profiling.trace` around 3 sorted steps, and `StepTimer`."""
+    from gaussianavatars_torch.training.trainer import make_train_step
+    from gaussianavatars_torch.utils.profiling import StepTimer, annotate, trace
+
+    cfg0, gt, bg, state0 = setup
+    cam = scene["cam"]
+    step = make_train_step(scene["model"], cfg0, scene["tile"])
+    log_dir = os.path.join(TABLE_DIR, "trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    st = state0
+    reset_launches()
+    with trace(log_dir):
+        for i in range(3):
+            with annotate("smoke/step"):
+                st = step(st, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+        torch.cuda.synchronize()
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    timer = StepTimer(sync_every=2)
+    samples = []
+    for i in range(5):
+        st = step(st, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
+        samples.append(timer.step(sync_on=st.params.means))
+    launches = cp_launches()
+    res = dict(trace_mib=os.path.getsize(path) / 2**20, events=len(names),
+               ranges={r: r in names for r in TRACE_RANGES + ("smoke/step",)},
+               kernels={k: any(k in n for n in names)
+                        for k in ("composite_pairs_fwd_kernel", "composite_pairs_bwd_kernel")},
+               step_timer_samples=samples, launches=launches)
+    log("table/profiler", **res, card=card["nvidia_smi"])
+    pattern = [s is not None for s in samples] == [False, True, False, True, False]
+    if not (all(res["ranges"].values()) and all(res["kernels"].values()) and pattern
+            and all(s > 0 for s in samples if s is not None)):
+        raise AssertionError(f"table/profiler: {res}")
+    return res
+
+
+def table_phase_viewers(card, harness) -> dict:
+    """17g: `tools.local_viewer --headless` on phase 12's model directory
+    (its frame equal byte for byte to `AvatarViewerCore`'s, the table
+    frame within 1/255), and `tools.remote_viewer --headless` taking 2
+    frames from a `TrainingGuiServer`."""
+    import threading
+
+    from PIL import Image
+
+    from gaussianavatars_torch.models import io
+    from gaussianavatars_torch.tools import local_viewer, remote_viewer
+    from gaussianavatars_torch.viewers.local import AvatarViewerCore
+    from gaussianavatars_torch.viewers.network_gui import TrainingGuiServer
+
+    model_dir = os.path.join(LOOP_WORKDIR, "model")
+    ply = io.checkpoint_ply_path(model_dir, io.find_latest_iteration(model_dir))
+    out_dir = os.path.join(TABLE_DIR, "viewers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    reset_launches()
+    frame = local_viewer.main([ply, "--headless", "--n_frames", "1", "--out_dir",
+                               os.path.join(out_dir, "kernel")])[0]
+    core = AvatarViewerCore(ply)
+    want = (np.clip(core.render(timestep=0), 0, 1) * 255).astype(np.uint8)
+    got = np.asarray(Image.open(frame).convert("RGB"))
+    table = local_viewer.main([ply, "--headless", "--n_frames", "1", "--no_pallas",
+                               "--out_dir", os.path.join(out_dir, "table")])[0]
+    got_t = np.asarray(Image.open(table).convert("RGB")).astype(int)
+    local = cp_launches()
+
+    reset_launches()
+    server = TrainingGuiServer("127.0.0.1", 0)
+    box = {}
+
+    def client():
+        try:
+            box["out"] = remote_viewer.main([
+                "--port", str(server.port), "--headless", "--n_frames", "2",
+                "--out_dir", os.path.join(out_dir, "remote")])
+        except Exception as e:   # noqa: BLE001 — re-raised below on the main thread
+            box["error"] = e
+
+    th = threading.Thread(target=client)
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        while th.is_alive() and time.perf_counter() - t0 < 120:
+            server.service(harness, 0)
+            time.sleep(0.002)
+        th.join(timeout=30)
+    finally:
+        server.close()
+    if "error" in box:
+        raise box["error"]
+    remote = cp_launches()
+    frames = [np.asarray(Image.open(p).convert("RGB")) for p, _ in box.get("out", [])]
+    live = int(harness.state.aux.alive.sum())
+    res = dict(local_equal=bool(np.array_equal(got, want)) and got.shape == (550, 802, 3),
+               local_nonzero=int((got > 0).any(-1).sum()),
+               table_max_diff=int(np.abs(got_t - got.astype(int)).max()),
+               local_launches=local, remote_frames=len(frames),
+               remote_stats=[s for _p, s in box.get("out", [])], remote_launches=remote,
+               seconds_remote=time.perf_counter() - t0)
+    log("table/viewers", **res)
+    if not (res["local_equal"] and res["local_nonzero"] > 0 and res["table_max_diff"] <= 1
+            and local["composite_pairs_fwd"] == 2 and res["remote_frames"] == 2
+            and remote["composite_pairs_fwd"] == 2
+            and all(s["num_points"] == live for s in res["remote_stats"])):
+        raise AssertionError(f"table/viewers: {res}")
+    return res, {k: local[k] + remote[k] for k in local}
+
+
+def phase_table(card, scene, setup, harness, serving_fps: float, train_steps_s: float) -> dict:
+    """Phase 17. Returns rows 1 and 2's launches on its paths."""
+    from gaussianavatars_torch.models import io
+
+    t0 = time.perf_counter()
+    seconds = {}
+    launches = dict.fromkeys(cp_launches(), 0)
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    model_dir = os.path.join(LOOP_WORKDIR, "model")
+    fitted_ply = io.checkpoint_ply_path(model_dir, io.find_latest_iteration(model_dir))
+    reset_launches()
+    with torch.no_grad():
+        render_res = part("render", lambda: table_phase_render(card, scene, fitted_ply))
+    add(cp_launches())
+    reset_launches()
+    step_res = part("step", lambda: table_phase_step(card, scene, setup, harness,
+                                                     render_res["sized_tile"]))
+    add(cp_launches())
+    part("fit", lambda: table_phase_fit(card))
+    add(part("stage_timings", lambda: table_phase_stages(card))[1])
+    part("roofline", lambda: table_phase_roofline(card, scene, serving_fps, train_steps_s,
+                                                  render_res, step_res))
+    add(part("profiler", lambda: table_phase_profiler(card, scene, setup))["launches"])
+    add(part("viewers", lambda: table_phase_viewers(card, harness))[1])
+    log("table/seconds", seconds=time.perf_counter() - t0, parts=seconds)
+    return launches
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -2968,14 +3549,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cli_launches = phase_cli(card, harness)
     log("cli/seconds", seconds=time.perf_counter() - t0)
+
+    # --- 17. the table pipeline, stage timings, roofline, profiler, viewers ----
+    table_scene = dict(model=model, params=params, aux=aux, fl=fl, cam=cam, tile=cfg,
+                       poses=poses, plan_counts=plan0.counts)
+    table_launches = phase_table(card, table_scene, setup, harness, N_FRAMES / wall_s,
+                                 train["steps_per_s"])
     del harness
 
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training, the loop, the replay, the
-    # innovations' loop and step, and the CLI.
+    # innovations' loop and step, the CLI, and phase 17's sorted paths
+    # (the serving and step comparisons, the stage timings, the profiled
+    # steps, the two viewer tools).
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
                 loop_res["launches"], replay_launches, innov_loop["launches"],
-                innov_step["launches"], cli_launches):
+                innov_step["launches"], cli_launches, table_launches):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)

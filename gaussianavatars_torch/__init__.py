@@ -21,8 +21,13 @@ them (`tools.kernel_ab`); the host loop that fits an avatar
 with the viewer server of `viewers.network_gui` and the debug hooks of
 `utils.debug`; Blender, DynamicNerf and COLMAP datasets); and the replay of a trained avatar: loading
 (`models.io`), offline render and metrics with LPIPS (`tools.render`,
-`tools.metrics`, `metrics`), the headless viewer core
-(`viewers.local.AvatarViewerCore`) and the FPS benchmarks.
+`tools.metrics`, `metrics`), the viewer core
+(`viewers.local.AvatarViewerCore`), the viewers over it and over the
+training server (`tools.local_viewer`, `tools.remote_viewer`) and the FPS
+benchmarks; the table pipeline (`use_pallas=False`: the padded-table
+binning and compositor of `ops.rasterize_tiled`) through the render, the
+step, the loop and the tools; and the profiling tools
+(`utils.profiling`, `utils.roofline`, `tools.stage_timings`).
 """
 
 __version__ = "0.1.0"

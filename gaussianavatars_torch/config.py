@@ -39,17 +39,18 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """`PipelineParams` equivalent (`arguments/__init__.py:69-74`): the
-    sorted pipeline with the compositor kernels is the only one ported;
-    any other setting raises in `make_train_step`.
+    """`PipelineParams` equivalent (`arguments/__init__.py:69-74`).
 
-    Tier budgets of the sorted pipeline: every Gaussian gets `base_budget`
-    expansion slots; each (count, budget) tier gives the `count`
-    footprint-heaviest Gaussians slots up to `budget`. Empty tiers are
-    probed from the first training frame (`training.loop.probe_tier_budgets`)
-    and grown on overflow. `capacity_per_tile` and `max_tiles_per_gaussian`
-    size the JAX package's padded-table path, which is not ported; they are
-    kept so that a configuration reads and writes as the JAX package's.
+    `use_sorted` and `use_pallas` (both on) select the sorted pipeline with
+    the compositor kernels; either off selects the padded-table pipeline
+    (`ops/rasterize_tiled.bin_gaussians` and `composite_tiles`), which
+    composites at most `capacity_per_tile` Gaussians a tile and bins at
+    most `max_tiles_per_gaussian` tiles a Gaussian. Tier budgets of the
+    sorted pipeline: every Gaussian gets `base_budget` expansion slots;
+    each (count, budget) tier gives the `count` footprint-heaviest
+    Gaussians slots up to `budget`. Empty tiers are probed from the first
+    training frame (`training.loop.probe_tier_budgets`). The loop grows
+    whichever budget overflows.
     """
 
     tile_h: int = 32

@@ -24,7 +24,7 @@ from .models.flame.flame_model import FlameConfig, FlameModel, FlameParams, zero
 from .models.gaussians import GaussianAux, GaussianParams, init_bound, inverse_sigmoid, world_gaussians
 from .ops.projection import project_from_params
 from .ops.rasterize_dense import RenderOutput
-from .ops.rasterize_tiled import TileConfig, render_tiled
+from .ops.rasterize_tiled import TileConfig, bin_gaussians, render_tiled
 from .ops.sort_binning import bbox_tiles, probe_tiers
 
 WIDTH, HEIGHT = 802, 550
@@ -78,13 +78,20 @@ def build_scene(per_face: int = 9, seed: int = 0, width: int = WIDTH,
     return model, params, aux, fl, cam, n
 
 
+def pow2_at_least(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
 @torch.inference_mode()
 def probe_tile_config(model: Optional[FlameModel], params: GaussianParams, aux: GaussianAux,
                       flame_params: Optional[FlameParams], camera: Camera,
-                      tile_h: int = 32, tile_w: int = 32) -> TileConfig:
+                      tile_h: int = 32, tile_w: int = 32, table: bool = False) -> TileConfig:
     """Tier budgets sized from one frame's footprints (`probe_tiers`), as
     the JAX package's benchmark and training loop size theirs. `model=None`
-    probes an unbound avatar (no FLAME)."""
+    probes an unbound avatar (no FLAME). With `table`, the table
+    pipeline's budgets too: the powers of two at or above the frame's
+    largest bbox (`max_tiles_per_gaussian`) and its fullest tile
+    (`capacity`), so that the table cuts nothing on this frame."""
     frames = None
     if model is not None:
         frames = face_frames(model(flame_params)[0], model.faces)
@@ -94,8 +101,17 @@ def probe_tile_config(model: Optional[FlameModel], params: GaussianParams, aux: 
     _tx, _ty, _bw, ntiles, _nty, _ntx = bbox_tiles(
         proj, camera.height, camera.width, tile_h, tile_w, opacity=opac
     )
-    spec = probe_tiers(torch.where(proj.mask, ntiles, torch.zeros_like(ntiles)))
-    return TileConfig(tile_h=tile_h, tile_w=tile_w, base_budget=spec.base, tiers=spec.tiers)
+    ntiles = torch.where(proj.mask, ntiles, torch.zeros_like(ntiles))
+    spec = probe_tiers(ntiles)
+    cfg = TileConfig(tile_h=tile_h, tile_w=tile_w, base_budget=spec.base, tiers=spec.tiers)
+    if table:
+        tiles = pow2_at_least(int(ntiles.max()))
+        # Counts are taken before the capacity cap: a capacity of 1 bins all.
+        binned = bin_gaussians(proj, camera.height, camera.width, dataclasses.replace(
+            cfg, capacity=1, max_tiles_per_gaussian=tiles), opacity=opac)
+        cfg = dataclasses.replace(cfg, capacity=pow2_at_least(int(binned.counts.max())),
+                                  max_tiles_per_gaussian=tiles)
+    return cfg
 
 
 class AvatarRenderer:

@@ -7,12 +7,11 @@ frame. The frames are a host loop of renders (FLAME forward, binding,
 sorted binning, the forward compositor), synchronised at the end of each
 round and timed by the host clock, as the reference times them. Each
 frame's jaw is `jaw + s·1e-9` with `s` taken from the previous frame's
-image, so every frame depends on the one before.
+image, so every frame depends on the one before. `--no_pallas` renders
+through the table pipeline (`AvatarViewerCore(use_pallas=False)`).
 
     python -m gaussianavatars_torch.tools.fps_benchmark_demo POINT_CLOUD.ply \\
         [--n_iter 500] [--n_rounds 3] [--device cuda|cpu]
-
-`--no_pallas` raises: only the kernel pipeline is ported.
 """
 from __future__ import annotations
 

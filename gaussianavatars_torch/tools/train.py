@@ -13,11 +13,12 @@ server listens on `--port` (0: off) and is serviced after every step;
         --bind_to_mesh --eval [--flame_assets FLAME.npz] [--device cuda|cpu]
     python -m gaussianavatars_torch.tools.train -s data/lego -m output/lego -w --eval
 
-Flags that need a part of the JAX package not ported yet raise
-`NotImplementedError` and name the `ROADMAP.md` item: `--no_pallas`
-(queue A item 3); `--mesh`, `--distributed`, `--gauss_shard` and
-`--coordinator_address`, `--num_processes`, `--process_id` other than
-their defaults (item 5). `--steps_per_call` is accepted and does nothing:
+`--no_pallas` trains and evaluates through the table pipeline
+(`ops/rasterize_tiled.bin_gaussians` and `composite_tiles`). Flags that
+need a part of the JAX package not ported yet raise `NotImplementedError`
+and name the `ROADMAP.md` item: `--mesh`, `--distributed`,
+`--gauss_shard` and `--coordinator_address`, `--num_processes`,
+`--process_id` other than their defaults (item 5). `--steps_per_call` is accepted and does nothing:
 the port runs one step per iteration.
 """
 from __future__ import annotations
@@ -90,7 +91,7 @@ def parse_args(argv=None):
                         "backward compositor's contraction, float32 accumulation and "
                         "state (reference AMP, train.py:69-72)")
     p.add_argument("--no_pallas", action="store_true",
-                   help="the table pipelines: not ported (ROADMAP queue A item 3)")
+                   help="the table pipeline instead of the compositor kernels")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", type=str, default="",
                    help="multi-device mesh 'DATAxTILE': not ported (ROADMAP queue A item 5)")
@@ -111,9 +112,6 @@ def parse_args(argv=None):
 
 def check_supported(a) -> None:
     """Raise `NotImplementedError` for a flag whose path is not ported."""
-    if a.no_pallas:
-        raise NotImplementedError("--no_pallas: the table pipelines are not ported "
-                                  "(ROADMAP queue A item 3)")
     multi = {"--mesh": a.mesh != "", "--distributed": a.distributed,
              "--gauss_shard": a.gauss_shard,
              "--coordinator_address": a.coordinator_address != "",

@@ -20,8 +20,11 @@ innovations with the progressive milestones at 1/3 and 2/3 of the run;
 802×550, 24,000 iterations, 131,072 slots, 12 timesteps × 8 cameras,
 opacity resets every tenth of the run, all five innovations), whose
 `--json_out` result `tools/quality_report.py` turns into a report.
-`--no_pallas` raises (`NotImplementedError`): only the kernel pipeline is
-ported.
+`--no_pallas` renders the dataset and trains through the table pipeline
+(`ops/rasterize_tiled.bin_gaussians` and `composite_tiles`) with the JAX
+script's table budgets: 512 Gaussians a tile and 8 tiles a Gaussian
+(`--capacity_per_tile`, `--max_tiles_per_gaussian`: flags of the port),
+which the loop doubles on overflow.
 """
 from __future__ import annotations
 
@@ -64,7 +67,12 @@ def parse_args(argv=None):
     p.add_argument("--n_expr", type=int, default=20)
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--eval_every", type=int, default=500)
-    p.add_argument("--no_pallas", action="store_true")
+    p.add_argument("--no_pallas", action="store_true",
+                   help="the table pipeline instead of the compositor kernels")
+    p.add_argument("--capacity_per_tile", type=int, default=512,
+                   help="the table pipeline's Gaussians a tile (doubled on overflow)")
+    p.add_argument("--max_tiles_per_gaussian", type=int, default=8,
+                   help="the table pipeline's tiles a Gaussian (doubled on overflow)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--all_innovations", action="store_true")
     p.add_argument("--use_amp", action="store_true")
@@ -150,7 +158,8 @@ def write_dataset(a, model, params, aux):
                                  height=a.height, device=dev)
             tcfg = probe_tile_config(model, params, aux, fl, cam)
             out = render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, cam, bg, sh=wg.sh,
-                               sh_degree=0, alive=wg.alive, cfg=tcfg)
+                               sh_degree=0, alive=wg.alive, cfg=tcfg,
+                               use_pallas=not a.no_pallas)
             name = f"images/t{t:03d}_c{c}.png"
             _save_png(torch.clamp(out.color, 0, 1).cpu().numpy(), os.path.join(root, name))
             w2c = np.eye(4)
@@ -225,8 +234,9 @@ def make_config(a) -> Config:
             bind_to_mesh=True, capacity=a.capacity, n_shape=a.n_shape,
             n_expr=a.n_expr, add_teeth=True, eval=True, sh_degree=3,
         ),
-        pipeline=PipelineConfig(tile_h=32, tile_w=32, capacity_per_tile=512,
-                                max_tiles_per_gaussian=8),
+        pipeline=PipelineConfig(tile_h=32, tile_w=32, capacity_per_tile=a.capacity_per_tile,
+                                max_tiles_per_gaussian=a.max_tiles_per_gaussian,
+                                use_pallas=not a.no_pallas),
         opt=OptimizationConfig(
             iterations=a.iterations,
             position_lr_max_steps=a.iterations,
@@ -254,8 +264,6 @@ def run(a):
         raise SystemExit("--cameras must be >= 2 (camera 0 is held out for the val split)")
     if a.quality:
         apply_quality_profile(a, vars(parse_args([])))
-    if a.no_pallas:
-        raise NotImplementedError("--no_pallas: only the kernel pipeline is ported")
     dev = resolve_device(a.device)
     ref_model, ref_params, ref_aux = build_reference_avatar(a, dev)
 

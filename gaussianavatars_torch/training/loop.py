@@ -125,8 +125,9 @@ def flame_table_from_state(state: TrainState, template: Dict[str, np.ndarray]) -
 
 def tile_config(cfg: Config) -> TileConfig:
     p = cfg.pipeline
-    return TileConfig(tile_h=p.tile_h, tile_w=p.tile_w, base_budget=p.base_budget,
-                      tiers=tuple(p.tiers))
+    return TileConfig(tile_h=p.tile_h, tile_w=p.tile_w, capacity=p.capacity_per_tile,
+                      max_tiles_per_gaussian=p.max_tiles_per_gaussian,
+                      base_budget=p.base_budget, tiers=tuple(p.tiers))
 
 
 @dataclasses.dataclass
@@ -240,8 +241,9 @@ def probe_tier_budgets(tcfg: TileConfig, cfg: Config, model: Optional[FlameModel
                        state: TrainState, camera: Camera, verbose: bool = True) -> TileConfig:
     """Tier budgets sized from the first training frame's footprints, when
     none are configured: `render.probe_tile_config`, the serving path's
-    probe, at the camera's timestep (no FLAME when `model` is None)."""
-    if tcfg.tiers:
+    probe, at the camera's timestep (no FLAME when `model` is None). Off
+    the sorted pipeline there are no tiers: `tcfg` comes back unchanged."""
+    if tcfg.tiers or not (cfg.pipeline.use_sorted and cfg.pipeline.use_pallas):
         return tcfg
     fp = None if model is None else _flame_params(state, int(camera.timestep or 0))
     probed = probe_tile_config(model, state.params, state.aux, fp, camera,
@@ -258,7 +260,10 @@ def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
     timestep, bg, sh_degree) → image [H, W, 3]. `model=None` renders the
     stored Gaussians as they are (an unbound point cloud; `timestep` is
     ignored). A state with a colour net gets the calibrated image, as in
-    the JAX package; a render-only state (`tools/render`) has none."""
+    the JAX package; a render-only state (`tools/render`) has none. The
+    pipeline is chosen by `cfg.pipeline.use_pallas` alone, as in the JAX
+    package: with `use_sorted=False` and `use_pallas=True` the step runs
+    the table path and this render the sorted one."""
 
     @torch.no_grad()
     def render(state: TrainState, camera: Camera, timestep: int, bg: torch.Tensor,
@@ -269,7 +274,8 @@ def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
             frames = face_frames(verts[0], model.faces)
         wg = world_gaussians(state.params, state.aux, frames)
         img = render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
-                           sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg).color
+                           sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg,
+                           use_pallas=cfg.pipeline.use_pallas).color
         if state.color_net is not None:
             img = color_net_apply(state.color_net, img)
         return img
@@ -480,19 +486,35 @@ def _post_step_events(
             os.path.join(cfg.model.model_path, f"chkpnt{it}.npz"), harness.state, it))
 
 
-def _grow_tile_budgets(tcfg: TileConfig, budget_overflow: int, verbose: bool = True,
-                       max_footprint: int = 0, n_gauss: int = 0) -> Optional[TileConfig]:
-    """Grow the tier budgets after a budget overflow (the CUDA reference's
+def _grow_tile_budgets(tcfg: TileConfig, overflow: int, budget_overflow: int,
+                       verbose: bool = True, max_footprint: int = 0, n_gauss: int = 0,
+                       sorted_mode: bool = False) -> Optional[TileConfig]:
+    """Grow whichever static tile budget overflowed (the CUDA reference's
     per-tile lists are dynamic). Returns the grown config, or None if
-    nothing overflowed. Only the sorted pipeline is ported: it has no tile
-    capacity to overflow, only tier budgets."""
-    if budget_overflow <= 0:
+    nothing overflowed. The sorted pipeline (`sorted_mode`) grows its tier
+    budgets toward the observed footprint; the table pipeline doubles its
+    tile capacity after a capacity overflow and its tiles a Gaussian after
+    a budget overflow."""
+    if overflow <= 0 and budget_overflow <= 0:
         return None
-    new = grow_tiers(tcfg.tier_spec(n_gauss), max_footprint, n_gauss)
-    if verbose:
-        print(f"[warn] tier-budget overflow ({budget_overflow} bbox tiles truncated, max "
-              f"footprint {max_footprint}) — tiers grown to {new.tiers} (rebuilding steps)")
-    return dataclasses.replace(tcfg, base_budget=new.base, tiers=new.tiers)
+    if sorted_mode and budget_overflow > 0:
+        new = grow_tiers(tcfg.tier_spec(n_gauss), max_footprint, n_gauss)
+        if verbose:
+            print(f"[warn] tier-budget overflow ({budget_overflow} bbox tiles truncated, max "
+                  f"footprint {max_footprint}) — tiers grown to {new.tiers} (rebuilding steps)")
+        return dataclasses.replace(tcfg, base_budget=new.base, tiers=new.tiers)
+    if overflow > 0:
+        tcfg = dataclasses.replace(tcfg, capacity=tcfg.capacity * 2)
+        if verbose:
+            print(f"[warn] tile capacity overflow ({overflow} splats culled) — tile capacity "
+                  f"doubled to {tcfg.capacity} (rebuilding steps)")
+    if budget_overflow > 0:
+        tcfg = dataclasses.replace(tcfg, max_tiles_per_gaussian=tcfg.max_tiles_per_gaussian * 2)
+        if verbose:
+            print(f"[warn] tile-budget overflow ({budget_overflow} bbox tiles truncated) — "
+                  f"max_tiles_per_gaussian doubled to {tcfg.max_tiles_per_gaussian} "
+                  "(rebuilding steps)")
+    return tcfg
 
 
 def train(
@@ -576,7 +598,8 @@ def train(
     ckpt_set = set(checkpoint_iterations)
     eval_set = frozenset(eval_iterations)
     # Running maxima of the step's budget counters, on the device.
-    bovf_dev = mfp_dev = None
+    ovf_dev = bovf_dev = mfp_dev = None
+    sorted_mode = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas
     harness.live_tile_config = tcfg
     writer = _maybe_tensorboard(cfg.model.model_path)
     t0 = time.time()
@@ -603,6 +626,8 @@ def train(
             out = step(harness.state, gt0, cam, cam.timestep, bg, sh_deg)
             harness.state = out.state
             metrics = out.metrics
+            ovf_dev = (metrics["overflow"] if ovf_dev is None
+                       else torch.maximum(ovf_dev, metrics["overflow"]))
             bovf_dev = (metrics["budget_overflow"] if bovf_dev is None
                         else torch.maximum(bovf_dev, metrics["budget_overflow"]))
             mfp_dev = (metrics["max_footprint"] if mfp_dev is None
@@ -614,15 +639,21 @@ def train(
                 assert_finite(harness.state.params, f"params@it{it}")
 
             if it % log_every == 0 or it == iterations:
+                overflow_seen = int(ovf_dev)
                 budget_overflow_seen = int(bovf_dev)
                 mfp_seen = int(mfp_dev)
-                bovf_dev = mfp_dev = None
-                grown = _grow_tile_budgets(tcfg, budget_overflow_seen, max_footprint=mfp_seen,
-                                           n_gauss=harness.state.params.capacity)
+                ovf_dev = bovf_dev = mfp_dev = None
+                grown = _grow_tile_budgets(tcfg, overflow_seen, budget_overflow_seen,
+                                           max_footprint=mfp_seen,
+                                           n_gauss=harness.state.params.capacity,
+                                           sorted_mode=sorted_mode)
                 if grown is not None:
-                    harness.events.append({"kind": "grow_tiers", "iteration": it, "ms": 0.0,
-                                           "budget_overflow": budget_overflow_seen,
-                                           "tiers": grown.tiers})
+                    harness.events.append({
+                        "kind": "grow_tiers" if sorted_mode else "grow_table",
+                        "iteration": it, "ms": 0.0, "overflow": overflow_seen,
+                        "budget_overflow": budget_overflow_seen, "tiers": grown.tiers,
+                        "capacity": grown.capacity,
+                        "max_tiles_per_gaussian": grown.max_tiles_per_gaussian})
                     tcfg = grown
                     harness.live_tile_config = tcfg
                     step = None
@@ -636,6 +667,7 @@ def train(
                     "ema_loss": ema,
                     "psnr": float(metrics["psnr"]),
                     "num_points": int(num_alive(harness.state.aux)),
+                    "overflow": overflow_seen,
                     "budget_overflow": budget_overflow_seen,
                     "resolution_scale": scale,
                     "cached_scales": sorted(1.0 / d for d in sources),

@@ -29,8 +29,12 @@ takes the detached calibrated image after the step. An unbound step
 (`model=None`, a point cloud) has no FLAME forward, no binding
 regularisers and no FLAME Adam group, and its region-adaptive L1 weighs
 by the heuristic face prior (`innovations.heuristic_weight_map`), as the
-JAX step's `use_flame=False` branches do. The padded-table pipeline is not
-ported: it raises. Each stage is a
+JAX step's `use_flame=False` branches do. Off the sorted pipeline
+(`use_sorted=False` or `use_pallas=False`, or an explicit `compositor`)
+the image stage bins once from the detached projection with the screen
+opacity and composites the padded table (`rasterize_tiled.rasterize_binned`),
+as the JAX step's table branch does; its `overflow` and `budget_overflow`
+come from the table. Each stage is a
 `torch.profiler` range (`train/*`; the innovations' `train/region_map`,
 `train/color_net` and `train/contrastive` inside `train/image_fwd`), so
 a profile splits the step's device time by stage.
@@ -51,7 +55,9 @@ from ..models.flame.flame_model import FlameModel, FlameParams
 from ..models.gaussians import GaussianAux, GaussianParams, world_gaussians
 from ..ops.projection import project_from_params
 from ..ops.rasterize_sorted import rasterize_sorted
-from ..ops.rasterize_tiled import TileConfig, view_colors
+from ..ops.rasterize_tiled import (
+    TileConfig, bin_gaussians, composite_tiles, rasterize_binned, view_colors,
+)
 from . import innovations as inn
 from .loss import l1_loss, psnr, safe_norm, ssim, weighted_l1_loss
 from .optim import AdamState, adam_init, adam_update, expon_lr, tree_leaves, tree_map
@@ -187,12 +193,6 @@ def flame_lr_tree(cfg: Config, flame: Optional[FlameTrainable] = None) -> FlameT
     )
 
 
-def _check_supported(cfg: Config) -> None:
-    if not (cfg.pipeline.use_sorted and cfg.pipeline.use_pallas):
-        raise NotImplementedError("make_train_step: only the sorted pipeline is ported "
-                                  "(ROADMAP queue A item 3)")
-
-
 def _leaves(tree):
     """A copy of a tree of tensors whose tensors are fresh leaves that
     require grad (None fields stay None)."""
@@ -205,15 +205,19 @@ def _grads(leaves):
 
 
 def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
-                    spatial_lr_scale: float = 1.0):
+                    spatial_lr_scale: float = 1.0, compositor=None):
     """Build the train step: FLAME-bound, or unbound with `model=None`.
 
     Call: step(state, gt_image [H, W, 3], camera, timestep (int), bg_color [3],
     sh_degree) → StepOutput(new state, metrics (0-dim tensors), image). The
-    given state is not modified. An unbound step ignores `timestep`.
+    given state is not modified. An unbound step ignores `timestep`. The
+    sorted pipeline runs when `cfg.pipeline.use_sorted` and `use_pallas`
+    and no `compositor` is given; otherwise the table pipeline, composited
+    by `compositor` (default `composite_tiles`).
     """
-    _check_supported(cfg)
     o = cfg.opt
+    use_sorted = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas and compositor is None
+    step_compositor = compositor or composite_tiles
     use_flame = model is not None
     faces = model.faces if use_flame else None
     # The region tables clipped to the model's vertex count
@@ -286,13 +290,19 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
         reg_total = sum(reg_terms.values())
         return screen, reg_total, proj, reg_terms, verts[0]
 
-    def image_loss(screen, color_net, proj, gt_image, camera, bg_color, verts_sg, contrastive):
+    def image_loss(screen, color_net, proj, gt_image, camera, bg_color, verts_sg, contrastive,
+                   binned):
         mean2d, conic, colors, opac = screen
         h, w = camera.height, camera.width
-        img, _alpha, plan = rasterize_sorted(
-            proj._replace(mean2d=mean2d, conic=conic), colors, opac,
-            h, w, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
-            tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
+        plan = None
+        if use_sorted:
+            img, _alpha, plan = rasterize_sorted(
+                proj._replace(mean2d=mean2d, conic=conic), colors, opac,
+                h, w, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
+                tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
+        else:
+            img, _alpha = rasterize_binned(mean2d, conic, colors, opac, binned, h, w, bg_color,
+                                           tile_cfg, compositor=step_compositor)
         if color_net is not None:
             with record_function("train/color_net"):
                 img = inn.color_net_apply(color_net, img)
@@ -335,13 +345,20 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
                 screen, reg_total, proj, reg_terms, verts = geometry(
                     state, params, flame, ts, camera, sh_degree)
             proj_sg = proj._replace(**{k: v.detach() for k, v in proj._asdict().items()})
+            binned = None
+            if not use_sorted:
+                # The table path bins once, from the detached projection
+                # with the screen opacity.
+                with record_function("train/binning"):
+                    binned = bin_gaussians(proj_sg, camera.height, camera.width, tile_cfg,
+                                           opacity=screen[3].detach())
 
             # ---- stage 2: the image loss from detached screen-space leaves
             screen_in = [x.detach().requires_grad_() for x in screen]
             with record_function("train/image_fwd"):
                 img_total, loss_terms, img, plan = image_loss(
                     screen_in, color, proj_sg, gt_image, camera, bg_color,
-                    None if verts is None else verts.detach(), state.contrastive)
+                    None if verts is None else verts.detach(), state.contrastive, binned)
             with record_function("train/image_bwd"):
                 g_all = torch.autograd.grad(img_total, screen_in + color_leaves)
             g_screen, g_color = g_all[:4], iter(g_all[4:])
@@ -379,12 +396,19 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
             with record_function("train/contrastive"):
                 new_contrastive = inn.contrastive_update(state.contrastive, img,
                                                          o.contrastive_downsample)
+        if use_sorted:   # no tile capacity to overflow
+            overflow = torch.zeros((), dtype=torch.int32, device=img.device)
+            budget_overflow, max_footprint = plan.budget_overflow, plan.max_footprint
+        else:
+            overflow, budget_overflow = binned.overflow, binned.budget_overflow
+            max_footprint = torch.zeros((), dtype=torch.int32, device=img.device)
         metrics = {
             "loss": (img_total + reg_total).detach(),
             "psnr": psnr(img, gt_image),
             "num_visible": (proj_sg.radius > 0).sum(),
-            "budget_overflow": plan.budget_overflow,
-            "max_footprint": plan.max_footprint,
+            "overflow": overflow,
+            "budget_overflow": budget_overflow,
+            "max_footprint": max_footprint,
             **{k: v.detach() for k, v in {**loss_terms, **reg_terms}.items()},
         }
         new_state = TrainState(params=new_params, aux=aux_new, adam=new_adam, flame=new_flame,

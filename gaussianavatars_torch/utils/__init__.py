@@ -1,1 +1,2 @@
-"""Debug hooks (`debug`) and the TensorBoard error image (`image`)."""
+"""Debug hooks (`debug`), the TensorBoard error image (`image`), step timing
+and tracing (`profiling`) and the speed-of-light model (`roofline`)."""

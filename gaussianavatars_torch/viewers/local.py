@@ -6,13 +6,16 @@ PLY (+ flame_param sidecar), scrub timesteps, drive FLAME joints and
 expressions live, render the splats and/or a mesh overlay. It runs
 headless (frame export, the FPS benchmarks, tests).
 
-The port has one splatting path: the sorted pipeline through the forward
-pair compositor, whose CUDA kernel a card's tensors launch (and CPU
-tensors its plain version). `use_pallas=False`, the JAX core's non-kernel
-pipeline, is not ported and raises.
+The splats go through the sorted pipeline and the forward pair
+compositor, whose CUDA kernel a card's tensors launch (and CPU tensors its
+plain version), or with `use_pallas=False` through the table pipeline
+(`ops/rasterize_tiled.composite_tiles`). `use_pallas=None` keeps the
+kernel path on every device, where the JAX core picks the table path off
+the TPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -29,10 +32,6 @@ from ..ops.mesh_raster import render_mesh_preview
 from ..ops.rasterize_tiled import TileConfig, render_tiled
 from ..render import probe_tile_config
 from .orbit import OrbitCamera
-
-NON_KERNEL_PIPELINE = ("the non-kernel pipelines (use_pallas=False) are not ported: "
-                       "ROADMAP.md queue A item 4")
-
 
 def blend_mesh(image: Optional[np.ndarray], rgba: np.ndarray, opacity: float) -> np.ndarray:
     """The mesh preview's RGBA blended over a splat image at `opacity`
@@ -56,12 +55,13 @@ class AvatarViewerCore:
         disable_fid: Optional[np.ndarray] = None,
         device="cuda",
     ):
-        """`tile`: TileConfig fields (tile size, tier budgets); without tier
-        budgets they are probed from the orbit camera's view at timestep 0
-        (`probe_tiles`). `disable_fid`: face ids whose Gaussians are hidden
-        (`models/io.load_avatar`)."""
-        if use_pallas is False:
-            raise NotImplementedError(f"AvatarViewerCore: {NON_KERNEL_PIPELINE}")
+        """`tile`: TileConfig fields (tile size, tier budgets, table
+        budgets); without tier budgets they are probed from the orbit
+        camera's view at timestep 0 (`probe_tiles`), and with
+        `use_pallas=False` the table's budgets too. `disable_fid`: face ids whose Gaussians are hidden
+        (`models/io.load_avatar`). `use_pallas=False` renders through the
+        table pipeline; None or True through the sorted one."""
+        self.use_pallas = use_pallas is not False
         self.device = resolve_device(device)
         self.params, self.aux, self.flame_table = load_avatar(
             ply_path, motion_path=motion_path, disable_fid=disable_fid, device=self.device
@@ -102,13 +102,20 @@ class AvatarViewerCore:
     def probe_tiles(self, camera=None, timestep: int = 0) -> TileConfig:
         """Size the tier budgets from `camera`'s footprints (default: the
         orbit camera) at `timestep` (`render.probe_tile_config`, with its
-        headroom for motion), so that no Gaussian's tiles are cut. The JAX
-        core keeps the default budgets, which cut an avatar whose
-        Gaussians span more than 64 tiles."""
+        headroom for motion), so that no Gaussian's tiles are cut; for the
+        table path (`use_pallas=False`) the tile capacity and the tiles a
+        Gaussian as well. The JAX core keeps the default budgets, which cut
+        an avatar whose Gaussians span more than 64 tiles (the table: more
+        than 32, or more than 1,024 Gaussians in a tile)."""
         cam = camera if camera is not None else self.cam.to_camera(device=self.device)
         fp = self.flame_params_at(timestep) if self.model is not None else None
-        self.tile = probe_tile_config(self.model, self.params, self.aux, fp, cam,
-                                      self.tile.tile_h, self.tile.tile_w)
+        probed = probe_tile_config(self.model, self.params, self.aux, fp, cam,
+                                   self.tile.tile_h, self.tile.tile_w,
+                                   table=not self.use_pallas)
+        table = {} if self.use_pallas else dict(
+            capacity=probed.capacity, max_tiles_per_gaussian=probed.max_tiles_per_gaussian)
+        self.tile = dataclasses.replace(self.tile, base_budget=probed.base_budget,
+                                        tiers=probed.tiers, **table)
         return self.tile
 
     def reset_flame(self) -> None:
@@ -187,7 +194,8 @@ class AvatarViewerCore:
     ) -> torch.Tensor:
         """One splat frame [H, W, 3] on the core's device, unclamped: the
         FLAME update for `fp` (None for an unbound avatar), binding, and
-        the sorted pipeline with the forward compositor."""
+        the sorted pipeline with the forward compositor (the table
+        pipeline when `use_pallas` is False)."""
         frames = None
         if self.model is not None:
             frames = face_frames(self.model(fp)[0], self.model.faces)
@@ -197,7 +205,7 @@ class AvatarViewerCore:
         return render_tiled(
             wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
             sh=wg.sh, sh_degree=sh_degree, alive=wg.alive,
-            scale_modifier=scaling_modifier, cfg=self.tile,
+            scale_modifier=scaling_modifier, cfg=self.tile, use_pallas=self.use_pallas,
         ).color
 
     @torch.inference_mode()

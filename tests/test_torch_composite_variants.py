@@ -1,6 +1,12 @@
 """The compositor's other implementations and its `amp` mode: the port's
 plain versions against the JAX package's v2, v3 and v4 Pallas kernels.
 
+This file holds the forward, the implementation switch and the shared
+helpers; the float32 backward is in `test_torch_composite_variants_bwd.py`
+and the `amp` backward with its guard in
+`test_torch_composite_variants_amp.py` (three files, so that the test
+runner's workers share the interpreted kernels' cost).
+
 The JAX kernels run in interpret mode. The JAX module's implementation
 switch (`_FWD_IMPL`/`_BWD_IMPL`) is flipped by monkeypatching inside the
 test, as `scripts/kernel_ab.py:101-102` flips it; nothing in the JAX
@@ -39,7 +45,15 @@ from gaussianavatars_torch.ops import composite_pairs as tcp
 
 from test_torch_composite import CASES, _table
 from test_torch_composite_bwd import _bwd_inputs
-from torch_parity import TILE_H, TILE_W, n, t
+from torch_parity import torch_threads, TILE_H, TILE_W, n, t
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread a test (`torch_parity.torch_threads`)."""
+    with torch_threads(1):
+        yield
+
 
 TOL = 2e-4
 AMP_REL = 1e-3
@@ -80,44 +94,6 @@ def test_plain_forward_matches_pallas_v2(case, monkeypatch):
     np.testing.assert_allclose(n(acc), np.asarray(v2[0]), atol=1e-5, rtol=0)
     np.testing.assert_allclose(n(tfin), np.asarray(v2[1]), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(n(stop), np.asarray(v2[2]))
-
-
-@pytest.mark.parametrize("impl", ["v2", "v4"])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_backward_matches_pallas_v2_v4(case, impl, monkeypatch):
-    arrays, ntx = _inputs(case)
-    d_j = _jax_bwd(case, impl, False)
-    monkeypatch.setattr(tcp, "_BWD_IMPL", impl)
-    d_t = n(tcp.bwd_call_pairs(*(t(a) for a in arrays), TILE_H, TILE_W, ntx))
-    np.testing.assert_allclose(d_t[:9], d_j[:9], atol=TOL, rtol=TOL)
-    assert not d_t[9:].any() and not d_j[9:].any()
-    # What the plain version leaves zero, the JAX kernel leaves zero too.
-    assert not d_j[:, ~d_t.any(axis=0)].any()
-
-
-@pytest.mark.parametrize("impl", ["v2", "v3", "v4"])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_amp_backward_matches_pallas_amp(case, impl, monkeypatch):
-    arrays, ntx = _inputs(case)
-    d_j = _jax_bwd(case, impl, True)
-    monkeypatch.setattr(tcp, "_BWD_IMPL", impl)
-    d_t = n(tcp.bwd_call_pairs(*(t(a) for a in arrays), TILE_H, TILE_W, ntx, amp=True))
-    rel = _row_rel_err(d_t, d_j)
-    assert (rel <= AMP_REL).all(), rel
-    assert not d_t[9:].any() and not d_t[:, ~d_j.any(axis=0)].any()
-
-
-def test_float32_plain_misses_pallas_amp():
-    """The guard: without the bf16 rounding the plain version misses JAX's
-    `amp` output by more than AMP_REL on some row of some table, so the
-    bound of the test above tells the two modes apart."""
-    worst = 0.0
-    for case in sorted(CASES):
-        arrays, ntx = _inputs(case)
-        d_j = _jax_bwd(case, "v3", True)
-        d_f32 = n(tcp.bwd_call_pairs_reference(*(t(a) for a in arrays), TILE_H, TILE_W, ntx))
-        worst = max(worst, float(_row_rel_err(d_f32, d_j).max()))
-    assert worst > AMP_REL, worst
 
 
 def test_switch_rejects_unknown_names(monkeypatch):

@@ -183,9 +183,9 @@ def test_grow_tile_budgets_matches_jax(budget_overflow, max_footprint, n_gauss, 
     j = jloop._grow_tile_budgets(JTileConfig(tile_h=32, tile_w=32, tiers=tiers), 0,
                                  budget_overflow, verbose=False, max_footprint=max_footprint,
                                  n_gauss=n_gauss, sorted_mode=True)
-    t = tloop._grow_tile_budgets(TileConfig(tile_h=32, tile_w=32, tiers=tiers),
+    t = tloop._grow_tile_budgets(TileConfig(tile_h=32, tile_w=32, tiers=tiers), 0,
                                  budget_overflow, verbose=False, max_footprint=max_footprint,
-                                 n_gauss=n_gauss)
+                                 n_gauss=n_gauss, sorted_mode=True)
     if j is None:
         assert t is None
     else:

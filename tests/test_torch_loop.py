@@ -22,6 +22,7 @@ avatar dataset (`tests/fixtures_avatar.py`: the 178-vertex sphere, 64×48,
   exactly.
 """
 import dataclasses
+import json
 import os
 
 import jax
@@ -270,15 +271,38 @@ def test_loop_artifacts_and_resume(short_runs, models, tmp_path):
             cfg.model, bind_to_mesh=False)), model=tmodel, device="cpu")
 
 
+def test_train_synthetic_no_pallas_takes_the_jax_table_config():
+    """`--no_pallas` (once refused) selects the table pipeline with the JAX
+    script's budgets: its Config equals the JAX script's, the loop's
+    `tile_config` carries 512 Gaussians a tile and 8 tiles a Gaussian, and
+    `--capacity_per_tile` (a flag of the port) sets the first. The fit
+    itself runs on the card (`chip_smoke.py` phase 17)."""
+    from gaussianavatars_torch.tools import train_synthetic
+
+    from test_torch_innovations_loop import _jax_script, _jax_script_config
+
+    js = _jax_script()
+    ja, ta = js.parse_args(["--no_pallas"]), train_synthetic.parse_args(["--no_pallas"])
+    ta.workdir = ja.workdir
+    got = json.loads(tconfig.to_json(train_synthetic.make_config(ta)))
+    want = json.loads(jconfig.to_json(_jax_script_config(js, ja)))
+    assert got["pipeline"] == {k: v for k, v in want["pipeline"].items() if k in got["pipeline"]}
+    assert got["pipeline"]["use_pallas"] is False
+    tile = tloop.tile_config(train_synthetic.make_config(ta))
+    assert (tile.capacity, tile.max_tiles_per_gaussian) == (512, 8)
+    small = train_synthetic.make_config(train_synthetic.parse_args(
+        ["--no_pallas", "--capacity_per_tile", "64"]))
+    assert tloop.tile_config(small).capacity == 64
+
+
 @pytest.mark.parametrize("argv,error", [
-    (["--no_pallas"], NotImplementedError),
     (["--cameras", "1"], SystemExit),
     (["--steps_per_call", "1"], SystemExit),
 ])
 def test_train_synthetic_rejects_what_is_not_ported(argv, error, tmp_path):
-    """`tools/train_synthetic` refuses the table pipeline and a lone
-    camera before it writes anything, and has no `--steps_per_call` (the
-    port runs one step per iteration)."""
+    """`tools/train_synthetic` refuses a lone camera before it writes
+    anything, and has no `--steps_per_call` (the port runs one step per
+    iteration)."""
     from gaussianavatars_torch.tools import train_synthetic
 
     with pytest.raises(error):

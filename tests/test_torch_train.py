@@ -48,6 +48,7 @@ from gaussianavatars_torch.models import binding as tbinding
 from gaussianavatars_torch.models import densify as tdensify
 from gaussianavatars_torch.models.flame import flame_model as tfm
 from gaussianavatars_torch.models.gaussians import GaussianAux
+from gaussianavatars_torch.ops import rasterize_tiled as trt
 from gaussianavatars_torch.ops.rasterize_tiled import TileConfig
 from gaussianavatars_torch.training import loss as tloss
 from gaussianavatars_torch.training import optim as toptim
@@ -405,13 +406,37 @@ def test_laplacian_and_verts_cano_match_jax(avatar):
     assert list(tmodel.fid_by_region(["neck"])) == list(jmodel.fid_by_region(["neck"]))
 
 
-def test_unported_options_raise(avatar):
-    jmodel = avatar[0]
-    tmodel = tfm.FlameModel(flame_assets_from_numpy(jmodel.assets._asdict()),
-                            tfm.FlameConfig(fa.N_SHAPE, fa.N_EXPR, add_teeth=False),
-                            device="cpu")
-    tile = TileConfig(tile_h=TH, tile_w=TW)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        ttrainer.make_train_step(tmodel, tconfig.Config(
-            pipeline=tconfig.PipelineConfig(use_sorted=False)), tile)
+def test_unported_options_raise(avatar, monkeypatch):
+    """The options the step once refused now build it: `use_sorted=False`,
+    `use_pallas=False` or an explicit `compositor` select the table
+    pipeline (one table binning, `rasterize_binned`), the defaults the
+    sorted one. The table step's values against JAX's are in
+    `test_torch_train_table.py`."""
+    _jax, (_t, ts, tcam, tmodel), gt = _both(avatar)
+    tile = TileConfig(tile_h=TH, tile_w=TW, tiers=((ts.params.capacity, 24),))
+    calls = []
+    for name in ("rasterize_binned", "rasterize_sorted", "bin_gaussians"):
+        real = getattr(ttrainer, name)
+        monkeypatch.setattr(ttrainer, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    spy = []
+
+    def compositor(*a):
+        spy.append(1)
+        return trt.composite_tiles(*a)
+
+    cases = [
+        (dict(), None, ["rasterize_sorted"]),
+        (dict(use_sorted=False), None, ["bin_gaussians", "rasterize_binned"]),
+        (dict(use_pallas=False), None, ["bin_gaussians", "rasterize_binned"]),
+        (dict(), compositor, ["bin_gaussians", "rasterize_binned"]),
+    ]
+    for pipeline, comp, want in cases:
+        calls.clear()
+        step = ttrainer.make_train_step(tmodel, tconfig.Config(
+            pipeline=tconfig.PipelineConfig(**pipeline)), tile, compositor=comp)
+        out = step(ts, t(gt), tcam, 0, torch.zeros(3), 0)
+        assert calls == want, pipeline
+        assert np.isfinite(float(out.metrics["loss"])) and int(out.metrics["overflow"]) == 0
+    assert spy == [1]
     assert ttrainer.active_sh_degree(999) == 0 and ttrainer.active_sh_degree(3500) == 3

@@ -7,8 +7,9 @@
 * `config_from_args`: the JAX script's configuration (its `to_json`,
   section by section, on the port's fields) for the default flags and for
   `--all_innovations --use_amp`;
-* the flags of paths not ported raise and name their ROADMAP item, and
-  without `--device cpu` there is no card to run on;
+* `--no_pallas` configures the table pipeline as the JAX script does; the
+  multi-device flags raise and name their ROADMAP item, and without
+  `--device cpu` there is no card to run on;
 * two short CPU runs through `main`: FLAME-bound on the 415-face sparse
   sphere of `tests/test_torch_innovations_loop.py` (2 cameras, 6
   iterations: a densify event, an opacity reset, evals at 3 and 6, the
@@ -95,8 +96,30 @@ def test_config_from_args_matches_jax(flags):
             section
 
 
+def test_no_pallas_configures_the_table_pipeline(tmp_path):
+    """`--no_pallas` (once refused) passes the checks and gives the JAX
+    script's configuration with `use_pallas=False`, whose step takes the
+    table path (the table step's values: `test_torch_train_table.py`; a
+    `--no_pallas` run on the card: `chip_smoke.py` phase 17)."""
+    from gaussianavatars_torch.training import trainer as ttrainer
+
+    a = ttrain.parse_args(REQUIRED + ["--no_pallas"])
+    ttrain.check_supported(a)
+    js = _jax_script()
+    got = json.loads(tconfig.to_json(ttrain.config_from_args(a)))
+    want = json.loads(jconfig.to_json(js.config_from_args(js.parse_args(
+        REQUIRED + ["--no_pallas"]))))
+    assert got["pipeline"] == {k: v for k, v in want["pipeline"].items()
+                               if k in got["pipeline"]}
+    assert got["pipeline"]["use_pallas"] is False
+    cfg = ttrain.config_from_args(a)
+    tile = tloop.tile_config(cfg)
+    assert (tile.capacity, tile.max_tiles_per_gaussian) == (1024, 16)
+    assert tloop.probe_tier_budgets(tile, cfg, None, None, None) is tile
+    assert callable(ttrainer.make_train_step(None, cfg, tile))
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--no_pallas"], "item 3"),
     (["--mesh", "2x4"], "item 5"),
     (["--distributed"], "item 5"),
     (["--gauss_shard"], "item 5"),

@@ -12,8 +12,10 @@ against the JAX package's, and the FPS benchmarks on the CPU.
   body of its `render` under one `jax.jit` (`jax_core_render`): the core
   itself runs op by op, ~20 s for its first frame on the CPU.
 * `fps_benchmark_demo.run_benchmark` and `fps_benchmark_dataset.main` give
-  positive frame rates on the CPU; `use_pallas=False` and `--no_pallas`
-  raise (the non-kernel pipelines are ROADMAP queue A item 4).
+  positive frame rates on the CPU.
+* `AvatarViewerCore(use_pallas=False)`: the table pipeline's frame against
+  the JAX core's at `use_pallas=False` (atol 1e-4, as above), and
+  `fps_benchmark_demo --no_pallas` runs.
 """
 import functools
 import json
@@ -117,22 +119,24 @@ def avatar(tmp_path_factory):
     return model_dir, ply, jcore, tcore
 
 
-@functools.partial(jax.jit, static_argnames=("model", "tile"))
-def _jax_splat(params, aux, fp, cam, bg, model, tile):
+@functools.partial(jax.jit, static_argnames=("model", "tile", "use_pallas"))
+def _jax_splat(params, aux, fp, cam, bg, model, tile, use_pallas=True):
     verts = model.forward(fp)[0]
     wg = jax_world_gaussians(params, aux, jax_face_frames(verts, model.faces))
     out = jax_render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, cam, bg, sh=wg.sh,
-                           sh_degree=3, alive=wg.alive, cfg=tile, use_pallas=True)
+                           sh_degree=3, alive=wg.alive, cfg=tile, use_pallas=use_pallas)
     return jnp.clip(out.color, 0, 1), verts
 
 
-def jax_core_render(core, timestep, show_mesh, bg, mesh_opacity=0.5, model=None):
+def jax_core_render(core, timestep, show_mesh, bg, mesh_opacity=0.5, model=None,
+                    use_pallas=True):
     """`jlocal.AvatarViewerCore.render` (splats, then the mesh overlay) with
     its splat path jitted. `model`: an equal FLAME model already compiled
     for (the core's own by default)."""
     cam = jit_static_key(core.cam.to_camera())
     img, verts = _jax_splat(core.params, core.aux, core.flame_params_at(timestep), cam,
-                            jnp.asarray(bg, jnp.float32), model or core.model, core.tile)
+                            jnp.asarray(bg, jnp.float32), model or core.model, core.tile,
+                            use_pallas=use_pallas)
     image = np.asarray(img)
     if show_mesh:
         out = jax_mesh_preview(verts, core.model.faces, cam, background=jnp.asarray(bg))
@@ -187,11 +191,24 @@ def test_viewer_core_matches_jax(avatar, tmp_path, case):
 
 
 def test_viewer_core_rejects_the_non_kernel_pipeline(avatar):
-    _dir, ply, _j, _t = avatar
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tlocal.AvatarViewerCore(ply, use_pallas=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        fps_benchmark_demo.main([ply, "--no_pallas", "--device", "cpu"])
+    """`use_pallas=False`, once refused, renders through the table
+    pipeline: the frame equals the JAX core's at `use_pallas=False`, and
+    `fps_benchmark_demo --no_pallas` runs on it."""
+    _dir, ply, jcore, tcore = avatar
+    tc = tlocal.AvatarViewerCore(ply, width=64, height=48, use_pallas=False,
+                                 tile=dict(tile_h=TILE_H, tile_w=TILE_W, tiers=tcore.tile.tiers),
+                                 device="cpu")
+    assert not tc.use_pallas and tcore.use_pallas
+    _set(jcore, "plain")
+    kw = dict(timestep=1, show_mesh=False, bg=(0.1, 0.2, 0.3))
+    want = jax_core_render(jcore, **kw, use_pallas=False)
+    got = tc.render(**kw)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    _set(tcore, "plain")
+    np.testing.assert_allclose(got, tcore.render(**kw), atol=ATOL)   # = the sorted path
+    fps = fps_benchmark_demo.main([ply, "--no_pallas", "--device", "cpu", "--n_iter", "1",
+                                   "--n_rounds", "1", "--width", "64", "--height", "48"])
+    assert len(fps) == 1 and fps[0] > 0
 
 
 def test_fps_benchmarks_run_on_the_cpu(avatar):

@@ -1,5 +1,6 @@
 """Shared helpers for the PyTorch port's parity tests: numpy scenes handed to
 both packages, and JAX state carried across as numpy."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -57,6 +58,19 @@ def t(x, dtype=None):
 def n(x):
     """Tensor → numpy."""
     return x.detach().cpu().numpy()
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run with `n` intra-op threads, then restore the count. The test
+    runner starts several workers on one machine; the table compositor's
+    many small operations crawl when every worker's thread pool spins on
+    all the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 # --- a trained model directory written by the JAX package --------------------
