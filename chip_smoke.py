@@ -168,6 +168,31 @@ non-zero):
                 `AvatarViewerCore`, the `--no_pallas` frame within 1/255)
                 and `tools.remote_viewer --headless` taking 2 frames from a
                 `TrainingGuiServer`.
+ 18. sharded  — multi-device training over a rank mesh at the benchmark
+                width (the 90,090-Gaussian avatar, 802×550, `Config`
+                defaults, the sorted pipeline): (a) an NCCL world of one
+                rank in this process, the sharded step against
+                `make_train_step` from one state for 3 steps (every leaf and
+                the loss within 1e-5 of its largest value; the largest
+                difference printed), rows 1 and 2 once a step, steps/s of
+                both in alternating blocks and the collectives' ms and
+                bytes; (b) four ranks through the launcher, over gloo on
+                one card, NCCL on four (`tools/sharded_steps`: 1×4, 1×4 with
+                `gauss_shard`, 2×2), each held to the single-device step on
+                the card at the CPU tests' bounds (2×2: the mean loss and the
+                summed statistics of its two cameras), every rank's state
+                digest equal after every step, rows 1 and 2 once a step in
+                every rank, each rank's step ms and collectives, and where
+                the backend puts the operands; (c) `tools.train --mesh 2x2`
+                on phase 12's dataset (100 iterations,
+                densify events, an eval, a save): only rank 0 printed, one
+                state digest on all ranks; (d) `tools.multiproc_check
+                --device cuda`; (e) `tools.scaling_bench` unsharded, 1×1
+                under NCCL, 1×2, 1×4 and 2×2 (the time-shared rows so
+                labelled). `--sharded_only` runs phases 1, 2 and 18 alone
+                (phase 12's dataset written, not fitted): the multi-card
+                proof on a machine with four cards, where every rank has
+                its own card and phase 18 runs over NCCL.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -3307,6 +3332,317 @@ def phase_table(card, scene, setup, harness, serving_fps: float, train_steps_s: 
     return launches
 
 
+# --- 18. multi-device training over a rank mesh --------------------------------
+
+SHARDED_DIR = os.path.join("build", "chip_smoke", "sharded")
+SHARDED_DEVICE = "cuda"   # "cpu" only in a CPU rehearsal (gloo for the one-rank world)
+N_SHARDED_STEPS = 3       # steps of each comparison run
+N_SHARDED_BLOCK = 10      # steps a block of the unsharded / 1x1 alternation
+N_SHARDED_BLOCKS = 3      # blocks of each
+SHARDED_REL = 1e-5        # the 1x1 step against the single-device step, every leaf
+SHARDED_TIMEOUT_S = 420   # a launch's wall-clock limit
+SHARDED_RUNS = ("1x4", "1x4:gauss_shard", "2x2")
+SHARDED_YAW = 0.03        # radians: 2x2's second view, ~40 px off the first at 802x550
+SHARDED_SCALING_SIZE = ()   # scaling_bench's defaults: the benchmark avatar at 802x550
+SHARDED_CLI_ITERS = 100
+SHARDED_CLI_FLAGS = ("--bind_to_mesh", "--eval", "--iterations", str(SHARDED_CLI_ITERS),
+                     "--test_iterations", "60", "--save_iterations", str(SHARDED_CLI_ITERS),
+                     "--checkpoint_iterations", str(SHARDED_CLI_ITERS),
+                     "--densify_from_iter", "10", "--densification_interval", "40",
+                     "--densify_until_iter", str(SHARDED_CLI_ITERS),
+                     "--opacity_reset_interval", "1000", "--log_every", "20", "--port", "0",
+                     "--mesh", "2x2")
+
+
+def ranks_backend() -> str:
+    """The backend of phase 18's multi-rank runs: NCCL when every rank has a
+    card of its own (four cards), else gloo, which lets ranks share one
+    (NCCL refuses two ranks on a device)."""
+    return "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+
+
+def max_rel(a: dict, b: dict) -> tuple:
+    """(largest max|a - b| / max|b| over the leaves, its leaf)."""
+    worst = (0.0, "")
+    for k in b:
+        x, y = a[k].double(), b[k].double()
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        err = float((x - y).abs().max()) if y.numel() else 0.0
+        rel = err / scale if scale else err
+        worst = max(worst, (rel, k))
+    return worst
+
+
+def sharded_nccl_1x1(card, model, cam, tile_cfg, setup) -> dict:
+    """Phase 18 (a): an NCCL world of one rank in this process. The sharded
+    step against `make_train_step` from the same state for N_SHARDED_STEPS
+    steps (every leaf of the state and the loss within SHARDED_REL of its
+    largest value), rows 1 and 2 once a sharded step, then steps/s of
+    both in alternating blocks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.parallel import distributed as pdist
+    from gaussianavatars_torch.parallel.mesh import make_rank_mesh
+    from gaussianavatars_torch.parallel.sharded import (
+        camera_batch, make_sharded_train_step, pad_gt_for_mesh, padded_height, state_digest,
+    )
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    cfg, gt, bg, state0 = setup
+    store = tempfile.mkdtemp(prefix="gsav_nccl_")
+    backend = pdist.default_backend(SHARDED_DEVICE)
+    dist.init_process_group(backend, init_method=f"file://{store}/rendezvous", world_size=1,
+                            rank=0, **({"device_id": torch.device("cuda", 0)}
+                                       if backend == "nccl" else {}))
+    try:
+        mesh = make_rank_mesh(1, 1)
+        coll = pdist.Collectives(backend)
+        single = make_train_step(model, cfg, tile_cfg)
+        step = make_sharded_train_step(model, cfg, tile_cfg, mesh, cam, collectives=coll)
+        hp = padded_height(cam.height, tile_cfg.tile_h, 1)
+        rows = [pdist.make_local_batch(
+            mesh, camera_batch([dataclasses.replace(cam, timestep=ts)]),
+            pad_gt_for_mesh(gt[None], hp)) for ts in range(TRAIN_TIMESTEPS)]
+        a = b = state0
+        worst, loss_rel, launches = (0.0, ""), 0.0, []
+        for i in range(N_SHARDED_STEPS):
+            ts = i % TRAIN_TIMESTEPS
+            out = single(a, gt, cam, ts, bg, 3)
+            a = out.state
+            reset_launches()
+            b, m = step(b, *rows[ts], bg, 3)
+            torch.cuda.synchronize()
+            launches.append({k: v for k, v in cp.LAUNCHES.items() if v})
+            loss_rel = max(loss_rel, abs(float(m["loss"]) - float(out.metrics["loss"]))
+                           / abs(float(out.metrics["loss"])))
+            worst = max(worst, max_rel(flatten_state(b), flatten_state(a)))
+        res = dict(steps=N_SHARDED_STEPS, loss_max_rel=loss_rel, state_max_rel=worst[0],
+                   state_worst_leaf=worst[1], exact=worst[0] == 0.0 and loss_rel == 0.0,
+                   launches_per_step=launches, digest=state_digest(b),
+                   host_staged=coll.host_staged(gt.device), padded_height=hp)
+        log("sharded/nccl_1x1", backend=backend, **res)
+        if not (loss_rel <= SHARDED_REL and worst[0] <= SHARDED_REL):
+            raise AssertionError(f"the 1x1 sharded step left the single-device step: {res}")
+        if any(x.get("composite_pairs_fwd") != 1 or x.get("composite_pairs_bwd") != 1
+               for x in launches):
+            raise AssertionError(f"rows 1 and 2 not once a sharded step: {launches}")
+
+        def block(fn, st):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(N_SHARDED_BLOCK):
+                st = fn(st, i % TRAIN_TIMESTEPS)
+            torch.cuda.synchronize()
+            return st, N_SHARDED_BLOCK / (time.perf_counter() - t0)
+
+        def run_single(st, ts):
+            return single(st, gt, cam, ts, bg, 3).state
+
+        def run_sharded(st, ts):
+            return step(st, *rows[ts], bg, 3)[0]
+
+        rates = {"unsharded": [], "sharded_1x1": []}
+        sa, sb = a, b
+        for _ in range(N_SHARDED_BLOCKS):
+            sa, r = block(run_single, sa)
+            rates["unsharded"].append(r)
+            sb, r = block(run_sharded, sb)
+            rates["sharded_1x1"].append(r)
+        coll.timed = True
+        coll.reset()
+        block(run_sharded, sb)
+        per = {k: v / N_SHARDED_BLOCK for k, v in coll.summary().items()}
+        ratio = sum(rates["sharded_1x1"]) / sum(rates["unsharded"])
+        log("sharded/nccl_1x1/numbers", card=card["nvidia_smi"], steps_per_s=rates,
+            ratio_1x1_to_unsharded=ratio, collective_ms_per_step=per["ms"],
+            collective_bytes_per_step=per["bytes"], collective_calls_per_step=per["calls"],
+            note="blocks alternate; collectives timed synchronised in a separate block")
+        return dict(res, rates=rates, ratio=ratio, fwd=N_SHARDED_STEPS, bwd=N_SHARDED_STEPS)
+    finally:
+        dist.destroy_process_group()
+
+
+def nudged_camera(cam, yaw: float, timestep: int):
+    """`cam` turned by `yaw` radians about its own vertical axis, at
+    `timestep`: another view of the scene from the same centre, the image
+    shifted by about focal·yaw pixels."""
+    c, s = math.cos(yaw), math.sin(yaw)
+    turn = torch.eye(4, dtype=cam.world_view.dtype, device=cam.world_view.device)
+    turn[0, 0], turn[0, 2], turn[2, 0], turn[2, 2] = c, s, -s, c
+    w2v = turn @ cam.world_view
+    return dataclasses.replace(cam, world_view=w2v, full_proj=cam.proj @ w2v, timestep=timestep)
+
+
+def to_cpu_case(model, cfg, tile_cfg, state, cams, gt, bg) -> dict:
+    """A `tools/sharded_steps` case of the card's objects, on the CPU (the
+    ranks move it to their device)."""
+    from gaussianavatars_torch.training.optim import tree_map
+
+    gen = state.generator
+    cpu_state = dataclasses.replace(tree_map(lambda x: x.cpu(), dataclasses.replace(
+        state, generator=None)), generator=gen)
+    cpu_cams = [dataclasses.replace(c, **{f.name: getattr(c, f.name).cpu()
+                                          for f in dataclasses.fields(c)
+                                          if isinstance(getattr(c, f.name), torch.Tensor)})
+                for c in cams]
+    return dict(model=copy.deepcopy(model).to("cpu"), cfg=cfg, tile=tile_cfg, state=cpu_state,
+                cameras=cpu_cams, gt=gt.cpu(), bg=bg.cpu(), sh_degree=3,
+                steps=N_SHARDED_STEPS)
+
+
+def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
+    """Phase 18 (b): four ranks through the launcher over `backend` (gloo:
+    time-sharing one card), running 1x4, 1x4 with `gauss_shard` and 2x2
+    (`tools/sharded_steps`), each
+    against the single-device step on the card from the same state: the
+    CPU tests' bounds (loss rtol 1e-4; Adam's first moments within 1e-4 of
+    each leaf's largest; grad_accum atol 1e-4; denom exact), and every
+    rank's state digest equal after every step. The 2x2 rows are two
+    views with their own ground truth (the camera at timestep 0 on the
+    target, and the camera turned by SHARDED_YAW at timestep 1 on the
+    target mirrored): its loss and first moments are the means of the two
+    single-device steps', its grad_accum and denom increments their sums."""
+    from gaussianavatars_torch.tools import sharded_steps
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    cfg, gt, bg, state0 = setup
+    cams = [dataclasses.replace(cam, timestep=0), nudged_camera(cam, SHARDED_YAW, timestep=1)]
+    gts = [gt, gt.flip(1)]
+    single = make_train_step(model, cfg, tile_cfg)
+    singles = [single(state0, g, c, c.timestep, bg, 3) for g, c in zip(gts, cams)]
+    case = to_cpu_case(model, cfg, tile_cfg, state0, cams, torch.stack(gts), bg)
+    t0 = time.perf_counter()
+    runs = sharded_steps.run_cases([case], list(SHARDED_RUNS), device=SHARDED_DEVICE,
+                                   backend=backend, timeout_s=SHARDED_TIMEOUT_S, timed=True)
+    wall = time.perf_counter() - t0
+    launches = {"composite_pairs_fwd": 0, "composite_pairs_bwd": 0}
+    out = {}
+    for name, ranks in zip(SHARDED_RUNS, runs):
+        res = [r["results"][0] for r in ranks]
+        n_data = int(name[0])
+        ref = singles[:n_data]
+        st = res[0]["state_first"]
+        m = res[0]["metrics"][0]
+        aux0 = state0.aux
+
+        def inc(key):
+            return sum((getattr(o.state.aux, key) - getattr(aux0, key)).cpu().numpy()
+                       for o in ref)
+
+        checks = {
+            "digests_equal": all(r["digests"] == res[0]["digests"] for r in res),
+            "loss_rel": abs(m["loss"] - np.mean([float(o.metrics["loss"]) for o in ref]))
+            / abs(np.mean([float(o.metrics["loss"]) for o in ref])),
+            "grad_accum_abs": float(np.abs(st["aux/grad_accum"] - aux0.grad_accum.cpu().numpy()
+                                           - inc("grad_accum")).max()),
+            "denom_equal": bool(np.array_equal(st["aux/denom"] - aux0.denom.cpu().numpy(),
+                                               inc("denom"))),
+        }
+        mu = {k: torch.from_numpy(st[f"adam/mu/{k}"]) for k in UPDATE_KEYS}
+        want = {k: sum(getattr(o.state.adam.mu, k).cpu() for o in ref) / n_data
+                for k in UPDATE_KEYS}
+        checks["mu_max_rel"] = max_rel(mu, want)[0]
+        per_rank = [{
+            "rank": r["rank"], "d": r["d"], "t": r["t"],
+            "launches": r["results"][0]["launches"], "ms": r["results"][0]["ms"],
+            "collectives": {k: {"calls": v["calls"], "bytes": v["bytes"], "ms": v["ms"]}
+                            for k, v in r["results"][0]["collectives"][-1].items()},
+        } for r in ranks]
+        for r in res:
+            for step_launches in r["launches"]:
+                for k in launches:
+                    launches[k] += step_launches.get(k, 0)
+        out[name] = dict(checks=checks, per_rank=per_rank)
+        log(f"sharded/{backend}_{name.replace(':', '_')}", card=card["nvidia_smi"], **checks,
+            host_staged=res[0]["host_staged"], per_rank=per_rank)
+        ok = (checks["digests_equal"] and checks["loss_rel"] <= 1e-4
+              and checks["grad_accum_abs"] <= 1e-4 and checks["denom_equal"]
+              and checks["mu_max_rel"] <= 1e-4
+              and all(x.get("composite_pairs_fwd") == 1 and x.get("composite_pairs_bwd") == 1
+                      for r in res for x in r["launches"]))
+        if not ok:
+            raise AssertionError(f"sharded run {name} failed its checks: {checks}, "
+                                 f"{[r['launches'] for r in res]}")
+    log("sharded/ranks", backend=backend, seconds=wall, runs=list(SHARDED_RUNS),
+        launches=launches)
+    return dict(out, launches=launches)
+
+
+def sharded_cli(card, backend: str) -> dict:
+    """Phase 18 (c): `tools.train --mesh 2x2 --dist_backend <backend>` (four
+    ranks) on phase 12's dataset, FLAME-bound, with a densify event,
+    an eval and a save: only rank 0 printed and wrote, the ranks ended on
+    one state digest (the loop checks it at every log and raises on a
+    difference)."""
+    from gaussianavatars_torch.tools import train as ttrain
+
+    model_dir = os.path.join(SHARDED_DIR, "cli")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    res, _ = ttrain.main(["-s", LOOP_WORKDIR, "-m", model_dir, *SHARDED_CLI_FLAGS,
+                          "--dist_backend", backend, "--launch_timeout", str(SHARDED_TIMEOUT_S),
+                          "--device", SHARDED_DEVICE])
+    out = res.stdout[0]
+    line = [ln for ln in out.splitlines() if ln.startswith("[mesh 2x2] 4 ranks hold state")]
+    files = sorted(os.listdir(model_dir))
+    checks = dict(
+        others_silent=all(s == "" for s in res.stdout[1:]),
+        digest_line=line[-1] if line else None,
+        densified="[densify 40]" in out, evaluated="[eval val]" in out,
+        saved=os.path.exists(os.path.join(model_dir, "point_cloud",
+                                          f"iteration_{SHARDED_CLI_ITERS}", "point_cloud.ply")),
+        checkpoint=os.path.exists(os.path.join(model_dir, f"chkpnt{SHARDED_CLI_ITERS}.npz")),
+        files=files, seconds=res.seconds,
+        end_to_end_steps_per_s=SHARDED_CLI_ITERS / res.seconds)
+    log("sharded/cli", card=card["nvidia_smi"], backend=backend, **checks,
+        note="steps/s in the digest line: between the first and last log, events included; "
+             "end_to_end: the launch's wall clock, rank start and set-up included")
+    if not (checks["others_silent"] and line and checks["densified"] and checks["evaluated"]
+            and checks["saved"] and checks["checkpoint"]):
+        raise AssertionError(f"the 2x2 CLI run failed its checks: {checks}\n{out[-3000:]}")
+    return checks
+
+
+def phase_sharded(card, model, cam, tile_cfg, setup) -> dict:
+    """Phase 18. Returns rows 1 and 2's launches on its paths (this
+    process's 1x1 run and the ranks of (b))."""
+    from gaussianavatars_torch.tools import multiproc_check, scaling_bench
+
+    os.makedirs(SHARDED_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    backend = ranks_backend()
+    a = part("nccl_1x1", lambda: sharded_nccl_1x1(card, model, cam, tile_cfg, setup))
+    b = part("ranks", lambda: sharded_ranks(card, model, cam, tile_cfg, setup, backend))
+    part("cli", lambda: sharded_cli(card, backend))
+    if part("multiproc_check", lambda: multiproc_check.main(
+            ["--device", SHARDED_DEVICE, "--dist_backend", backend])) != 0:
+        raise AssertionError("multiproc_check failed")
+    scaling = {}
+    dev = ["--device", SHARDED_DEVICE, *SHARDED_SCALING_SIZE]
+    scaling.update(part("scaling_unsharded", lambda: scaling_bench.main(["--unsharded", *dev])))
+    scaling.update(part("scaling_1x1", lambda: scaling_bench.main(["--meshes", "1x1", *dev])))
+    scaling.update(part("scaling_ranks", lambda: scaling_bench.main(
+        ["--meshes", "1x2,1x4,2x2", "--dist_backend", backend, "--iters", "10", *dev])))
+    log("sharded/scaling", card=card["nvidia_smi"], cards=torch.cuda.device_count(),
+        backend=backend, results=scaling,
+        note="meshes of more ranks than cards time-share the card: their speed-ups are not "
+             "scaling")
+    log("sharded/seconds", seconds=time.perf_counter() - t0, parts=seconds)
+    return {"composite_pairs_fwd": a["fwd"] + b["launches"]["composite_pairs_fwd"],
+            "composite_pairs_bwd": a["bwd"] + b["launches"]["composite_pairs_bwd"]}
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -3316,7 +3652,30 @@ def parse_args(argv=None):
                          "into an ignored directory): build its compositor and micro-reduce "
                          "kernels and time rows 1-4 and micro_reduce_a-d beside this "
                          "checkout's in phases 3, 11 and 13")
+    ap.add_argument("--sharded_only", action="store_true",
+                    help="phases 1, 2 and 18 alone, with phase 12's dataset written and not "
+                         "fitted: the multi-card proof on a machine with four cards")
     return ap.parse_args(argv)
+
+
+def sharded_only(card) -> int:
+    """`--sharded_only`: phase 18 on the benchmark scene and phase 12's
+    dataset (written, not fitted), then the last line."""
+    from gaussianavatars_torch.render import build_scene, probe_tile_config
+    from gaussianavatars_torch.tools import train_synthetic as ts
+
+    dev = torch.device("cuda")
+    model, params, aux, fl, cam, _n = build_scene(device=dev)
+    tile_cfg = probe_tile_config(model, params, aux, fl, cam)
+    setup = train_setup(dev, model, params, aux, fl, cam, tile_cfg)
+    shutil.rmtree(LOOP_WORKDIR, ignore_errors=True)
+    a = ts.parse_args([*LOOP_FLAGS, "--workdir", LOOP_WORKDIR])
+    ts.write_dataset(a, *ts.build_reference_avatar(a, "cuda"))
+    log("sharded_only/launches", **phase_sharded(card, model, cam, tile_cfg, setup))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -3343,6 +3702,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = phase_device()
     built = phase_build()
+    if args.sharded_only:
+        return sharded_only(card)
     against = build_against(args.against) if args.against else []
     torch.set_grad_enabled(False)
 
@@ -3557,14 +3918,19 @@ def main(argv=None) -> int:
                                  train["steps_per_s"])
     del harness
 
+    # --- 18. multi-device training over a rank mesh ---------------------------
+    torch.set_grad_enabled(True)
+    sharded_launches = phase_sharded(card, model, cam, cfg, setup)
+
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training, the loop, the replay, the
-    # innovations' loop and step, the CLI, and phase 17's sorted paths
+    # innovations' loop and step, the CLI, phase 17's sorted paths
     # (the serving and step comparisons, the stage timings, the profiled
-    # steps, the two viewer tools).
+    # steps, the two viewer tools) and phase 18's (the 1x1 step in this
+    # process and the four ranks' bands).
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
                 loop_res["launches"], replay_launches, innov_loop["launches"],
-                innov_step["launches"], cli_launches, table_launches):
+                innov_step["launches"], cli_launches, table_launches, sharded_launches):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)

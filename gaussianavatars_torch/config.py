@@ -8,8 +8,8 @@ model and dataset knobs (`ModelConfig`, without the JAX package's
 `data_device`), the tile geometry and tier budgets (`PipelineConfig`), the
 training step's learning rates, loss weights and regularisers, the
 host loop's schedule (iterations, densification, opacity resets), and the
-five training innovations' flags and settings. The device mesh
-(`ParallelConfig`) is not ported.
+five training innovations' flags and settings, and the rank mesh's
+layout (`ParallelConfig`).
 """
 from __future__ import annotations
 
@@ -130,10 +130,23 @@ class OptimizationConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The mesh's layout (no reference equivalent): cameras a step over
+    `data`, image row bands over `tile` (`parallel/mesh.make_rank_mesh`).
+    `gauss_axis` is kept for the JAX package's `cfg_args.json`: the
+    Gaussian shards ride the `tile` axis (`--gauss_shard`)."""
+
+    data_axis: int = 1
+    gauss_axis: int = 1
+    tile_axis: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = ModelConfig()
     pipeline: PipelineConfig = PipelineConfig()
     opt: OptimizationConfig = OptimizationConfig()
+    parallel: ParallelConfig = ParallelConfig()
 
 
 def to_json(cfg: Config) -> str:
@@ -160,4 +173,5 @@ def from_json(text: str) -> Config:
         model=build(ModelConfig, raw.get("model", {})),
         pipeline=build(PipelineConfig, raw.get("pipeline", {})),
         opt=build(OptimizationConfig, raw.get("opt", {})),
+        parallel=build(ParallelConfig, raw.get("parallel", {})),
     )

@@ -68,7 +68,10 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] | None = None) -> dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet.
 
-    One `nvcc` per source, all started together. Returns, per name, the
+    One `nvcc` per source, all started together. Processes may build at
+    once (each writes its own temporary files and renames them into
+    place); `parallel.distributed.launch` builds before it starts the
+    ranks, so they build nothing. Returns, per name, the
     build seconds (0.0 when the library already existed) and the
     compiler's output, which holds the ptxas resource report (kept beside
     the library, so a library built earlier still has it; see
@@ -95,7 +98,12 @@ def build(names: Iterable[str] | None = None) -> dict[str, dict]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
-        lib.with_suffix(".log").write_text(log)
+        # The log, like the library, is written whole under a name of this
+        # process and renamed into place: another process building the
+        # same library at the same time reads one or the other, never a part.
+        tmp_log = lib.with_suffix(f".{os.getpid()}.log.tmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, lib.with_suffix(".log"))
         os.replace(tmp, lib)
         out[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failures:

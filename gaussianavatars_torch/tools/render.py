@@ -68,18 +68,20 @@ def write_png(path: str, img: np.ndarray) -> None:
     Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
 
 
-def load_flame_model(cfg: Config, flame_assets: str, device="cuda") -> FlameModel:
+def load_flame_model(cfg: Config, flame_assets: str, device="cuda",
+                     verbose: bool = True) -> FlameModel:
     """The FLAME model of `cfg` from an assets `.npz`, or synthetic assets
-    with a warning when there is none (the JAX package's
+    with a warning (when `verbose`) when there is none (the JAX package's
     `scripts/train.py:load_flame_model`)."""
     fc = FlameConfig(n_shape=cfg.model.n_shape, n_expr=cfg.model.n_expr,
                      add_teeth=cfg.model.add_teeth)
     if flame_assets and os.path.exists(flame_assets):
         assets = load_assets(flame_assets)
     else:
-        print("[warn] no FLAME assets npz — using synthetic statistical model "
-              "(real training needs the licensed FLAME 2023 files; see "
-              "gaussianavatars_torch/models/flame/assets.py)")
+        if verbose:
+            print("[warn] no FLAME assets npz — using synthetic statistical model "
+                  "(real training needs the licensed FLAME 2023 files; see "
+                  "gaussianavatars_torch/models/flame/assets.py)")
         assets = synthetic_assets(n_shape=fc.n_shape, n_expr=fc.n_expr, seed=0)
     return FlameModel(assets, fc, device=device)
 

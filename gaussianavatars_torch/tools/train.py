@@ -14,21 +14,40 @@ server listens on `--port` (0: off) and is serviced after every step;
     python -m gaussianavatars_torch.tools.train -s data/lego -m output/lego -w --eval
 
 `--no_pallas` trains and evaluates through the table pipeline
-(`ops/rasterize_tiled.bin_gaussians` and `composite_tiles`). Flags that
-need a part of the JAX package not ported yet raise `NotImplementedError`
-and name the `ROADMAP.md` item: `--mesh`, `--distributed`,
-`--gauss_shard` and `--coordinator_address`, `--num_processes`,
-`--process_id` other than their defaults (item 5). `--steps_per_call` is accepted and does nothing:
-the port runs one step per iteration.
+(`ops/rasterize_tiled.bin_gaussians` and `composite_tiles`).
+`--steps_per_call` is accepted and does nothing: the port runs one step
+per iteration.
+
+Multi-device training (`training/loop.train_sharded` over a rank mesh,
+`parallel/`): `--mesh DxT` trains D cameras a step, each composited in T
+row bands (`--gauss_shard`: the per-Gaussian geometry split T ways too).
+Without `--distributed` it starts D·T local ranks of this command
+(`parallel/distributed.launch`, `--launch_timeout` seconds at most, 0: no
+limit) and prints rank 0's output as it comes; with `--distributed`, or under
+torchrun's environment, this process is one rank of an existing world
+(`--coordinator_address host:port` or a `file://`/`tcp://` URL,
+`--num_processes`, `--process_id`; torchrun's `MASTER_ADDR`, `RANK`, ...
+otherwise), with a 1×N mesh when `--mesh` is not given.
+`--dist_backend` is nccl on the card and gloo on the CPU by default; NCCL
+takes one rank a device, so ranks that share a card need
+`--dist_backend gloo` (asked for, never switched to).
+
+    python -m gaussianavatars_torch.tools.train -s data/306 -m output/306 \\
+        --bind_to_mesh --eval --mesh 2x2 --dist_backend gloo
+    torchrun --nproc_per_node 4 -m gaussianavatars_torch.tools.train \\
+        -s data/306 -m output/306 --bind_to_mesh --eval --mesh 1x4
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from ..config import Config, ModelConfig, OptimizationConfig, PipelineConfig
 from ..device import resolve_device
-from ..training.loop import build_harness, train
+from ..parallel import distributed as pdist
+from ..parallel.mesh import make_rank_mesh
+from ..training.loop import build_harness, train, train_sharded
 from ..utils.debug import enable_nan_debugging
 from .render import load_flame_model
 
@@ -94,32 +113,66 @@ def parse_args(argv=None):
                    help="the table pipeline instead of the compositor kernels")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-device mesh 'DATAxTILE': not ported (ROADMAP queue A item 5)")
+                   help="multi-device mesh 'DATAxTILE' (e.g. 2x2): cameras a step over "
+                        "'data', image row bands over 'tile' (parallel/sharded.py); "
+                        "without --distributed, D*T local ranks are started")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host: not ported (ROADMAP queue A item 5)")
+                   help="this process is one rank of a world: the three flags below, "
+                        "or torchrun's environment")
     p.add_argument("--coordinator_address", type=str, default="",
-                   help="multi-host: not ported (ROADMAP queue A item 5)")
+                   help="host:port of rank 0 (or a tcp:// or file:// URL)")
     p.add_argument("--num_processes", type=int, default=-1)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--gauss_shard", action="store_true",
-                   help="with --mesh: not ported (ROADMAP queue A item 5)")
+                   help="with --mesh: also shard per-Gaussian geometry over the tile axis")
     p.add_argument("--steps_per_call", type=int, default=50,
                    help="accepted for the JAX script's command lines; the port runs "
                         "one step per iteration")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="the ranks' torch.distributed backend (default: nccl on the card, "
+                        "gloo on the CPU); ranks sharing one card need gloo")
+    p.add_argument("--launch_timeout", type=float, default=0.0,
+                   help="with --mesh and without --distributed: seconds the local ranks "
+                        "may run (0: no limit)")
     return p.parse_args(argv)
 
 
+def mesh_shape(a) -> tuple:
+    """(data, tile) of `--mesh`, or (1, None) (a 1×N mesh) without it."""
+    if not a.mesh:
+        return 1, None
+    try:
+        d, t = (int(x) for x in a.mesh.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {a.mesh!r}: expected DATAxTILE, e.g. 2x2") from None
+    return d, t
+
+
+def joins_world(a) -> bool:
+    """This process is a rank of an existing world: `--distributed`, or
+    torchrun's environment."""
+    return a.distributed or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+
+
 def check_supported(a) -> None:
-    """Raise `NotImplementedError` for a flag whose path is not ported."""
-    multi = {"--mesh": a.mesh != "", "--distributed": a.distributed,
-             "--gauss_shard": a.gauss_shard,
-             "--coordinator_address": a.coordinator_address != "",
-             "--num_processes": a.num_processes != -1, "--process_id": a.process_id != -1}
-    given = [flag for flag, on in multi.items() if on]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: multi-device training is not "
-                                  "ported (ROADMAP queue A item 5)")
+    """Raise `ValueError` for flags that cannot run together, before
+    anything starts: a malformed `--mesh`, the world flags or
+    `--gauss_shard` without a mesh to use them, and a backend that cannot
+    place the ranks (`--dist_backend nccl` with two ranks on one device)."""
+    d, t = mesh_shape(a)
+    world = joins_world(a)
+    if a.gauss_shard and not (a.mesh or world):
+        raise ValueError("--gauss_shard needs --mesh or --distributed")
+    given = [f for f, on in (("--coordinator_address", a.coordinator_address != ""),
+                             ("--num_processes", a.num_processes != -1),
+                             ("--process_id", a.process_id != -1)) if on]
+    if given and not a.distributed:
+        raise ValueError(f"{', '.join(given)} need --distributed")
+    if a.mesh or world:
+        backend = a.dist_backend or pdist.default_backend(a.device)
+        ranks = int(os.environ.get("LOCAL_WORLD_SIZE", "1")) if world else d * t
+        pdist.check_backend(backend, a.device, ranks)
 
 
 def config_from_args(a) -> Config:
@@ -169,21 +222,36 @@ def event_iterations(a) -> tuple:
 
 def main(argv=None):
     """Parse, build the harness, serve the GUI and train. Returns
-    (harness, logs)."""
+    (harness, logs); with `--mesh` and without `--distributed`, the local
+    ranks' `parallel.distributed.LaunchResult` in place of the harness (and
+    no logs)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     a = parse_args(argv)
     check_supported(a)
-    dev = resolve_device(a.device)
+    if a.mesh and not joins_world(a):
+        return launch_ranks(a, argv), None
+    world = joins_world(a)
+    backend = a.dist_backend or pdist.default_backend(a.device)
+    if world:
+        pdist.initialize(a.coordinator_address or None,
+                         a.num_processes if a.num_processes > 0 else None,
+                         a.process_id if a.process_id >= 0 else None,
+                         backend=backend, device=a.device)
+    dev = pdist.rank_device(a.device) if world else resolve_device(a.device)
+    coord = pdist.is_coordinator()
     cfg = config_from_args(a)
     if a.detect_anomaly:
         enable_nan_debugging()
-        print("[debug] autograd anomaly detection enabled (--detect_anomaly)")
+        if coord:
+            print("[debug] autograd anomaly detection enabled (--detect_anomaly)")
     gui = None
     try:
-        model = load_flame_model(cfg, a.flame_assets, device=dev) if a.bind_to_mesh else None
+        model = (load_flame_model(cfg, a.flame_assets, device=dev, verbose=coord)
+                 if a.bind_to_mesh else None)
         harness = build_harness(cfg, model=model, start_checkpoint=a.start_checkpoint,
-                                device=dev)
+                                device=dev, coordinator=coord)
         tests, saves, ckpts = event_iterations(a)
-        if a.port:
+        if a.port and coord:
             from ..viewers.network_gui import TrainingGuiServer
 
             try:
@@ -193,15 +261,33 @@ def main(argv=None):
                 print(f"[warn] GUI server unavailable: {e}")
         # Serviced every iteration (reference: train.py:143-172).
         gui_service = (lambda it: gui.service(harness, it)) if gui else None
-        logs = train(harness, iterations=a.iterations, log_every=a.log_every, eval_every=None,
-                     eval_iterations=tests, save_iterations=saves, checkpoint_iterations=ckpts,
-                     seed=a.seed, gui_service=gui_service, debug_from=a.debug_from)
+        kw = dict(iterations=a.iterations, log_every=a.log_every, eval_every=None,
+                  eval_iterations=tests, save_iterations=saves, checkpoint_iterations=ckpts,
+                  seed=a.seed, gui_service=gui_service, debug_from=a.debug_from)
+        if world:
+            logs = train_sharded(harness, make_rank_mesh(*mesh_shape(a)),
+                                 gauss_shard=a.gauss_shard, **kw)
+        else:
+            logs = train(harness, **kw)
     finally:
         if gui is not None:
             gui.close()
         if a.detect_anomaly:
             enable_nan_debugging(False)
+        if world:
+            pdist.shutdown()
     return harness, logs
+
+
+def launch_ranks(a, argv) -> "pdist.LaunchResult":
+    """`--mesh DxT` without `--distributed`: D·T local ranks of this command,
+    each with `--distributed` and the launcher's rendezvous; rank 0's output
+    is printed as it comes. Raises when a rank fails or the time runs out."""
+    d, t = mesh_shape(a)
+    backend = a.dist_backend or pdist.default_backend(a.device)
+    extra = ["--distributed", "--dist_backend", backend]
+    return pdist.launch("gaussianavatars_torch.tools.train", [*argv, *extra], d * t,
+                        a.launch_timeout or None, device=a.device, echo=True).check()
 
 
 if __name__ == "__main__":

@@ -67,7 +67,7 @@ from ..ops.sort_binning import grow_tiers
 from ..render import probe_tile_config
 from ..utils.debug import assert_finite
 from ..utils.image import error_map
-from .checkpoint import load_train_state, save_train_state
+from .checkpoint import flatten_state, load_train_state, save_train_state
 from .innovations import color_net_apply, resolution_scale_at, smart_thresholds
 from .loss import psnr as psnr_fn, ssim as ssim_fn
 from .trainer import TrainState, active_sh_degree, init_train_state, make_train_step
@@ -164,9 +164,12 @@ def build_harness(
     generator: Optional[torch.Generator] = None,
     start_checkpoint: str = "",
     device="cuda",
+    coordinator: bool = True,
 ) -> TrainerHarness:
     """Scene, initial state (or `start_checkpoint`'s), and the model
-    directory's `cfg_args.json` (and `flame_assets.npz` when bound).
+    directory's `cameras.json`, `cfg_args.json` (and `flame_assets.npz`
+    when bound); another rank than the coordinator writes and prints
+    nothing.
 
     With `cfg.model.bind_to_mesh` the Gaussians are bound to `model`'s
     faces; without it (the model is ignored) they start from the dataset's
@@ -181,7 +184,8 @@ def build_harness(
     else:
         model = None
     scene = Scene(
-        m.source_path, model_path=m.model_path, resolution=m.resolution,
+        m.source_path, model_path=m.model_path if coordinator else "",
+        resolution=m.resolution,
         white_background=m.white_background, eval_split=m.eval,
         target_path=m.target_path, select_camera_id=m.select_camera_id,
         num_verts_hint=model.num_verts if model is not None else 0, device=dev,
@@ -211,9 +215,9 @@ def build_harness(
     start_iteration = 0
     if start_checkpoint:
         state, start_iteration = load_train_state(start_checkpoint, state)
-        print(f"resumed from {start_checkpoint} at iteration {start_iteration}")
-
-    if m.model_path:
+        if coordinator:
+            print(f"resumed from {start_checkpoint} at iteration {start_iteration}")
+    if m.model_path and coordinator:
         os.makedirs(m.model_path, exist_ok=True)
         with open(os.path.join(m.model_path, "cfg_args.json"), "w") as f:
             f.write(to_json(cfg))
@@ -425,30 +429,42 @@ def _post_step_events(
     save_set: set,
     ckpt_set: set,
     eval_set: frozenset = frozenset(),
+    coordinator: bool = True,
 ) -> None:
     """Densify / opacity reset / eval / save / checkpoint at the standard
     cadences (`train.py:264-289`), with the JAX loop's TensorBoard records
     when `writer` is given. Each event's host milliseconds go to
-    `harness.events`."""
+    `harness.events`.
+
+    Shared by `train` and `train_sharded`. The events that change the
+    state (densify, capacity growth, opacity reset) run in every rank:
+    they are functions of the replicated state (and of its generator's
+    draws, taken alike in every rank). Eval, saves, checkpoints and prints
+    run only when `coordinator` (rank 0); the eval render makes no
+    collective."""
     cfg, scene, model = harness.cfg, harness.scene, harness.model
     o = cfg.opt
     # Strictly after densify_from_iter (reference train.py:268 uses `>`).
     if o.densify_from_iter < it < o.densify_until_iter and it % o.densification_interval == 0:
         report = _timed(harness, "densify", it, lambda: densify_event(harness, it))
-        print(f"  [densify {it}] {report}")
+        if coordinator:
+            print(f"  [densify {it}] {report}")
         if writer:
             for k in ("cloned", "split", "pruned", "dropped"):
                 writer.add_scalar(f"densify/{k}", report[k], it)
         if report.get("dropped", 0) > 0:
             new_cap = grow_gauss_capacity_event(harness)
-            print(f"[warn] densify dropped {report['dropped']} grow requests "
-                  f"— Gaussian capacity doubled to {new_cap}")
+            if coordinator:
+                print(f"[warn] densify dropped {report['dropped']} grow requests "
+                      f"— Gaussian capacity doubled to {new_cap}")
     # The reference resets opacity on the interval and once at
     # densify_from_iter for white-background scenes (train.py:272-273).
     if it < o.densify_until_iter and (
             it % o.opacity_reset_interval == 0
             or (cfg.model.white_background and it == o.densify_from_iter)):
         _timed(harness, "opacity_reset", it, lambda: opacity_reset_event(harness))
+    if not coordinator:
+        return
     if (eval_every and it % eval_every == 0) or it in eval_set:
         for split in ("val", "test"):
             res = _timed(harness, "eval", it, lambda: evaluate_split(
@@ -517,6 +533,133 @@ def _grow_tile_budgets(tcfg: TileConfig, overflow: int, budget_overflow: int,
     return tcfg
 
 
+class _LogCadence:
+    """What both loops do at their log cadence: the step's budget counters
+    kept as running maxima on the device between logs (read only there),
+    the budgets grown when one overflowed (`_grow_tile_budgets`, recorded
+    in `harness.events`), the log record, TensorBoard, the print (when
+    `verbose`) and `on_step`."""
+
+    def __init__(self, harness: TrainerHarness, iterations: int, sorted_mode: bool, writer,
+                 on_step, verbose: bool = True):
+        self.harness, self.iterations, self.sorted_mode = harness, iterations, sorted_mode
+        self.writer, self.on_step, self.verbose = writer, on_step, verbose
+        self.maxima = None
+        self.ema = None
+        self.logs: List[dict] = []
+        self.t0 = time.time()
+
+    def add(self, metrics: dict) -> None:
+        new = [metrics[k] for k in ("overflow", "budget_overflow", "max_footprint")]
+        self.maxima = new if self.maxima is None else [
+            torch.maximum(a, b) for a, b in zip(self.maxima, new)]
+
+    def log(self, it: int, metrics: dict, tcfg: TileConfig, **extra) -> Optional[TileConfig]:
+        """Log iteration `it`; returns the grown tile config, or None."""
+        harness = self.harness
+        overflow_seen, budget_overflow_seen, mfp_seen = (int(x) for x in self.maxima)
+        self.maxima = None
+        grown = _grow_tile_budgets(tcfg, overflow_seen, budget_overflow_seen,
+                                   verbose=self.verbose, max_footprint=mfp_seen,
+                                   n_gauss=harness.state.params.capacity,
+                                   sorted_mode=self.sorted_mode)
+        if grown is not None:
+            harness.events.append({
+                "kind": "grow_tiers" if self.sorted_mode else "grow_table",
+                "iteration": it, "ms": 0.0, "overflow": overflow_seen,
+                "budget_overflow": budget_overflow_seen, "tiers": grown.tiers,
+                "capacity": grown.capacity,
+                "max_tiles_per_gaussian": grown.max_tiles_per_gaussian})
+            harness.live_tile_config = grown
+        loss = float(metrics["loss"])
+        self.ema = ema = loss if self.ema is None else 0.6 * self.ema + 0.4 * loss
+        rec = {
+            "iteration": it,
+            "loss": loss,
+            "ema_loss": ema,
+            "psnr": float(metrics["psnr"]),
+            "num_points": int(num_alive(harness.state.aux)),
+            "overflow": overflow_seen,
+            "budget_overflow": budget_overflow_seen,
+            **extra,
+            "elapsed_s": time.time() - self.t0,
+        }
+        self.logs.append(rec)
+        if self.writer:
+            for k in ("loss", "psnr", "num_points"):
+                self.writer.add_scalar(f"train/{k}", rec[k], it)
+        if self.verbose:
+            print(f"[{it}/{self.iterations}] loss={loss:.5f} ema={ema:.5f} "
+                  f"psnr={rec['psnr']:.2f} pts={rec['num_points']}")
+        if self.on_step:
+            self.on_step(it, rec)
+        return grown
+
+
+class _ScaleSources:
+    """Both loops' ground truth: one source an image divisor (1 / scale),
+    built when its scale first runs and dropped once it cannot recur (the
+    JAX loop's eviction, `loop.py:759-777`). A source is a device cache of
+    every training view (uint8) when it fits in `device_cache_bytes`, with
+    a sampler seeded by `seed`; else a threaded prefetcher of `batch` views
+    a draw, seeded alike."""
+
+    def __init__(self, harness: TrainerHarness, recs, seed: int, device_cache_bytes: int,
+                 prefetch_workers: int, batch: int = 1):
+        self.harness, self.recs, self.seed = harness, recs, seed
+        self.cache_bytes, self.workers, self.batch = device_cache_bytes, prefetch_workers, batch
+        self.sources: Dict[float, tuple] = {}
+
+    def _source(self, div: float, it: int) -> tuple:
+        if div not in self.sources:
+            scene, recs = self.harness.scene, self.recs
+            cams = scene.cameras("train", div)
+            try:
+                src = _timed(self.harness, "gt_cache", it, lambda: DeviceGtCache(
+                    recs, cams, scene.device, max_bytes=self.cache_bytes), views=len(recs),
+                    scale=1.0 / div)
+                sampler = iter(EpochSampler(len(recs), self.seed))
+            except MemoryError:
+                src = Prefetcher(recs, cams, scene.device, seed=self.seed,
+                                 workers=self.workers, batch=self.batch)
+                sampler = None
+            self.sources[div] = (src, sampler, cams)
+        return self.sources[div]
+
+    def draw(self, div: float, it: int, row: int = 0) -> tuple:
+        """The next `batch` views of scale 1 / `div`, the float ground
+        truth [H, W, 3] of view `row` of them, and the scale's cameras."""
+        src, sampler, cams = self._source(div, it)
+        if sampler is not None:
+            views = [next(sampler) for _ in range(self.batch)]
+            return views, src.get(views[row]), cams
+        views, gt = src.next()
+        return views, gt[row], cams
+
+    def evict_past(self, it: int) -> list:
+        """Drop the sources of scales that cannot recur after `it`; returns
+        their divisors."""
+        o = self.harness.cfg.opt
+        seg = sum(1 for m in o.resolution_milestones if it >= m)
+        future = {1.0 / s for s in o.resolution_schedule[seg:]}
+        gone = [d for d in self.sources if d not in future]
+        for d in gone:
+            src = self.sources.pop(d)[0]
+            if isinstance(src, Prefetcher):
+                src.close()
+            self.harness.events.append({"kind": "evict_scale", "iteration": it, "ms": 0.0,
+                                        "scale": 1.0 / d})
+        return gone
+
+    def scales(self) -> list:
+        return sorted(1.0 / d for d in self.sources)
+
+    def close(self) -> None:
+        for src, _, _ in self.sources.values():
+            if isinstance(src, Prefetcher):
+                src.close()
+
+
 def train(
     harness: TrainerHarness,
     iterations: Optional[int] = None,
@@ -562,47 +705,15 @@ def train(
     bg = _background(cfg, dev)
 
     step = None
-    # Per image divisor (1 / scale): the GT source and its sampler.
-    sources: Dict[float, object] = {}
-    samplers: Dict[float, object] = {}
-
-    def source_for(div: float, it: int):
-        if div not in sources:
-            cams = scene.cameras("train", div)
-            try:
-                sources[div] = _timed(harness, "gt_cache", it, lambda: DeviceGtCache(
-                    recs, cams, dev, max_bytes=device_cache_bytes), views=len(recs),
-                    scale=1.0 / div)
-                samplers[div] = iter(EpochSampler(len(recs), seed))
-            except MemoryError:
-                sources[div] = Prefetcher(recs, cams, dev, seed=seed, workers=prefetch_workers)
-                samplers[div] = None
-        return sources[div], samplers[div], scene.cameras("train", div)
-
-    def evict_past(it: int) -> None:
-        """Drop the sources of scales that cannot recur after `it`."""
-        seg = sum(1 for m in o.resolution_milestones if it >= m)
-        future = {1.0 / s for s in o.resolution_schedule[seg:]}
-        for d in [k for k in sources if k not in future]:
-            src = sources.pop(d)
-            samplers.pop(d)
-            if isinstance(src, Prefetcher):
-                src.close()
-            harness.events.append({"kind": "evict_scale", "iteration": it, "ms": 0.0,
-                                   "scale": 1.0 / d})
-
+    sources = _ScaleSources(harness, recs, seed, device_cache_bytes, prefetch_workers)
     render_fn = make_render_fn(model, cfg, tcfg)
-    logs: List[dict] = []
-    ema = None
     save_set = set(save_iterations)
     ckpt_set = set(checkpoint_iterations)
     eval_set = frozenset(eval_iterations)
-    # Running maxima of the step's budget counters, on the device.
-    ovf_dev = bovf_dev = mfp_dev = None
-    sorted_mode = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas
     harness.live_tile_config = tcfg
     writer = _maybe_tensorboard(cfg.model.model_path)
-    t0 = time.time()
+    cadence = _LogCadence(harness, iterations, cfg.pipeline.use_sorted and cfg.pipeline.use_pallas,
+                          writer, on_step)
     try:
         it = harness.start_iteration + 1
         while it <= iterations:
@@ -611,27 +722,16 @@ def train(
             scale = 1.0
             if o.use_progressive_resolution:
                 scale = resolution_scale_at(it, o.resolution_schedule, o.resolution_milestones)
-                evict_past(it)
-            source, sampler, cams_all = source_for(1.0 / scale, it)
+                sources.evict_past(it)
+            (v,), gt0, cams_all = sources.draw(1.0 / scale, it)
             sh_deg = active_sh_degree(it, cfg.model.sh_degree)
-            if sampler is not None:
-                v = next(sampler)
-                gt0 = source.get(v)
-            else:
-                views, gt = source.next()
-                v, gt0 = views[0], gt[0]
             cam = cams_all[v]
             size = (cam.height, cam.width)
             harness.steps_by_size[size] = harness.steps_by_size.get(size, 0) + 1
             out = step(harness.state, gt0, cam, cam.timestep, bg, sh_deg)
             harness.state = out.state
             metrics = out.metrics
-            ovf_dev = (metrics["overflow"] if ovf_dev is None
-                       else torch.maximum(ovf_dev, metrics["overflow"]))
-            bovf_dev = (metrics["budget_overflow"] if bovf_dev is None
-                        else torch.maximum(bovf_dev, metrics["budget_overflow"]))
-            mfp_dev = (metrics["max_footprint"] if mfp_dev is None
-                       else torch.maximum(mfp_dev, metrics["max_footprint"]))
+            cadence.add(metrics)
             if gui_service is not None:
                 gui_service(it)
             if 0 <= debug_from <= it:
@@ -639,48 +739,12 @@ def train(
                 assert_finite(harness.state.params, f"params@it{it}")
 
             if it % log_every == 0 or it == iterations:
-                overflow_seen = int(ovf_dev)
-                budget_overflow_seen = int(bovf_dev)
-                mfp_seen = int(mfp_dev)
-                ovf_dev = bovf_dev = mfp_dev = None
-                grown = _grow_tile_budgets(tcfg, overflow_seen, budget_overflow_seen,
-                                           max_footprint=mfp_seen,
-                                           n_gauss=harness.state.params.capacity,
-                                           sorted_mode=sorted_mode)
+                grown = cadence.log(it, metrics, tcfg, resolution_scale=scale,
+                                    cached_scales=sources.scales())
                 if grown is not None:
-                    harness.events.append({
-                        "kind": "grow_tiers" if sorted_mode else "grow_table",
-                        "iteration": it, "ms": 0.0, "overflow": overflow_seen,
-                        "budget_overflow": budget_overflow_seen, "tiers": grown.tiers,
-                        "capacity": grown.capacity,
-                        "max_tiles_per_gaussian": grown.max_tiles_per_gaussian})
                     tcfg = grown
-                    harness.live_tile_config = tcfg
                     step = None
                     render_fn = make_render_fn(model, cfg, tcfg)
-
-                loss = float(metrics["loss"])
-                ema = loss if ema is None else 0.6 * ema + 0.4 * loss
-                rec = {
-                    "iteration": it,
-                    "loss": loss,
-                    "ema_loss": ema,
-                    "psnr": float(metrics["psnr"]),
-                    "num_points": int(num_alive(harness.state.aux)),
-                    "overflow": overflow_seen,
-                    "budget_overflow": budget_overflow_seen,
-                    "resolution_scale": scale,
-                    "cached_scales": sorted(1.0 / d for d in sources),
-                    "elapsed_s": time.time() - t0,
-                }
-                logs.append(rec)
-                if writer:
-                    for k in ("loss", "psnr", "num_points"):
-                        writer.add_scalar(f"train/{k}", rec[k], it)
-                print(f"[{it}/{iterations}] loss={loss:.5f} ema={ema:.5f} "
-                      f"psnr={rec['psnr']:.2f} pts={rec['num_points']}")
-                if on_step:
-                    on_step(it, rec)
 
             _post_step_events(
                 harness, it, active_sh_degree(it, cfg.model.sh_degree),
@@ -690,12 +754,168 @@ def train(
             )
             it += 1
     finally:
-        for src in sources.values():
-            if isinstance(src, Prefetcher):
-                src.close()
+        sources.close()
         if writer:
             writer.close()
+    return cadence.logs
+
+
+def train_sharded(
+    harness: TrainerHarness,
+    mesh,
+    iterations: Optional[int] = None,
+    log_every: int = 100,
+    eval_every: Optional[int] = None,
+    save_iterations: Sequence[int] = (),
+    checkpoint_iterations: Sequence[int] = (),
+    eval_iterations: Sequence[int] = (),
+    eval_views: int = 4,
+    gauss_shard: bool = False,
+    seed: int = 0,
+    prefetch_workers: int = 4,
+    device_cache_bytes: int = 4 << 30,
+    on_step: Optional[Callable[[int, dict], None]] = None,
+    gui_service: Optional[Callable[[int], bool]] = None,
+    debug_from: int = -1,
+    collectives=None,
+) -> List[dict]:
+    """The loop over a ('data', 'tile') rank mesh (`parallel/mesh.RankMesh`);
+    every rank of the world runs it.
+
+    Each step trains `mesh.data` cameras, one a data group, with the
+    compositing split over `mesh.tile` row bands (and with `gauss_shard`
+    the per-Gaussian geometry too): `parallel/sharded.py`. The state is
+    replicated, so densification, opacity resets, eval, saves and
+    checkpoints are the single-device loop's events at its cadences
+    (`_post_step_events`); I/O, prints, TensorBoard and `gui_service` (given
+    on rank 0) run on rank 0 only, and the other ranks wait for it after
+    each (`CoordinatorHold`, no practical deadline: a viewer client may
+    pause training). Every rank draws the same views from the same seeded
+    source (`_ScaleSources`, as `train`'s) and keeps its own row's ground
+    truth; the tier budgets are probed on the full frame and grown from the
+    mesh-reduced metrics, so every rank grows them alike. Rank 0's initial
+    state is broadcast first. Under progressive resolution each image scale
+    has its own step and source, dropped once the scale cannot recur.
+    At the log cadence every rank checks that all hold the same state
+    (`state_digest` in the log record); they raise when one has drifted.
+    `collectives` (default: a new `Collectives` on the world's backend)
+    keeps the step's collective bookkeeping."""
+    from ..parallel.distributed import (
+        Collectives, CoordinatorHold, is_coordinator, make_local_batch,
+    )
+    from ..parallel.sharded import (
+        camera_batch, make_sharded_train_step, pad_gt_for_mesh, padded_height,
+    )
+
+    cfg, scene, model = harness.cfg, harness.scene, harness.model
+    o = cfg.opt
+    iterations = iterations if iterations is not None else o.iterations
+    dev = scene.device
+    coord = is_coordinator()
+    coll = collectives or Collectives(torch.distributed.get_backend())
+    for leaf in flatten_state(harness.state).values():
+        coll.broadcast(leaf)
+    hold = CoordinatorHold()
+    viewer = bool(hold.wait(coord and gui_service is not None))   # rank 0 serves one
+    tcfg = tile_config(cfg)
+    recs = scene.records("train")
+    if recs:
+        # The full frame's footprints bound every band's.
+        tcfg = probe_tier_budgets(tcfg, cfg, model, harness.state, scene.cameras("train")[0],
+                                  verbose=coord)
+    bg = _background(cfg, dev)
+    steps: Dict[float, Callable] = {}
+    sources = _ScaleSources(harness, recs, seed, device_cache_bytes, prefetch_workers,
+                            batch=mesh.data)
+    render_fn = make_render_fn(model, cfg, tcfg)
+    harness.live_tile_config = tcfg
+    writer = _maybe_tensorboard(cfg.model.model_path) if coord else None
+    cadence = _LogCadence(harness, iterations, cfg.pipeline.use_sorted and cfg.pipeline.use_pallas,
+                          writer, on_step, verbose=coord)
+    logs = cadence.logs
+    save_set, ckpt_set = set(save_iterations), set(checkpoint_iterations)
+    eval_set = frozenset(eval_iterations)
+    try:
+        for it in range(harness.start_iteration + 1, iterations + 1):
+            sh_deg = active_sh_degree(it, cfg.model.sh_degree)
+            scale = 1.0
+            if o.use_progressive_resolution:
+                scale = resolution_scale_at(it, o.resolution_schedule, o.resolution_milestones)
+                for d in sources.evict_past(it):
+                    steps.pop(d, None)
+            # The same views in every rank (the samplers are seeded alike);
+            # each rank keeps its own row's ground truth.
+            views, gt, cams_all = sources.draw(1.0 / scale, it, row=mesh.d)
+            template = cams_all[0]
+            if 1.0 / scale not in steps:
+                steps[1.0 / scale] = make_sharded_train_step(
+                    model, cfg, tcfg, mesh, template, spatial_lr_scale=harness.spatial_lr_scale,
+                    gauss_shard=gauss_shard, collectives=coll)
+            step = steps[1.0 / scale]
+            hp = padded_height(template.height, tcfg.tile_h, mesh.tile)
+            cams, gt = make_local_batch(mesh, camera_batch([cams_all[v] for v in views]),
+                                        pad_gt_for_mesh(gt[None], hp))
+            size = (template.height, template.width)
+            harness.steps_by_size[size] = harness.steps_by_size.get(size, 0) + 1
+            harness.state, metrics = step(harness.state, cams, gt, bg, sh_deg)
+            cadence.add(metrics)
+            if viewer:
+                if coord:
+                    gui_service(it)
+                hold.wait()
+            if 0 <= debug_from <= it:
+                assert_finite(metrics, f"metrics@it{it}")
+                assert_finite(harness.state.params, f"params@it{it}")
+
+            if it % log_every == 0 or it == iterations:
+                # The reduced metrics read alike in every rank: every rank
+                # grows its budgets alike.
+                grown = cadence.log(it, metrics, tcfg, resolution_scale=scale,
+                                    cached_scales=sources.scales())
+                if grown is not None:
+                    tcfg = grown
+                    steps.clear()
+                    render_fn = make_render_fn(model, cfg, tcfg)
+
+            _post_step_events(
+                harness, it, sh_deg, writer=writer, render_fn=render_fn,
+                eval_every=eval_every, eval_views=eval_views, bg=bg,
+                save_set=save_set, ckpt_set=ckpt_set, eval_set=eval_set, coordinator=coord)
+            if ((eval_every and it % eval_every == 0) or it in eval_set or it in save_set
+                    or it in ckpt_set):
+                hold.wait()   # rank 0 evaluated or wrote
+            if it % log_every == 0 or it == iterations:
+                logs[-1]["state_digest"] = _same_state_everywhere(harness.state, coll)
+    finally:
+        sources.close()
+        if writer:
+            writer.close()
+    if coord and logs:
+        rate = ""
+        if len(logs) > 1:
+            first, last = logs[0], logs[-1]
+            per_s = ((last["iteration"] - first["iteration"])
+                     / (last["elapsed_s"] - first["elapsed_s"]))
+            rate = (f"; {per_s:.2f} steps/s from iteration {first['iteration']} to "
+                    f"{last['iteration']}, events included")
+        print(f"[mesh {mesh.data}x{mesh.tile}] {mesh.size} ranks hold state "
+              f"{logs[-1]['state_digest']}{rate}")
     return logs
+
+
+def _same_state_everywhere(state: TrainState, coll) -> str:
+    """The state's digest (`parallel.sharded.state_digest`), checked equal
+    in every rank by an all-gather of the 20 digest bytes; raises
+    `RuntimeError` when the ranks have drifted apart."""
+    from ..parallel.sharded import state_digest
+
+    digest = state_digest(state)
+    mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.uint8,
+                        device=state.params.means.device)
+    every = coll.all_gather(mine[None], None).cpu()
+    if not bool((every == every[0]).all()):
+        raise RuntimeError(f"the ranks' states differ: {[bytes(r.tolist()).hex() for r in every]}")
+    return digest
 
 
 def _maybe_tensorboard(model_path: str):

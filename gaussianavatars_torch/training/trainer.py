@@ -204,117 +204,126 @@ def _grads(leaves):
     return tree_map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad, leaves)
 
 
-def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
-                    spatial_lr_scale: float = 1.0, compositor=None):
-    """Build the train step: FLAME-bound, or unbound with `model=None`.
+def flame_forward(model: FlameModel, state: TrainState, flame: FlameTrainable, ts: int):
+    """The posed and canonical vertices [1, V, 3] of timestep `ts`."""
+    fp = FlameParams(
+        shape=state.flame_static.shape,
+        expr=flame.expr[ts][None], rotation=flame.rotation[ts][None],
+        neck=flame.neck[ts][None], jaw=flame.jaw[ts][None], eyes=flame.eyes[ts][None],
+        translation=flame.translation[ts][None],
+        static_offset=state.flame_static.static_offset,
+        dynamic_offset=None if flame.dynamic_offset is None
+        else flame.dynamic_offset[ts][None],
+    )
+    return model(fp, return_verts_cano=True)
 
-    Call: step(state, gt_image [H, W, 3], camera, timestep (int), bg_color [3],
-    sh_degree) → StepOutput(new state, metrics (0-dim tensors), image). The
-    given state is not modified. An unbound step ignores `timestep`. The
-    sorted pipeline runs when `cfg.pipeline.use_sorted` and `use_pallas`
-    and no `compositor` is given; otherwise the table pipeline, composited
-    by `compositor` (default `composite_tiles`).
-    """
+
+def screen_space(params: GaussianParams, aux: GaussianAux, frames, camera, sh_degree: int):
+    """The Gaussians on screen: ((mean2d, conic, colors, α), projection),
+    α zero where the projection masks a Gaussian."""
+    wg = world_gaussians(params, aux, frames)
+    proj = project_from_params(wg.means, wg.scales, wg.quats, camera, alive=wg.alive)
+    colors = view_colors(wg.means, wg.sh, camera, sh_degree)
+    opac_eff = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
+    return (proj.mean2d, proj.conic, colors, opac_eff), proj
+
+
+def binding_regularisers(model: FlameModel, cfg: Config, state: TrainState,
+                         params: GaussianParams, flame: FlameTrainable, ts: int, frames,
+                         verts, verts_cano, visible: torch.Tensor) -> dict:
+    """The FLAME-bound regularisers by name (`train.py:229-243`): xyz and
+    scale over the `visible` Gaussians, the dynamic offsets, the laplacian."""
     o = cfg.opt
-    use_sorted = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas and compositor is None
-    step_compositor = compositor or composite_tiles
-    use_flame = model is not None
-    faces = model.faces if use_flame else None
-    # The region tables clipped to the model's vertex count
-    # (`vid_by_region`), as device index tensors built once; unbound, the
-    # heuristic prior, built once an image size.
-    region_idx = None
-    heuristic_maps: dict = {}
-    if o.use_region_adaptive_loss and use_flame:
-        region_idx = inn.region_index_tensors(
-            {k: model.vid_by_region([k]) for k in ("eyes_left", "eyes_right", "mouth", "nose")
-             if k in model.assets.vertex_masks}, faces.device)
+    reg_terms = {}
+    nvis = torch.clamp_min(visible.sum(), 1)
+    zero = torch.zeros((), dtype=torch.float32, device=visible.device)
+    fs = frames.scaling[state.aux.binding]            # [N, 1]
+    if o.metric_xyz:
+        xyz_excess = safe_norm(torch.relu(params.means * fs - o.threshold_xyz), dim=1)
+    else:
+        xyz_excess = torch.relu(safe_norm(params.means, dim=1) - o.threshold_xyz)
+    reg_terms["xyz"] = torch.where(visible, xyz_excess, zero).sum() / nvis * o.lambda_xyz
+    if o.lambda_scale != 0:
+        scale_val = torch.exp(params.log_scales)
+        if o.metric_scale:
+            scale_val = scale_val * fs
+        sc_norm = safe_norm(torch.relu(scale_val - o.threshold_scale), dim=1)
+        reg_terms["scale"] = (torch.where(visible, sc_norm, zero).sum() / nvis
+                              * o.lambda_scale)
+    if flame.dynamic_offset is not None and o.lambda_dynamic_offset != 0:
+        reg_terms["dy_off"] = (safe_norm(flame.dynamic_offset[ts], dim=-1).mean()
+                               * o.lambda_dynamic_offset)
+    if flame.dynamic_offset is not None and o.lambda_dynamic_offset_std != 0:
+        reg_terms["dynamic_offset_std"] = (
+            torch.std(flame.dynamic_offset, dim=0, correction=1).mean()
+            * o.lambda_dynamic_offset_std)
+    if o.lambda_laplacian != 0:
+        reg_terms["lap"] = model.laplacian_loss(verts, verts_cano) * o.lambda_laplacian
+    return reg_terms
 
-    def heuristic_map(h: int, w: int, device) -> torch.Tensor:
-        if (h, w) not in heuristic_maps:
-            heuristic_maps[h, w] = inn.heuristic_weight_map(
+
+def geometry(model: Optional[FlameModel], cfg: Config, state: TrainState,
+             params: GaussianParams, flame: Optional[FlameTrainable], ts: int, camera,
+             sh_degree: int):
+    """Stage 1 of the step, under autograd: (screen, reg_total, proj,
+    reg_terms, posed vertices [V, 3] or None). Unbound (`model=None`):
+    no binding and no regulariser."""
+    frames = None
+    if model is not None:
+        verts, verts_cano = flame_forward(model, state, flame, ts)
+        frames = face_frames(verts[0], model.faces)
+    screen, proj = screen_space(params, state.aux, frames, camera, sh_degree)
+    if model is None:
+        return screen, torch.zeros((), device=screen[3].device), proj, {}, None
+    reg_terms = binding_regularisers(model, cfg, state, params, flame, ts, frames, verts,
+                                     verts_cano, proj.radius > 0)
+    return screen, sum(reg_terms.values()), proj, reg_terms, verts[0]
+
+
+class ImageLoss:
+    """The image loss of a rendered frame, with the step-level innovations:
+    the colour net calibrates the image, the region-adaptive L1 weighs it
+    (by the FLAME region map of the detached posed vertices, or unbound by
+    the heuristic face prior), D-SSIM, and the colour-net and contrastive
+    terms. Call: (img, gt, camera, color_net, verts_sg, contrastive) →
+    (total, terms by name, calibrated image)."""
+
+    def __init__(self, model: Optional[FlameModel], cfg: Config):
+        o = self.o = cfg.opt
+        # The region tables clipped to the model's vertex count
+        # (`vid_by_region`), as device index tensors built once; unbound,
+        # the heuristic prior, built once an image size.
+        self.region_idx = None
+        self.heuristic_maps: dict = {}
+        if o.use_region_adaptive_loss and model is not None:
+            self.region_idx = inn.region_index_tensors(
+                {k: model.vid_by_region([k])
+                 for k in ("eyes_left", "eyes_right", "mouth", "nose")
+                 if k in model.assets.vertex_masks}, model.faces.device)
+
+    def heuristic_map(self, h: int, w: int, device) -> torch.Tensor:
+        o = self.o
+        if (h, w) not in self.heuristic_maps:
+            self.heuristic_maps[h, w] = inn.heuristic_weight_map(
                 h, w, o.region_weight_eyes, o.region_weight_mouth, o.region_weight_nose,
                 o.region_weight_face, device=device)
-        return heuristic_maps[h, w]
+        return self.heuristic_maps[h, w]
 
-    def geometry(state: TrainState, params: GaussianParams, flame: Optional[FlameTrainable],
-                 ts: int, camera: Camera, sh_degree: int):
-        frames = None
-        if use_flame:
-            fp = FlameParams(
-                shape=state.flame_static.shape,
-                expr=flame.expr[ts][None], rotation=flame.rotation[ts][None],
-                neck=flame.neck[ts][None], jaw=flame.jaw[ts][None], eyes=flame.eyes[ts][None],
-                translation=flame.translation[ts][None],
-                static_offset=state.flame_static.static_offset,
-                dynamic_offset=None if flame.dynamic_offset is None
-                else flame.dynamic_offset[ts][None],
-            )
-            verts, verts_cano = model(fp, return_verts_cano=True)
-            frames = face_frames(verts[0], faces)
-        wg = world_gaussians(params, state.aux, frames)
-        proj = project_from_params(wg.means, wg.scales, wg.quats, camera, alive=wg.alive)
-        colors = view_colors(wg.means, wg.sh, camera, sh_degree)
-        opac_eff = torch.where(proj.mask, wg.opacity, torch.zeros_like(wg.opacity))
-        screen = (proj.mean2d, proj.conic, colors, opac_eff)
-        if not use_flame:   # no binding, no regulariser
-            return screen, torch.zeros((), device=opac_eff.device), proj, {}, None
-
-        # Binding regularisers (`train.py:229-243`).
-        reg_terms = {}
-        visible = proj.radius > 0
-        nvis = torch.clamp_min(visible.sum(), 1)
-        zero = torch.zeros((), dtype=torch.float32, device=visible.device)
-        fs = frames.scaling[state.aux.binding]            # [N, 1]
-        if o.metric_xyz:
-            xyz_excess = safe_norm(torch.relu(params.means * fs - o.threshold_xyz), dim=1)
-        else:
-            xyz_excess = torch.relu(safe_norm(params.means, dim=1) - o.threshold_xyz)
-        reg_terms["xyz"] = torch.where(visible, xyz_excess, zero).sum() / nvis * o.lambda_xyz
-        if o.lambda_scale != 0:
-            scale_val = torch.exp(params.log_scales)
-            if o.metric_scale:
-                scale_val = scale_val * fs
-            sc_norm = safe_norm(torch.relu(scale_val - o.threshold_scale), dim=1)
-            reg_terms["scale"] = (torch.where(visible, sc_norm, zero).sum() / nvis
-                                  * o.lambda_scale)
-        if flame.dynamic_offset is not None and o.lambda_dynamic_offset != 0:
-            reg_terms["dy_off"] = (safe_norm(flame.dynamic_offset[ts], dim=-1).mean()
-                                   * o.lambda_dynamic_offset)
-        if flame.dynamic_offset is not None and o.lambda_dynamic_offset_std != 0:
-            reg_terms["dynamic_offset_std"] = (
-                torch.std(flame.dynamic_offset, dim=0, correction=1).mean()
-                * o.lambda_dynamic_offset_std)
-        if o.lambda_laplacian != 0:
-            reg_terms["lap"] = model.laplacian_loss(verts, verts_cano) * o.lambda_laplacian
-        reg_total = sum(reg_terms.values())
-        return screen, reg_total, proj, reg_terms, verts[0]
-
-    def image_loss(screen, color_net, proj, gt_image, camera, bg_color, verts_sg, contrastive,
-                   binned):
-        mean2d, conic, colors, opac = screen
+    def __call__(self, img, gt_image, camera, color_net, verts_sg, contrastive):
+        o = self.o
         h, w = camera.height, camera.width
-        plan = None
-        if use_sorted:
-            img, _alpha, plan = rasterize_sorted(
-                proj._replace(mean2d=mean2d, conic=conic), colors, opac,
-                h, w, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
-                tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
-        else:
-            img, _alpha = rasterize_binned(mean2d, conic, colors, opac, binned, h, w, bg_color,
-                                           tile_cfg, compositor=step_compositor)
         if color_net is not None:
             with record_function("train/color_net"):
                 img = inn.color_net_apply(color_net, img)
-        if region_idx is not None:
+        if self.region_idx is not None:
             with record_function("train/region_map"):
                 wmap = inn.flame_region_weight_map(
-                    verts_sg, region_idx, camera, h, w, o.region_weight_eyes,
+                    verts_sg, self.region_idx, camera, h, w, o.region_weight_eyes,
                     o.region_weight_mouth, o.region_weight_nose)
             losses = {"l1": weighted_l1_loss(img, gt_image, wmap[..., None])
                       * (1.0 - o.lambda_dssim)}
         elif o.use_region_adaptive_loss:
-            wmap = heuristic_map(h, w, img.device)
+            wmap = self.heuristic_map(h, w, img.device)
             losses = {"l1": weighted_l1_loss(img, gt_image, wmap[..., None])
                       * (1.0 - o.lambda_dssim)}
         else:
@@ -329,7 +338,57 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
                 losses["contrastive"] = (inn.contrastive_loss(contrastive, img,
                                                               o.contrastive_downsample)
                                          * o.lambda_contrastive)
-        return sum(losses.values()), losses, img, plan
+        return sum(losses.values()), losses, img
+
+
+def apply_updates(cfg: Config, spatial_lr_scale: float, state: TrainState, g_params,
+                  g_flame, g_color) -> dict:
+    """Per-group Adam on the Gaussians, FLAME (when bound) and the colour
+    net (when on): the new state's fields by name."""
+    o = cfg.opt
+    lr_tree = gaussian_lr_tree(state.params, state.adam.step + 1, cfg, spatial_lr_scale)
+    new = {}
+    new["params"], new["adam"] = adam_update(state.params, g_params, state.adam, lr_tree)
+    new["flame"], new["flame_adam"] = state.flame, state.flame_adam
+    if state.flame is not None:
+        new["flame"], new["flame_adam"] = adam_update(state.flame, g_flame, state.flame_adam,
+                                                      flame_lr_tree(cfg, state.flame))
+    new["color_net"], new["color_adam"] = state.color_net, state.color_adam
+    if state.color_net is not None:
+        new["color_net"], new["color_adam"] = adam_update(
+            state.color_net, g_color, state.color_adam,
+            tree_map(lambda _: o.color_net_lr, state.color_net))
+    return new
+
+
+def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
+                    spatial_lr_scale: float = 1.0, compositor=None):
+    """Build the train step: FLAME-bound, or unbound with `model=None`.
+
+    Call: step(state, gt_image [H, W, 3], camera, timestep (int), bg_color [3],
+    sh_degree) → StepOutput(new state, metrics (0-dim tensors), image). The
+    given state is not modified. An unbound step ignores `timestep`. The
+    sorted pipeline runs when `cfg.pipeline.use_sorted` and `use_pallas`
+    and no `compositor` is given; otherwise the table pipeline, composited
+    by `compositor` (default `composite_tiles`).
+    """
+    o = cfg.opt
+    use_sorted = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas and compositor is None
+    step_compositor = compositor or composite_tiles
+    image_loss = ImageLoss(model, cfg)
+
+    def rasterize(screen, proj, camera, bg_color, binned):
+        mean2d, conic, colors, opac = screen
+        h, w = camera.height, camera.width
+        if use_sorted:
+            img, _alpha, plan = rasterize_sorted(
+                proj._replace(mean2d=mean2d, conic=conic), colors, opac,
+                h, w, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
+                tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
+            return img, plan
+        img, _alpha = rasterize_binned(mean2d, conic, colors, opac, binned, h, w, bg_color,
+                                       tile_cfg, compositor=step_compositor)
+        return img, None
 
     def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep: int,
                    bg_color: torch.Tensor, sh_degree: int) -> StepOutput:
@@ -343,7 +402,7 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
         with torch.enable_grad():
             with record_function("train/geometry_fwd"):
                 screen, reg_total, proj, reg_terms, verts = geometry(
-                    state, params, flame, ts, camera, sh_degree)
+                    model, cfg, state, params, flame, ts, camera, sh_degree)
             proj_sg = proj._replace(**{k: v.detach() for k, v in proj._asdict().items()})
             binned = None
             if not use_sorted:
@@ -356,9 +415,10 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
             # ---- stage 2: the image loss from detached screen-space leaves
             screen_in = [x.detach().requires_grad_() for x in screen]
             with record_function("train/image_fwd"):
-                img_total, loss_terms, img, plan = image_loss(
-                    screen_in, color, proj_sg, gt_image, camera, bg_color,
-                    None if verts is None else verts.detach(), state.contrastive, binned)
+                img, plan = rasterize(screen_in, proj_sg, camera, bg_color, binned)
+                img_total, loss_terms, img = image_loss(
+                    img, gt_image, camera, color,
+                    None if verts is None else verts.detach(), state.contrastive)
             with record_function("train/image_bwd"):
                 g_all = torch.autograd.grad(img_total, screen_in + color_leaves)
             g_screen, g_color = g_all[:4], iter(g_all[4:])
@@ -377,19 +437,10 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
                 torch.autograd.backward(outs, cots)
 
         with record_function("train/adam"):
-            lr_tree = gaussian_lr_tree(state.params, state.adam.step + 1, cfg, spatial_lr_scale)
-            new_params, new_adam = adam_update(state.params, _grads(params), state.adam,
-                                               lr_tree)
-            new_flame, new_flame_adam = state.flame, state.flame_adam
-            if flame is not None:
-                new_flame, new_flame_adam = adam_update(state.flame, _grads(flame),
-                                                        state.flame_adam,
-                                                        flame_lr_tree(cfg, state.flame))
-            new_color, new_color_adam = state.color_net, state.color_adam
-            if color is not None:
-                new_color, new_color_adam = adam_update(
-                    state.color_net, tree_map(lambda _: next(g_color), color), state.color_adam,
-                    tree_map(lambda _: o.color_net_lr, color))
+            new = apply_updates(cfg, spatial_lr_scale, state, _grads(params),
+                                None if flame is None else _grads(flame),
+                                None if color is None else tree_map(lambda _: next(g_color),
+                                                                    color))
         img = img.detach()
         new_contrastive = state.contrastive
         if state.contrastive is not None:
@@ -411,10 +462,8 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
             "max_footprint": max_footprint,
             **{k: v.detach() for k, v in {**loss_terms, **reg_terms}.items()},
         }
-        new_state = TrainState(params=new_params, aux=aux_new, adam=new_adam, flame=new_flame,
-                               flame_static=state.flame_static, flame_adam=new_flame_adam,
-                               color_net=new_color, color_adam=new_color_adam,
-                               contrastive=new_contrastive, generator=state.generator)
+        new_state = TrainState(aux=aux_new, flame_static=state.flame_static,
+                               contrastive=new_contrastive, generator=state.generator, **new)
         return StepOutput(state=new_state, metrics=metrics, image=img)
 
     return train_step

@@ -293,3 +293,52 @@ def test_blocks_per_sm_takes_the_tightest_limit():
     assert cuda_build.blocks_per_sm({"registers": 32, "smem_bytes": 0}, 256) == 8
     assert cuda_build.blocks_per_sm({"registers": 32, "smem_bytes": 100000}, 256) == 2
     assert cuda_build.blocks_per_sm({"registers": 16}, 32) == 32
+
+
+FAKE_NVCC = """#!/bin/sh
+# Stands in for nvcc: a long log on stdout, then the output file, late.
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; shift; fi
+  shift
+done
+i=0
+while [ $i -lt 2000 ]; do echo "ptxas info    : line $i of the build log"; i=$((i+1)); done
+sleep 1
+echo "library" > "$out"
+"""
+
+BUILD_SCRIPT = """
+import sys
+from pathlib import Path
+from gaussianavatars_torch import cuda_build
+cuda_build.CSRC_DIR = Path(sys.argv[1])
+cuda_build.BUILD_DIR = Path(sys.argv[2])
+cuda_build.build(["k"])
+"""
+
+
+def test_two_processes_building_one_missing_library_leave_it_whole(tmp_path):
+    """Two processes build the same library at once: one library and one
+    whole log (2,000 lines) come out, and no temporary file is left."""
+    import os
+    import subprocess
+    import sys
+
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a kernel\n")
+    env = {**os.environ, "CUDA_HOME": str(home)}
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_SCRIPT, str(csrc), str(build)], env=env)
+             for _ in range(2)]
+    assert [p.wait(timeout=120) for p in procs] == [0, 0]
+    files = sorted(p.name for p in build.iterdir())
+    assert len(files) == 2 and files[0].endswith(".log") and files[1].endswith(".so"), files
+    log = (build / files[0]).read_text().splitlines()
+    assert len(log) == 2000 and log[-1] == "ptxas info    : line 1999 of the build log"
+    assert (build / files[1]).read_text() == "library\n"

@@ -265,6 +265,21 @@ def test_loop_artifacts_and_resume(short_runs, models, tmp_path):
     logs3 = tloop.train(h3, iterations=2, log_every=1, device_cache_bytes=0, prefetch_workers=2,
                         debug_from=0, gui_service=served.append)
     assert len(logs3) == 2 and np.isfinite(logs3[-1]["loss"]) and served == [1, 2]
+    # Both ground-truth sources draw alike, two views a draw as on a mesh
+    # of two data rows: the same views, and row 1's image (uint8 in the
+    # cache, float from the prefetcher).
+    recs = h3.scene.records("train")
+    assert len(recs) >= 2
+    cached, streamed = (tloop._ScaleSources(h3, recs, 7, nbytes, 2, batch=2)
+                        for nbytes in (4 << 30, 0))
+    try:
+        for it in range(3):
+            (va, ga, _), (vb, gb, _) = (s.draw(1.0, it, row=1) for s in (cached, streamed))
+            assert va == vb and len(va) == 2
+            np.testing.assert_allclose(ga.numpy(), gb.numpy(), atol=0.5 / 255 + 1e-6)
+    finally:
+        cached.close()
+        streamed.close()
     # Unbound training needs a point cloud, which a DynamicNerf dataset lacks.
     with pytest.raises(ValueError, match="point cloud"):
         tloop.build_harness(dataclasses.replace(cfg, model=dataclasses.replace(

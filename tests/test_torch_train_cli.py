@@ -8,8 +8,12 @@
   section by section, on the port's fields) for the default flags and for
   `--all_innovations --use_amp`;
 * `--no_pallas` configures the table pipeline as the JAX script does; the
-  multi-device flags raise and name their ROADMAP item, and without
-  `--device cpu` there is no card to run on;
+  six multi-device flags parse to the JAX script's configuration,
+  `--mesh 2x2` starts four local ranks whose `main` reaches
+  `train_sharded`, `--distributed` joins a world from the flags or
+  torchrun's environment, and NCCL with two ranks on one device raises
+  and names `--dist_backend gloo`; without `--device cpu` there is no card
+  to run on;
 * two short CPU runs through `main`: FLAME-bound on the 415-face sparse
   sphere of `tests/test_torch_innovations_loop.py` (2 cameras, 6
   iterations: a densify event, an opacity reset, evals at 3 and 6, the
@@ -75,10 +79,11 @@ def _actions(parser) -> dict:
 def test_parse_args_matches_jax(monkeypatch):
     want = _actions(_parser_of(_jax_script().parse_args, monkeypatch))
     got = _actions(_parser_of(ttrain.parse_args, monkeypatch))
-    assert set(got) == set(want) | {"device"}
+    assert set(got) == set(want) | {"device", "dist_backend", "launch_timeout"}
     for dest, w in want.items():
         assert got[dest] == w, dest
     assert got["device"][:2] == (("--device",), "cuda")
+    assert got["dist_backend"][:2] == (("--dist_backend",), None)
     assert len(want) == 48
 
 
@@ -90,7 +95,7 @@ def test_config_from_args_matches_jax(flags):
     want = json.loads(jconfig.to_json(js.config_from_args(js.parse_args(REQUIRED + flags))))
     got = json.loads(tconfig.to_json(ttrain.config_from_args(
         ttrain.parse_args(REQUIRED + flags))))
-    assert set(got) == set(want) - {"parallel"}
+    assert set(got) == set(want)
     for section in got:
         assert got[section] == {k: v for k, v in want[section].items() if k in got[section]}, \
             section
@@ -119,19 +124,107 @@ def test_no_pallas_configures_the_table_pipeline(tmp_path):
     assert callable(ttrainer.make_train_step(None, cfg, tile))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x4"], "item 5"),
-    (["--distributed"], "item 5"),
-    (["--gauss_shard"], "item 5"),
-    (["--coordinator_address", "host:1234"], "item 5"),
-    (["--num_processes", "2"], "item 5"),
-    (["--process_id", "0"], "item 5"),
-])
-def test_unported_flags_raise_and_name_their_item(flags, item, tmp_path):
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=f"{flags[0]}.*ROADMAP queue A {item}"):
-        ttrain.main(["-s", str(tmp_path), "-m", str(out), "--device", "cpu", *flags])
-    assert not out.exists()
+MESH_FLAGS = [["--mesh", "2x4"], ["--distributed"], ["--mesh", "1x2", "--gauss_shard"],
+              ["--distributed", "--coordinator_address", "host:1234"],
+              ["--distributed", "--num_processes", "2"], ["--distributed", "--process_id", "0"]]
+
+
+@pytest.mark.parametrize("flags", MESH_FLAGS, ids=lambda f: f[-2] if len(f) > 1 else f[0])
+def test_mesh_flags_parse_to_the_jax_configuration(flags):
+    """Each of the six multi-device flags parses as the JAX script's does,
+    to the same configuration, and passes the checks (NCCL is not asked
+    for on the CPU)."""
+    js = _jax_script()
+    a = ttrain.parse_args(REQUIRED + flags + ["--device", "cpu"])
+    want = js.parse_args(REQUIRED + flags)
+    for dest in ("mesh", "distributed", "coordinator_address", "num_processes", "process_id",
+                 "gauss_shard"):
+        assert getattr(a, dest) == getattr(want, dest), dest
+    ttrain.check_supported(a)
+    got = json.loads(tconfig.to_json(ttrain.config_from_args(a)))
+    jgot = json.loads(jconfig.to_json(js.config_from_args(want)))
+    assert set(got) == set(jgot)
+    for section in got:   # the port's fields (it has no `data_device`, ...)
+        assert got[section] == {k: v for k, v in jgot[section].items() if k in got[section]}
+    assert got["parallel"] == jgot["parallel"]
+    assert ttrain.mesh_shape(a) == ((2, 4) if "2x4" in flags else (1, 2) if "1x2" in flags
+                                    else (1, None))
+
+
+def test_mesh_2x2_starts_four_ranks_that_reach_train_sharded(tmp_path, monkeypatch):
+    """`--mesh 2x2` without `--distributed` launches four ranks of the same
+    command with `--distributed`; a rank (here a one-rank world in this
+    process) builds its 1×1 mesh and calls `train_sharded`."""
+    from gaussianavatars_torch.parallel import distributed as pdist
+
+    seen = {}
+
+    def fake_launch(module, argv, world, timeout, device="cpu", **kw):
+        seen.update(module=module, argv=argv, world=world, timeout=timeout, device=device)
+        return pdist.LaunchResult(rcs=[0] * world, stdout=["rank 0 says hi\n"] + [""] * 3,
+                                  stderr=[""] * world, seconds=0.0, timed_out=False)
+
+    monkeypatch.setattr(pdist, "launch", fake_launch)
+    argv = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--device", "cpu", "--mesh",
+            "2x2", "--launch_timeout", "30"]
+    res, logs = ttrain.main(argv)
+    assert logs is None and res.ok
+    assert seen["module"] == "gaussianavatars_torch.tools.train" and seen["world"] == 4
+    assert seen["argv"] == argv + ["--distributed", "--dist_backend", "gloo"]
+    assert seen["timeout"] == 30 and seen["device"] == "cpu"
+
+    calls = []
+    monkeypatch.setattr(ttrain, "build_harness", lambda cfg, **kw: ("harness", kw))
+    monkeypatch.setattr(ttrain, "train_sharded",
+                        lambda h, mesh, **kw: calls.append((h, mesh, kw)) or ["logs"])
+    harness, logs = ttrain.main(argv[:6] + [
+        "--dist_backend", "gloo", "--mesh", "1x1", "--gauss_shard", "--iterations", "3", "--distributed",
+        "--coordinator_address", f"file://{tmp_path / 'rendezvous'}", "--num_processes", "1",
+        "--process_id", "0"])
+    assert logs == ["logs"] and harness[1]["coordinator"] is True
+    (_h, mesh, kw), = calls
+    assert (mesh.data, mesh.tile, mesh.rank) == (1, 1, 0)
+    assert kw["gauss_shard"] is True and kw["iterations"] == 3
+    assert not torch.distributed.is_initialized()   # the rank left its world
+
+
+def test_initialize_maps_the_flags_and_torchrun_env(monkeypatch):
+    from gaussianavatars_torch.parallel import distributed as pdist
+
+    got = []
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: got.append((backend, kw)))
+    pdist.initialize("127.0.0.1:29500", 2, 1, backend="gloo", device="cpu")
+    pdist.initialize("file:///tmp/x", 4, 3, device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setenv("RANK", "5")
+    pdist.initialize(device="cpu")
+    assert [(b, kw["init_method"], kw["world_size"], kw["rank"]) for b, kw in got] == [
+        ("gloo", "tcp://127.0.0.1:29500", 2, 1), ("gloo", "file:///tmp/x", 4, 3),
+        ("gloo", "env://", 8, 5)]
+    assert got[0][1]["timeout"].total_seconds() == pdist.DEFAULT_TIMEOUT_S
+    with pytest.raises(ValueError, match="--num_processes and --process_id"):
+        pdist.initialize("host:1", None, 0, device="cpu")
+
+
+def test_nccl_with_two_ranks_on_one_device_raises(tmp_path, monkeypatch):
+    from gaussianavatars_torch.parallel import distributed as pdist
+
+    argv = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--mesh", "1x2",
+            "--dist_backend", "nccl"]
+    with pytest.raises(ValueError, match="--dist_backend gloo"):
+        ttrain.main(argv + ["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="two ranks on one device.*--dist_backend gloo"):
+        ttrain.main(argv)
+    pdist.check_backend("nccl", "cuda", 1)    # one rank a device: fine
+    pdist.check_backend("gloo", "cuda", 4)    # gloo shares the card
+    with pytest.raises(ValueError, match="need --distributed"):
+        ttrain.main(["-s", "S", "-m", "M", "--device", "cpu", "--num_processes", "2"])
+    with pytest.raises(ValueError, match="needs --mesh or --distributed"):
+        ttrain.main(["-s", "S", "-m", "M", "--device", "cpu", "--gauss_shard"])
+    assert not (tmp_path / "out").exists()
 
 
 def test_train_needs_a_card_unless_told_cpu(tmp_path):
