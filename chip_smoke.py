@@ -193,6 +193,28 @@ non-zero):
                 (phase 12's dataset written, not fitted): the multi-card
                 proof on a machine with four cards, where every rank has
                 its own card and phase 18 runs over NCCL.
+ 19. chunks   — K training steps a dispatch (`trainer.make_train_chunk`: one
+                captured CUDA graph of the step, replayed once a step) on the
+                benchmark scene (802×550, `Config` defaults, SH 3): (a) a
+                chunk of 50 against 50 `make_train_step` calls from one state
+                on the same views (the camera and the camera turned 0.03 rad
+                in turns, timesteps 0 and 1), float32 and `use_amp`: every
+                state leaf and metric within 1e-5 of its largest magnitude
+                (the largest difference printed), one capture, rows 1 and 2
+                once a step; (b) a profiler trace of 4 replays: rows 1 and 2
+                once a replayed step; (c) no synchronising call while a chunk
+                replays (one to read its result); (d) steps/s of chunks
+                against eager steps in alternating blocks of 50, float32,
+                `use_amp` and the step-level innovations, with each one's
+                device-busy share and peak memory; (e) `train_synthetic` on
+                phase 12's dataset and recipe cut to 200 iterations (evals
+                and checkpoints at 100 and 200, an opacity reset at 150)
+                with `--steps_per_call 50` (its default, which phases 12, 15
+                and 16 run too) and `1`: the same events at the same
+                iterations, the logged losses at rtol 1e-4, `alive` and
+                `binding` equal, every parameter within 1e-2 of its largest
+                move; steps/s of both. `--chunks_only` runs phases 1, 2, 12
+                and 19 alone.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -1274,8 +1296,9 @@ LOOP_WORKDIR = os.path.join("build", "chip_smoke", "train_synthetic")
 N_LOOP_AB = 30          # steps per block of the loop/bare-step alternation
 
 
-def sync_count(fn) -> int:
-    """Synchronising CUDA calls that fn() makes (torch's sync debug mode)."""
+def sync_sites(fn) -> dict:
+    """{"file:line": count} of the synchronising CUDA calls fn() makes, by
+    the Python line that made each (torch's sync debug mode)."""
     import warnings
 
     torch.cuda.synchronize()
@@ -1286,7 +1309,17 @@ def sync_count(fn) -> int:
             fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def sync_count(fn) -> int:
+    """Synchronising CUDA calls that fn() makes."""
+    return sum(sync_sites(fn).values())
 
 
 def train_view_overflow(harness) -> int:
@@ -1408,6 +1441,7 @@ def phase_loop(card) -> dict:
         peak_mem_mib=peak_mib,
         peak_mem_above_start_mib=peak_mib - start_mib,
         live_gaussians_final=logs[-1]["num_points"], capacity=args.capacity,
+        steps_per_call=args.steps_per_call, chunk_captures=harness.chunk_captures,
         eval={k: v for k, v in result.items() if k.startswith("eval_")})
 
     # --- resume from the first checkpoint -----------------------------------
@@ -1476,6 +1510,9 @@ def phase_loop(card) -> dict:
     log("loop/vs_bare_step", card=card["nvidia_smi"], steps=N_LOOP_AB, steps_per_s=rates,
         note="loop: the steps between its first and last log; bare: make_train_step on "
              "the same state, one view")
+    # Where the fit's step spends its device time (the chunked loop runs at it).
+    log("loop/profile", card=card["nvidia_smi"], **profile_train(
+        step, h2.state, gt0, cam, bg, sum(rates["bare"]) / len(rates["bare"])))
     return dict(res, launches=launches, harness=harness)
 
 
@@ -2549,7 +2586,7 @@ def cli_flame(card) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"cli/flame checks failed: {checks}")
     log("cli/flame_numbers", card=card["nvidia_smi"], resolution="802x550",
-        steps_per_s_whole_run=a.iterations / wall,
+        steps_per_call=a.steps_per_call, steps_per_s_whole_run=a.iterations / wall,
         steps_per_s_between_events=rate_between_events(logs, events, served),
         gui_round_trip_ms=box["round_trip_ms"], gui_resolution=box["resolution"],
         fwd_launches_per_step=(got["composite_pairs_fwd"] - eval_views - box["fwd_launches"])
@@ -3136,7 +3173,7 @@ def table_phase_stages(card) -> tuple:
     log("table/stage_timings", ms=out, iters=STAGE_ITERS, card=card["nvidia_smi"])
     bad = {p: k for p, rows in out.items() for k, v in rows.items()
            if not (math.isfinite(v) and v > 0)}
-    if bad or len(out["sorted"]) != 8 or len(out["table"]) != 8 or any(table_launches.values()):
+    if bad or len(out["sorted"]) != 9 or len(out["table"]) != 9 or any(table_launches.values()):
         raise AssertionError(f"table/stage_timings: {bad}, table launches {table_launches}")
     return out, launches
 
@@ -3643,6 +3680,317 @@ def phase_sharded(card, model, cam, tile_cfg, setup) -> dict:
             "composite_pairs_bwd": a["bwd"] + b["launches"]["composite_pairs_bwd"]}
 
 
+# --- 19. chunks of training steps as CUDA graphs ------------------------------
+
+N_CHUNK = 50              # steps a chunk: the JAX scripts' default --steps_per_call
+CHUNK_REL = 1e-5          # (a): every leaf and metric against its largest magnitude
+N_CHUNK_PROFILED = 4      # (b): replays under the profiler
+N_CHUNK_BUSY = 10         # (d): steps of each profiled block (device-busy share)
+CHUNK_FIT_REL = 1e-2      # (e): tests/test_torch_train.py's 3-step trajectory bound
+CHUNK_FIT_LOSS_RTOL = 1e-4
+CHUNK_FIT_DIR = os.path.join("build", "chip_smoke", "chunk_fit")
+# Phase 12's recipe cut to 200 iterations, its events moved inside: evals
+# and checkpoints at 100 and 200, an opacity reset at 150.
+CHUNK_FIT_FLAGS = (*LOOP_FLAGS[:LOOP_FLAGS.index("--iterations")], "--iterations", "200",
+                   "--log_every", "50", "--eval_every", "100", "--checkpoint_every", "100",
+                   "--opacity_reset_interval", "150")
+
+
+def chunk_views(cam, k: int) -> tuple:
+    """k steps of the chunk phase: (views into the one-view cache, the
+    cameras, their `stack_cameras` stack, timesteps). The benchmark camera
+    and the camera turned SHARDED_YAW take turns, as do timesteps 0 and 1."""
+    from gaussianavatars_torch.training.trainer import stack_cameras
+
+    turned = nudged_camera(cam, SHARDED_YAW, 0)
+    cams = [cam if i % 2 == 0 else turned for i in range(k)]
+    return [0] * k, cams, stack_cameras(cams), [i % TRAIN_TIMESTEPS for i in range(k)]
+
+
+def step_syncs(model, cfg, tile_cfg, setup, cam) -> dict:
+    """The synchronising calls of one eager step (the chunk's graph can
+    hold none), by site, with an int and with a tensor timestep."""
+    from gaussianavatars_torch.training.trainer import make_train_step
+
+    _cfg, gt, bg, state0 = setup
+    step = make_train_step(model, cfg, tile_cfg)
+    step(state0, gt, cam, 1, bg, 3)
+    ts = torch.ones((), dtype=torch.int64, device=gt.device)
+    res = {"int_timestep": sync_sites(lambda: step(state0, gt, cam, 1, bg, 3)),
+           "tensor_timestep": sync_sites(lambda: step(state0, gt, cam, ts, bg, 3))}
+    log("chunks/step_syncs", **res)
+    return res
+
+
+def kernel_busy_ms(fn, steps: int) -> tuple:
+    """(device ms of every kernel `fn()` launches, per step; ms of the two
+    compositor kernels per step by name) from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda and not e.is_user_annotation]
+    counts = {n: sum(n in e.name for e in kernels) / steps for n in COMPOSITOR_KERNELS[:2]}
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return busy, counts, len(kernels) / steps
+
+
+def chunk_vs_steps(card, model, cfg, tile_cfg, state0, cache, cam, bg, label: str) -> dict:
+    """(a): N_CHUNK `make_train_step` calls against one `make_train_chunk`
+    call from the same state on the same views."""
+    from gaussianavatars_torch.data.pipeline import gt_to_float
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_chunk, make_train_step
+
+    views, cams, stacked, ts = chunk_views(cam, N_CHUNK)
+    step = make_train_step(model, cfg, tile_cfg)
+    gt = gt_to_float(cache[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    st, rows = state0, []
+    t0 = time.perf_counter()
+    for i in range(N_CHUNK):
+        out = step(st, gt, cams[i], ts[i], bg, 3)
+        st = out.state
+        rows.append(out.metrics)
+    torch.cuda.synchronize()
+    eager = dict(launches=dict(cp.LAUNCHES), peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    eager["s"] = time.perf_counter() - t0
+    chunk = make_train_chunk(model, cfg, tile_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    st_c, m_c = chunk(state0, cache, views, stacked, ts, bg, 3)
+    torch.cuda.synchronize()
+    chunked = dict(launches=dict(cp.LAUNCHES), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   s=time.perf_counter() - t0)
+    m_e = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    leaf_rel, leaf = max_rel(flatten_state(st_c), flatten_state(st))
+    metric_rel, metric = max_rel(m_c, m_e)
+    diff = max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(flatten_state(st_c).values(), flatten_state(st).values()))
+    res = dict(steps=N_CHUNK, captures=chunk.captures, largest_leaf_rel=leaf_rel,
+               at_leaf=leaf, largest_metric_rel=metric_rel, at_metric=metric,
+               largest_abs_diff=diff, eager_launches={k: v for k, v in eager["launches"].items()
+                                                      if v},
+               chunk_launches={k: v for k, v in chunked["launches"].items() if v},
+               peak_mem_mib={"eager": eager["peak_mib"], "chunk": chunked["peak_mib"]},
+               seconds={"eager": eager["s"], "chunk_with_capture": chunked["s"]},
+               loss_first_last=[float(m_c["loss"][0]), float(m_c["loss"][-1])])
+    log(f"chunks/vs_steps/{label}", **res, card=card["nvidia_smi"])
+    want = {"composite_pairs_fwd": N_CHUNK,
+            "composite_pairs_bwd" + ("_amp" if cfg.opt.use_amp else ""): N_CHUNK}
+    if not (leaf_rel <= CHUNK_REL and metric_rel <= CHUNK_REL and chunk.captures == 1
+            and res["eager_launches"] == want and res["chunk_launches"] == want
+            and set(m_c) == set(m_e) and m_c["loss"].shape == (N_CHUNK,)):
+        raise AssertionError(f"chunks/vs_steps/{label}: {res}")
+    return dict(chunk=chunk, state=st_c, launches=chunked["launches"])
+
+
+def chunk_blocks(card, step, chunk, state, cache, cam, bg, label: str) -> dict:
+    """(d): steps/s of eager steps and of chunks in alternating blocks of
+    N_CHUNK steps (eager, chunk, chunk, eager), each kind continuing its
+    own state; each kind's peak memory and device-busy share."""
+    from gaussianavatars_torch.data.pipeline import gt_to_float
+    from gaussianavatars_torch.training.checkpoint import _rebuild, flatten_state
+
+    views, cams, stacked, ts = chunk_views(cam, N_CHUNK)
+    gt = gt_to_float(cache[0])
+    # The chunk continues `state` (which may be its graph's own buffers),
+    # the eager steps a copy.
+    states = {"chunk": state, "eager": _rebuild(state, "", {
+        k: v.clone() for k, v in flatten_state(state).items()})}
+    secs = {"eager": [], "chunk": []}
+    peak = {"eager": 0.0, "chunk": 0.0}
+
+    def eager_block(st, n):
+        for i in range(n):
+            st = step(st, gt, cams[i], ts[i], bg, 3).state
+        return st
+
+    # Warm-up: one eager step, and one chunk (which captures, if its graph
+    # is not yet captured).
+    states["eager"] = eager_block(states["eager"], 1)
+    states["chunk"], _m = chunk(states["chunk"], cache, views, stacked, ts, bg, 3)
+    for kind in ("eager", "chunk", "chunk", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind == "eager":
+            states[kind] = eager_block(states[kind], N_CHUNK)
+        else:
+            states[kind], _m = chunk(states[kind], cache, views, stacked, ts, bg, 3)
+        torch.cuda.synchronize()
+        secs[kind].append(time.perf_counter() - t0)
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**20)
+    rate = {k: N_CHUNK * len(v) / sum(v) for k, v in secs.items()}
+    n = N_CHUNK_BUSY
+    busy = {}
+    for kind in ("eager", "chunk"):
+        st = states[kind]
+        fn = ((lambda: eager_block(st, n)) if kind == "eager" else
+              (lambda: chunk(st, cache, views[:n], stacked, ts[:n], bg, 3)))
+        ms, counts, ops = kernel_busy_ms(fn, n)
+        busy[kind] = dict(device_busy_ms_per_step=ms, device_busy_share=ms * rate[kind] / 1e3,
+                          kernels_per_step=ops, compositor_kernels_per_step=counts)
+    res = dict(steps_per_s=rate, block_ms_per_step={k: [1e3 * x / N_CHUNK for x in v]
+                                                    for k, v in secs.items()},
+               speedup=rate["chunk"] / rate["eager"], peak_mem_mib=peak,
+               peak_mem_chunk_minus_eager_mib=peak["chunk"] - peak["eager"], device=busy,
+               captures=chunk.captures)
+    log(f"chunks/steps_per_s/{label}", **res, card=card["nvidia_smi"],
+        resolution=f"{cam.width}x{cam.height}")
+    if not all(all_finite(s.params) for s in states.values()):
+        raise AssertionError(f"chunks/steps_per_s/{label}: non-finite state")
+    return res
+
+
+def chunk_fit(card) -> dict:
+    """(e): `tools/train_synthetic` on phase 12's recipe cut to
+    CHUNK_FIT_FLAGS (phase 12's dataset), with `--steps_per_call 50` and
+    `1`: the same events at the same iterations, the logged losses at rtol
+    1e-4, `alive` and `binding` equal, and every parameter leaf within 1e-2
+    of its largest move over the run; steps/s of both. Returns rows 1 and
+    2's launches of both runs."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.tools import train_synthetic as ts
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+
+    copy_dataset(LOOP_WORKDIR, CHUNK_FIT_DIR)
+    init, train, runs = {}, ts.train, {}
+
+    def first_state(harness, **kw):
+        init.update({k: v.detach().cpu().clone() for k, v in flatten_state(harness.state).items()})
+        return train(harness, **kw)
+
+    reset_launches()
+    ts.train = first_state
+    try:
+        for spc in (50, 1):
+            args = ts.parse_args([*CHUNK_FIT_FLAGS, "--workdir", CHUNK_FIT_DIR,
+                                  "--steps_per_call", str(spc)])
+            harness, result = ts.run(args)
+            runs[spc] = dict(
+                leaves={k: v.detach().cpu() for k, v in flatten_state(harness.state).items()},
+                events=[(e["kind"], e["iteration"]) for e in harness.events],
+                loss=[r["loss"] for r in result["logs"]],
+                steps_per_s=args.iterations / result["train_s"],
+                between_events=rate_between_events(result["logs"], harness.events),
+                captures=harness.chunk_captures)
+    finally:
+        ts.train = train
+    launches = dict(cp.LAUNCHES)
+    chunked, single = runs[50]["leaves"], runs[1]["leaves"]
+    worst = {}
+    for k, v in single.items():
+        if k.startswith("params/") and v.is_floating_point():
+            move = float((v.double() - init[k].double()).abs().max())
+            err = float((chunked[k].double() - v.double()).abs().max())
+            worst[k] = err / move if move else err
+    exact = {k: torch.equal(chunked[k], single[k]) for k in ("aux/alive", "aux/binding")}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs[50]["loss"], runs[1]["loss"]))
+    rates = {f"steps_per_call_{k}": r["steps_per_s"] for k, r in runs.items()}
+    res = dict(iterations=args.iterations, events_equal=runs[50]["events"] == runs[1]["events"],
+               events=runs[1]["events"], loss_rel_max=loss_rel,
+               leaf_diff_over_largest_move=worst, equal=exact,
+               leaves_bit_equal=all(torch.equal(chunked[k], single[k]) for k in single),
+               captures=runs[50]["captures"], steps_per_s_whole_run=rates,
+               steps_per_s_between_events={f"steps_per_call_{k}": r["between_events"]
+                                           for k, r in runs.items()},
+               speedup=rates["steps_per_call_50"] / rates["steps_per_call_1"],
+               launches={k: v for k, v in launches.items() if v})
+    log("chunks/fit", **res, card=card["nvidia_smi"])
+    if not (res["events_equal"] and loss_rel <= CHUNK_FIT_LOSS_RTOL and all(exact.values())
+            and max(worst.values()) <= CHUNK_FIT_REL):
+        raise AssertionError(f"chunks/fit: {res}")
+    return dict(res, launches=launches)
+
+
+def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
+    """Phase 19. Returns rows 1 and 2's launches on its paths."""
+    from gaussianavatars_torch.config import Config
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.training.trainer import (
+        init_train_state, make_train_chunk, make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    cfg, gt, bg, state0 = setup
+    step_syncs(model, cfg, tile_cfg, setup, cam)
+    cache = (torch.clamp(gt, 0.0, 1.0)[None] * 255).to(torch.uint8)
+    launches = dict.fromkeys(cp.LAUNCHES, 0)
+
+    def add(run):
+        for k, v in run.items():
+            launches[k] += v
+
+    cfg_amp = Config(model=cfg.model, pipeline=cfg.pipeline,
+                     opt=dataclasses.replace(cfg.opt, use_amp=True))
+    a32 = chunk_vs_steps(card, model, cfg, tile_cfg, state0, cache, cam, bg, "float32")
+    add(a32["launches"])
+    a16 = chunk_vs_steps(card, model, cfg_amp, tile_cfg, state0, cache, cam, bg, "amp")
+    add(a16["launches"])
+
+    # (b) one chunk of N_CHUNK_PROFILED replays under the profiler.
+    chunk, st = a32["chunk"], a32["state"]
+    views, _cams, stacked, ts = chunk_views(cam, N_CHUNK_PROFILED)
+    reset_launches()
+    out = {}
+    _busy, counts, ops = kernel_busy_ms(
+        lambda: out.update(r=chunk(st, cache, views, stacked, ts, bg, 3)), N_CHUNK_PROFILED)
+    add(cp.LAUNCHES)
+    st = out["r"][0]
+    traced = dict(replays=N_CHUNK_PROFILED, compositor_kernels_per_step=counts,
+                  kernels_per_step=ops, captures=chunk.captures,
+                  launches={k: v for k, v in cp.LAUNCHES.items() if v})
+    log("chunks/trace", **traced)
+    if not (chunk.captures == 1 and all(v == 1 for v in counts.values())):
+        raise AssertionError(f"chunks/trace: rows 1 and 2 not once a replayed step: {traced}")
+
+    # (c) no host synchronisation while a chunk replays; one to read it.
+    reset_launches()
+    syncs = sync_count(lambda: out.update(r=chunk(st, cache, views, stacked, ts, bg, 3)))
+    add(cp.LAUNCHES)
+    st, m = out["r"]
+    read = sync_count(lambda: float(m["loss"][-1]))
+    log("chunks/syncs", syncs_in_chunk=syncs, syncs_to_read=read, steps=N_CHUNK_PROFILED)
+    if syncs != 0:
+        raise AssertionError(f"chunks/syncs: {syncs} synchronising calls in a chunk")
+
+    # (d) steps/s: float32, amp and the step-level innovations.
+    o = dataclasses.replace(cfg.opt, use_region_adaptive_loss=True,
+                            use_color_calibration=True, use_contrastive_reg=True)
+    cfg_inn = Config(model=cfg.model, pipeline=cfg.pipeline, opt=o)
+    state_inn = init_train_state(
+        params, aux, cfg_inn, num_timesteps=TRAIN_TIMESTEPS,
+        n_expr=state0.flame.expr.shape[1], n_shape=state0.flame_static.shape.shape[0],
+        num_verts=model.num_verts, generator=torch.Generator().manual_seed(13),
+        image_hw=(cam.height, cam.width))
+    rates = {}
+    for label, c, st0, ch in (("float32", cfg, st, chunk),
+                              ("amp", cfg_amp, a16["state"], a16["chunk"]),
+                              ("innovations", cfg_inn, state_inn,
+                               make_train_chunk(model, cfg_inn, tile_cfg))):
+        reset_launches()
+        rates[label] = chunk_blocks(card, make_train_step(model, c, tile_cfg), ch, st0,
+                                    cache, cam, bg, label)
+        ch.drop()
+        add(cp.LAUNCHES)
+
+    # (e) the fit, chunked against single steps.
+    fit = chunk_fit(card)
+    add(fit["launches"])
+    log("chunks/numbers", card=card["nvidia_smi"],
+        steps_per_s={k: v["steps_per_s"] for k, v in rates.items()},
+        speedup={k: v["speedup"] for k, v in rates.items()},
+        fit_steps_per_s=fit["steps_per_s_whole_run"], seconds=time.perf_counter() - t0)
+    return launches
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -3655,6 +4003,9 @@ def parse_args(argv=None):
     ap.add_argument("--sharded_only", action="store_true",
                     help="phases 1, 2 and 18 alone, with phase 12's dataset written and not "
                          "fitted: the multi-card proof on a machine with four cards")
+    ap.add_argument("--chunks_only", action="store_true",
+                    help="phases 1, 2, 12 and 19 alone: the chunks of training steps as "
+                         "CUDA graphs")
     return ap.parse_args(argv)
 
 
@@ -3672,6 +4023,27 @@ def sharded_only(card) -> int:
     a = ts.parse_args([*LOOP_FLAGS, "--workdir", LOOP_WORKDIR])
     ts.write_dataset(a, *ts.build_reference_avatar(a, "cuda"))
     log("sharded_only/launches", **phase_sharded(card, model, cam, tile_cfg, setup))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def chunks_only(card) -> int:
+    """`--chunks_only`: phase 12 (the chunked fit) and phase 19 on the
+    benchmark scene, then the last line."""
+    from gaussianavatars_torch.render import build_scene, probe_tile_config
+
+    dev = torch.device("cuda")
+    model, params, aux, fl, cam, _n = build_scene(device=dev)
+    tile_cfg = probe_tile_config(model, params, aux, fl, cam)
+    setup = train_setup(dev, model, params, aux, fl, cam, tile_cfg)
+    step_syncs(model, setup[0], tile_cfg, setup, cam)
+    phase_loop(card)
+    t0 = time.perf_counter()
+    launches = phase_chunks(card, model, params, aux, cam, tile_cfg, setup)
+    log("chunks/seconds", seconds=time.perf_counter() - t0,
+        launches={k: v for k, v in launches.items() if v})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3704,6 +4076,8 @@ def main(argv=None) -> int:
     built = phase_build()
     if args.sharded_only:
         return sharded_only(card)
+    if args.chunks_only:
+        return chunks_only(card)
     against = build_against(args.against) if args.against else []
     torch.set_grad_enabled(False)
 
@@ -3922,15 +4296,22 @@ def main(argv=None) -> int:
     torch.set_grad_enabled(True)
     sharded_launches = phase_sharded(card, model, cam, cfg, setup)
 
+    # --- 19. chunks of training steps as CUDA graphs ----------------------------
+    t0 = time.perf_counter()
+    chunk_launches = phase_chunks(card, model, params, aux, cam, cfg, setup)
+    log("chunks/seconds", seconds=time.perf_counter() - t0)
+
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training, the loop, the replay, the
     # innovations' loop and step, the CLI, phase 17's sorted paths
     # (the serving and step comparisons, the stage timings, the profiled
-    # steps, the two viewer tools) and phase 18's (the 1x1 step in this
-    # process and the four ranks' bands).
+    # steps, the two viewer tools), phase 18's (the 1x1 step in this
+    # process and the four ranks' bands) and phase 19's (chunks and eager
+    # steps, float32, amp and the innovations).
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
                 loop_res["launches"], replay_launches, innov_loop["launches"],
-                innov_step["launches"], cli_launches, table_launches, sharded_launches):
+                innov_step["launches"], cli_launches, table_launches, sharded_launches,
+                chunk_launches):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)

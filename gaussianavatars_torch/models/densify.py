@@ -97,8 +97,11 @@ def add_densification_stats(aux: GaussianAux, screen_grad: torch.Tensor, radii: 
     `scene/gaussian_model.py:539-541`).
     """
     vis = radii > 0
-    g = screen_grad * torch.tensor([[width * 0.5, height * 0.5]], dtype=screen_grad.dtype,
-                                   device=screen_grad.device)
+    # Python-scalar multiplies: a tensor of the two factors would be a
+    # host-to-device copy every step, which synchronises (and cannot be
+    # captured in a CUDA graph).
+    g = torch.stack((screen_grad[:, 0] * (width * 0.5), screen_grad[:, 1] * (height * 0.5)),
+                    dim=-1)
     norm = torch.sqrt(torch.sum(g * g, dim=-1))
     zero = torch.zeros((), dtype=torch.float32, device=norm.device)
     return dataclasses.replace(

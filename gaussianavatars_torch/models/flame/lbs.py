@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def batch_rodrigues(rot_vecs: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -53,7 +54,9 @@ def batch_rigid_transform(
     def tmat(R, t):
         B = R.shape[0]
         top = torch.cat([R, t[:, :, None]], dim=2)                     # [B, 3, 4]
-        bot = R.new_tensor([[0.0, 0.0, 0.0, 1.0]]).expand(B, 1, 4)
+        # [0, 0, 0, 1] made on R's device: a tensor from Python numbers
+        # would be a synchronising host-to-device copy every joint.
+        bot = F.pad(torch.ones_like(R[:, :1, :1]), (3, 0))                # [B, 1, 4]
         return torch.cat([top, bot], dim=1)
 
     chain = [tmat(rot_mats[:, 0], rel[0])]

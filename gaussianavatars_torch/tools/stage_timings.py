@@ -7,7 +7,11 @@ kernel rows time the compositor alone on a fixed binned frame. Each row
 chains `--iters` iterations, every one taking a scalar from the one before
 (the jaw moves by s·1e-12), and times them with CUDA events around the
 chain and one synchronisation at its end (the host clock on the CPU),
-after one warm-up iteration.
+after one warm-up iteration. The last row, "full train step (scan
+chunk)" as the JAX script names it, times the production dispatch: a
+chunk of `--iters` steps (`trainer.make_train_chunk`, on the card one CUDA
+graph of the step replayed once a step) after a first chunk that warms up
+and captures, CUDA events around the chunk.
 
     python -m gaussianavatars_torch.tools.stage_timings [--iters 100] [--no_pallas] [--amp]
 
@@ -41,7 +45,9 @@ from ..ops.rasterize_tiled import (
 from ..ops.sort_binning import bbox_tiles
 from ..render import HEIGHT, WIDTH, build_scene, probe_tile_config
 from ..training.loss import ssim
-from ..training.trainer import init_train_state, make_train_step
+from ..training.trainer import (
+    init_train_state, make_train_chunk, make_train_step, stack_cameras,
+)
 
 
 def parse_args(argv=None):
@@ -228,6 +234,32 @@ def main(argv=None) -> Dict[str, float]:
         return s + out.metrics["loss"] * 0
 
     timed("full train step%s" % (" (amp)" if a.amp else ""), full_step)
+
+    # The production dispatch: `--iters` steps a chunk (`make_train_chunk`,
+    # one CUDA graph of the step replayed once a step on the card), the
+    # second chunk timed after one that warms up and captures.
+    chunk = make_train_chunk(model, cfg, tile)
+    k = a.iters
+    cache = (gt[None] * 255).to(torch.uint8)
+    cams = stack_cameras([cam] * k)
+    st, m = chunk(state["st"], cache, [0] * k, cams, [0] * k, bg, 3)
+    float(m["loss"][-1])
+    if dev.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, m = chunk(st, cache, [0] * k, cams, [0] * k, bg, 3)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / k
+    else:
+        t0 = time.perf_counter()
+        st, m = chunk(st, cache, [0] * k, cams, [0] * k, bg, 3)
+        float(m["loss"][-1])
+        ms = (time.perf_counter() - t0) * 1e3 / k
+    chunk.drop()
+    name = "full train step (scan chunk%s)" % (", amp" if a.amp else "")
+    rows[name] = ms
+    print(f"{name:34s} {ms:8.3f} ms")
     return rows
 
 

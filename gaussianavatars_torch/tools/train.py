@@ -15,8 +15,12 @@ server listens on `--port` (0: off) and is serviced after every step;
 
 `--no_pallas` trains and evaluates through the table pipeline
 (`ops/rasterize_tiled.bin_gaussians` and `composite_tiles`).
-`--steps_per_call` is accepted and does nothing: the port runs one step
-per iteration.
+`--steps_per_call K` (default 50, as the JAX script's) trains in chunks of
+up to K steps a dispatch (`training/loop.train`, `trainer.make_train_chunk`:
+on the card one captured CUDA graph of the step, replayed once a step);
+1 dispatches every step. The loop single-steps while a viewer client is
+connected and from `--debug_from` on; the mesh loop (`--mesh`) runs one
+step a dispatch, as the JAX package's does.
 
 Multi-device training (`training/loop.train_sharded` over a rank mesh,
 `parallel/`): `--mesh DxT` trains D cameras a step, each composited in T
@@ -126,8 +130,9 @@ def parse_args(argv=None):
     p.add_argument("--gauss_shard", action="store_true",
                    help="with --mesh: also shard per-Gaussian geometry over the tile axis")
     p.add_argument("--steps_per_call", type=int, default=50,
-                   help="accepted for the JAX script's command lines; the port runs "
-                        "one step per iteration")
+                   help="training steps a dispatch: chunks of up to this many steps, on "
+                        "the card one CUDA graph of the step replayed once a step "
+                        "(1: every step dispatched alone; the mesh loop runs one)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
                    help="the ranks' torch.distributed backend (default: nccl on the card, "
@@ -157,11 +162,13 @@ def joins_world(a) -> bool:
 
 def check_supported(a) -> None:
     """Raise `ValueError` for flags that cannot run together, before
-    anything starts: a malformed `--mesh`, the world flags or
+    anything starts: `--steps_per_call` below 1, a malformed `--mesh`, the world flags or
     `--gauss_shard` without a mesh to use them, and a backend that cannot
     place the ranks (`--dist_backend nccl` with two ranks on one device)."""
     d, t = mesh_shape(a)
     world = joins_world(a)
+    if a.steps_per_call < 1:
+        raise ValueError(f"--steps_per_call must be >= 1, got {a.steps_per_call}")
     if a.gauss_shard and not (a.mesh or world):
         raise ValueError("--gauss_shard needs --mesh or --distributed")
     given = [f for f, on in (("--coordinator_address", a.coordinator_address != ""),
@@ -268,7 +275,7 @@ def main(argv=None):
             logs = train_sharded(harness, make_rank_mesh(*mesh_shape(a)),
                                  gauss_shard=a.gauss_shard, **kw)
         else:
-            logs = train(harness, **kw)
+            logs = train(harness, steps_per_call=a.steps_per_call, **kw)
     finally:
         if gui is not None:
             gui.close()

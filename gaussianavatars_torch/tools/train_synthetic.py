@@ -1,7 +1,8 @@
 """End-to-end system check: recover a known synthetic avatar.
 
 The port of the JAX package's `scripts/train_synthetic.py`, with the same
-flags but `--steps_per_call` (the port runs one step per iteration):
+flags (`--steps_per_call`, default 50: chunks of up to that many steps a
+dispatch, on the card one CUDA graph of the step replayed once a step):
 renders a DynamicNerf-format dataset from a randomised reference avatar
 through the port's render path (the forward compositor kernel on a card),
 then trains a fresh model on it with the host loop
@@ -74,6 +75,8 @@ def parse_args(argv=None):
     p.add_argument("--max_tiles_per_gaussian", type=int, default=8,
                    help="the table pipeline's tiles a Gaussian (doubled on overflow)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--steps_per_call", type=int, default=50,
+                   help="training steps a dispatch (training/loop.train; 1: every step alone)")
     p.add_argument("--all_innovations", action="store_true")
     p.add_argument("--use_amp", action="store_true")
     p.add_argument("--opacity_reset_interval", type=int, default=0,
@@ -262,6 +265,8 @@ def run(a):
     (harness, result)."""
     if a.cameras < 2:
         raise SystemExit("--cameras must be >= 2 (camera 0 is held out for the val split)")
+    if a.steps_per_call < 1:
+        raise SystemExit(f"--steps_per_call must be >= 1, got {a.steps_per_call}")
     if a.quality:
         apply_quality_profile(a, vars(parse_args([])))
     dev = resolve_device(a.device)
@@ -321,7 +326,8 @@ def run(a):
     t0 = time.perf_counter()
     logs = train(harness, iterations=a.iterations, log_every=a.log_every,
                  eval_every=a.eval_every, save_iterations=[a.iterations],
-                 checkpoint_iterations=checkpoint_iterations(a), seed=a.seed)
+                 checkpoint_iterations=checkpoint_iterations(a), seed=a.seed,
+                 steps_per_call=a.steps_per_call)
     result["train_s"] = time.perf_counter() - t0
     result["logs"] = logs
     if logs:

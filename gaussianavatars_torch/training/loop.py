@@ -2,8 +2,11 @@
 `tools/train_synthetic.py`.
 
 The port of the JAX package's `training/loop.py` (the reference training script,
-`train.py:45-311`): one training step per iteration
-(`trainer.make_train_step`) with host events at the reference's cadence —
+`train.py:45-311`): training steps (`trainer.make_train_step`), one a
+dispatch or `steps_per_call` a chunk (`trainer.make_train_chunk`: on the
+card one captured CUDA graph of the step, replayed once a step; chunks end
+at every host event, `chunk_boundary`), with host events at the
+reference's cadence —
 
   * SH warm-up every 1000 iterations (`train.py:176-177`),
   * densify/prune every `densification_interval` in
@@ -15,9 +18,10 @@ The port of the JAX package's `training/loop.py` (the reference training script,
 
 TensorBoard scalars, images and histograms at the JAX loop's events and
 tags (`_maybe_tensorboard`; none when the package is missing), the viewer
-GUI service after every step (`gui_service`, for
-`viewers/network_gui.TrainingGuiServer`), per-step finite assertions from
-`debug_from` on, and the host side of the innovations: progressive resolution (the scale
+GUI service after every dispatch (`gui_service`, for
+`viewers/network_gui.TrainingGuiServer`; single steps while a client is
+connected), single steps with finite assertions from `debug_from` on, and
+the host side of the innovations: progressive resolution (the scale
 of each iteration from `innovations.resolution_scale_at`, one ground-truth
 cache and sampler per scale, the scales that cannot recur evicted), smart
 densification's thresholds at each densify event, and the colour net in
@@ -26,17 +30,15 @@ densification's thresholds at each densify event, and the colour net in
 The loop owns host-side state (the ground-truth cache, the sampler, logs);
 everything numeric is in the `TrainState` on the device. The step's
 budget counters are kept as running maxima on the device and read only
-at the log cadence: an iteration that does not log makes no host read of
-a device value beyond what the step itself does.
+at the log cadence and at the end of a chunk: an iteration that does not
+log makes no host read of a device value beyond what the step itself
+does.
 
 The harness is FLAME-bound (`bind_to_mesh`) or unbound: a point cloud of
 the dataset (COLMAP, or Blender's `points3d.ply` or random points)
 initialised by `models/gaussians.init_from_points`, trained with no FLAME
-leaves.
-
-Not ported, each named in `ROADMAP.md`: `train_sharded` (multi-device),
-and the JAX loop's fused chunks of steps (`steps_per_call`): the port runs
-one step per iteration.
+leaves. `train_sharded` trains over a rank mesh, one step a dispatch, as
+the JAX package's does.
 """
 from __future__ import annotations
 
@@ -70,7 +72,10 @@ from ..utils.image import error_map
 from .checkpoint import flatten_state, load_train_state, save_train_state
 from .innovations import color_net_apply, resolution_scale_at, smart_thresholds
 from .loss import psnr as psnr_fn, ssim as ssim_fn
-from .trainer import TrainState, active_sh_degree, init_train_state, make_train_step
+from .trainer import (
+    TrainState, active_sh_degree, init_train_state, make_train_chunk, make_train_step,
+    stack_cameras,
+)
 
 
 def flame_init_from_table(
@@ -147,6 +152,8 @@ class TrainerHarness:
     events: List[dict] = dataclasses.field(default_factory=list)
     # Training steps taken at each image size (height, width): host counts.
     steps_by_size: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+    # CUDA graphs captured by the loop's chunks (`trainer.TrainChunk`).
+    chunk_captures: int = 0
 
 
 def image_scales(cfg: Config) -> tuple:
@@ -533,32 +540,43 @@ def _grow_tile_budgets(tcfg: TileConfig, overflow: int, budget_overflow: int,
     return tcfg
 
 
+BUDGET_METRICS = ("overflow", "budget_overflow", "max_footprint")
+
+
 class _LogCadence:
-    """What both loops do at their log cadence: the step's budget counters
-    kept as running maxima on the device between logs (read only there),
-    the budgets grown when one overflowed (`_grow_tile_budgets`, recorded
-    in `harness.events`), the log record, TensorBoard, the print (when
-    `verbose`) and `on_step`."""
+    """What both loops do with the step's budget counters and at their log
+    cadence: the counters kept as running maxima on the device (`add`;
+    a chunk's [K] metrics add their maxima), read on the host only by
+    `grow` (at a log, and at the end of each chunk), the budgets grown when
+    one overflowed (`_grow_tile_budgets`, recorded in `harness.events`); the
+    log record (its overflow counts the maxima read since the last log),
+    TensorBoard, the print (when `verbose`) and `on_step`."""
 
     def __init__(self, harness: TrainerHarness, iterations: int, sorted_mode: bool, writer,
                  on_step, verbose: bool = True):
         self.harness, self.iterations, self.sorted_mode = harness, iterations, sorted_mode
         self.writer, self.on_step, self.verbose = writer, on_step, verbose
         self.maxima = None
+        self.seen = (0, 0)
         self.ema = None
         self.logs: List[dict] = []
         self.t0 = time.time()
 
     def add(self, metrics: dict) -> None:
-        new = [metrics[k] for k in ("overflow", "budget_overflow", "max_footprint")]
+        new = [metrics[k] if metrics[k].dim() == 0 else torch.max(metrics[k])
+               for k in BUDGET_METRICS]
         self.maxima = new if self.maxima is None else [
             torch.maximum(a, b) for a, b in zip(self.maxima, new)]
 
-    def log(self, it: int, metrics: dict, tcfg: TileConfig, **extra) -> Optional[TileConfig]:
-        """Log iteration `it`; returns the grown tile config, or None."""
-        harness = self.harness
+    def grow(self, it: int, tcfg: TileConfig) -> Optional[TileConfig]:
+        """Read the maxima added since the last read; returns the grown tile
+        config, or None."""
+        if self.maxima is None:
+            return None
         overflow_seen, budget_overflow_seen, mfp_seen = (int(x) for x in self.maxima)
         self.maxima = None
+        self.seen = (max(self.seen[0], overflow_seen), max(self.seen[1], budget_overflow_seen))
+        harness = self.harness
         grown = _grow_tile_budgets(tcfg, overflow_seen, budget_overflow_seen,
                                    verbose=self.verbose, max_footprint=mfp_seen,
                                    n_gauss=harness.state.params.capacity,
@@ -571,6 +589,14 @@ class _LogCadence:
                 "capacity": grown.capacity,
                 "max_tiles_per_gaussian": grown.max_tiles_per_gaussian})
             harness.live_tile_config = grown
+        return grown
+
+    def log(self, it: int, metrics: dict, tcfg: TileConfig, **extra) -> Optional[TileConfig]:
+        """Log iteration `it` (after `grow`); returns the grown tile config,
+        or None."""
+        harness = self.harness
+        grown = self.grow(it, tcfg)
+        (overflow_seen, budget_overflow_seen), self.seen = self.seen, (0, 0)
         loss = float(metrics["loss"])
         self.ema = ema = loss if self.ema is None else 0.6 * self.ema + 0.4 * loss
         rec = {
@@ -636,6 +662,18 @@ class _ScaleSources:
         views, gt = src.next()
         return views, gt[row], cams
 
+    def draw_chunk(self, div: float, it: int, k: int) -> tuple:
+        """The next `k` views of scale 1 / `div` for a chunk: (views, the
+        device cache [V, H, W, 3] uint8, the scale's cameras). Only a
+        device cache serves chunks (`resident`)."""
+        src, sampler, cams = self._source(div, it)
+        return [next(sampler) for _ in range(k)], src.data, cams
+
+    def resident(self, div: float, it: int) -> bool:
+        """Whether scale 1 / `div`'s views are in a device cache (else a
+        prefetcher streams them)."""
+        return self._source(div, it)[1] is not None
+
     def evict_past(self, it: int) -> list:
         """Drop the sources of scales that cannot recur after `it`; returns
         their divisors."""
@@ -660,6 +698,57 @@ class _ScaleSources:
                 src.close()
 
 
+def chunk_boundary(
+    i: int,
+    *,
+    iterations: int,
+    steps_per_call: int,
+    log_every: int,
+    eval_every: Optional[int],
+    opt,
+    save_iterations: Sequence[int] = (),
+    checkpoint_iterations: Sequence[int] = (),
+    eval_iterations: Sequence[int] = (),
+) -> int:
+    """Last iteration (inclusive) of a chunk starting at iteration `i` (the
+    JAX package's `chunk_boundary`, `training/loop.py:555-590`).
+
+    Two kinds of host events bound a chunk:
+
+      * **post-step** events (log, densify, opacity reset, eval, save,
+        checkpoint) act *after* iteration k — the chunk must END AT k;
+      * **pre-step** config changes (SH warm-up bumps `active_sh_degree` at
+        multiples of 1000; progressive resolution swaps cameras at each
+        milestone m) take effect *for* iteration k — the chunk must end at
+        k − 1 so the next chunk re-reads sh_degree / resolution before
+        running k. Ending at k would run iteration k with the stale value
+        and break single-step equivalence.
+    """
+    o = opt
+    cands = [iterations, i + steps_per_call - 1]
+    # Post-step events: end the chunk AT the event iteration.
+    for interval in (log_every, o.densification_interval,
+                     o.opacity_reset_interval, eval_every or 0):
+        if interval and interval > 0:
+            cands.append(((i + interval - 1) // interval) * interval)
+    for s in (list(save_iterations) + list(checkpoint_iterations)
+              + list(eval_iterations)):
+        if s >= i:
+            cands.append(s)
+    # The one-time white-background opacity reset fires at exactly
+    # densify_from_iter (train.py:272-273) — a post-step event that is not
+    # necessarily a multiple of any interval above.
+    if o.densify_from_iter >= i:
+        cands.append(o.densify_from_iter)
+    # Pre-step config changes: end the chunk one iteration BEFORE.
+    cands.append((i // 1000 + 1) * 1000 - 1)          # SH warm-up
+    if o.use_progressive_resolution:
+        for m in o.resolution_milestones:
+            if m - 1 >= i:
+                cands.append(m - 1)
+    return max(min(c for c in cands if c >= i), i)
+
+
 def train(
     harness: TrainerHarness,
     iterations: Optional[int] = None,
@@ -673,6 +762,7 @@ def train(
     seed: int = 0,
     prefetch_workers: int = 4,
     device_cache_bytes: int = 4 << 30,
+    steps_per_call: int = 1,
     gui_service: Optional[Callable[[int], bool]] = None,
     debug_from: int = -1,
 ) -> List[dict]:
@@ -687,24 +777,42 @@ def train(
     `resolution_scale` and the scales whose caches are held
     (`cached_scales`).
 
-    `gui_service(it)` is called after every step (the reference services
-    its viewer socket every iteration, `train.py:143-172`). From
-    `debug_from` on (when >= 0), every step's metrics and the parameters
-    are checked finite (`utils/debug.assert_finite`, which raises
-    `FloatingPointError`; the reference's `--debug_from`,
-    `train.py:189-190`). TensorBoard records go to `model_path` when the
-    package is importable (`_maybe_tensorboard`)."""
+    `steps_per_call` > 1 runs chunks of up to that many steps a dispatch
+    (`trainer.make_train_chunk`: on the card one captured CUDA graph of the
+    step, replayed once a step), as the JAX loop runs them as one
+    `lax.scan`. A chunk never crosses a host event (`chunk_boundary`), so
+    the result is that of single steps. Chunks need the device cache (with
+    a prefetcher the loop single-steps), and one fov for every training
+    camera (mixed intrinsics single-step, with a warning). The budget
+    counters' maxima over a chunk are read once at its end, and the log
+    takes the chunk's last metrics.
+
+    `gui_service(it)` is called after every dispatch (the reference services
+    its viewer socket every iteration, `train.py:143-172`); it returns True
+    while a client is connected, which drops the loop to single steps so
+    that every iteration is served. From `debug_from` on (when >= 0) the
+    loop single-steps (a chunk ends at `debug_from` − 1), and every step's
+    metrics and the parameters are checked finite
+    (`utils/debug.assert_finite`, which raises `FloatingPointError`; the
+    reference's `--debug_from`, `train.py:189-190`). TensorBoard records go
+    to `model_path` when the package is importable (`_maybe_tensorboard`)."""
     cfg, scene, model = harness.cfg, harness.scene, harness.model
     o = cfg.opt
     iterations = iterations if iterations is not None else o.iterations
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     dev = scene.device
     tcfg = tile_config(cfg)
     recs = scene.records("train")
     if recs:
         tcfg = probe_tier_budgets(tcfg, cfg, model, harness.state, scene.cameras("train")[0])
     bg = _background(cfg, dev)
+    if steps_per_call > 1 and len({(c.fovx, c.fovy) for c in scene.cameras("train")}) > 1:
+        print("[warn] per-camera intrinsics detected — disabling chunks (single-step "
+              "dispatch; train_sharded supports mixed intrinsics at full speed)")
+        steps_per_call = 1
 
-    step = None
+    step = chunk = None
     sources = _ScaleSources(harness, recs, seed, device_cache_bytes, prefetch_workers)
     render_fn = make_render_fn(model, cfg, tcfg)
     save_set = set(save_iterations)
@@ -714,37 +822,67 @@ def train(
     writer = _maybe_tensorboard(cfg.model.model_path)
     cadence = _LogCadence(harness, iterations, cfg.pipeline.use_sorted and cfg.pipeline.use_pallas,
                           writer, on_step)
+    gui_connected = False
     try:
         it = harness.start_iteration + 1
         while it <= iterations:
             if step is None:
                 step = make_train_step(model, cfg, tcfg, spatial_lr_scale=harness.spatial_lr_scale)
+                if steps_per_call > 1:
+                    chunk = make_train_chunk(model, cfg, tcfg,
+                                             spatial_lr_scale=harness.spatial_lr_scale)
             scale = 1.0
             if o.use_progressive_resolution:
                 scale = resolution_scale_at(it, o.resolution_schedule, o.resolution_milestones)
-                sources.evict_past(it)
-            (v,), gt0, cams_all = sources.draw(1.0 / scale, it)
+                if sources.evict_past(it) and chunk is not None:
+                    chunk.drop()    # its graph reads the evicted cache
             sh_deg = active_sh_degree(it, cfg.model.sh_degree)
-            cam = cams_all[v]
-            size = (cam.height, cam.width)
-            harness.steps_by_size[size] = harness.steps_by_size.get(size, 0) + 1
-            out = step(harness.state, gt0, cam, cam.timestep, bg, sh_deg)
-            harness.state = out.state
-            metrics = out.metrics
-            cadence.add(metrics)
+            debugging = 0 <= debug_from <= it
+            end = it if (gui_connected or debugging) else chunk_boundary(
+                it, iterations=iterations, steps_per_call=steps_per_call, log_every=log_every,
+                eval_every=eval_every, opt=o, save_iterations=save_iterations,
+                checkpoint_iterations=checkpoint_iterations, eval_iterations=eval_iterations)
+            if not debugging and debug_from > it:
+                # Single steps (and finite checks) begin AT debug_from.
+                end = min(end, debug_from - 1)
+            k = end - it + 1
+            chunked = k > 1 and chunk is not None and sources.resident(1.0 / scale, it)
+            if chunked:
+                views, cache, cams_all = sources.draw_chunk(1.0 / scale, it, k)
+                cams = stack_cameras([cams_all[v] for v in views])
+                n0 = chunk.captures
+                harness.state, m_all = chunk(harness.state, cache, views, cams,
+                                             [cams_all[v].timestep for v in views], bg, sh_deg)
+                harness.chunk_captures += chunk.captures - n0
+                metrics = {name: v[-1] for name, v in m_all.items()}
+                cadence.add(m_all)
+                it = end
+                size = (cams.height, cams.width)
+            else:
+                (v,), gt0, cams_all = sources.draw(1.0 / scale, it)
+                cam = cams_all[v]
+                out = step(harness.state, gt0, cam, cam.timestep, bg, sh_deg)
+                harness.state = out.state
+                metrics = out.metrics
+                cadence.add(metrics)
+                k, size = 1, (cam.height, cam.width)
+            harness.steps_by_size[size] = harness.steps_by_size.get(size, 0) + k
             if gui_service is not None:
-                gui_service(it)
-            if 0 <= debug_from <= it:
+                gui_connected = bool(gui_service(it))
+            if debugging:
                 assert_finite(metrics, f"metrics@it{it}")
                 assert_finite(harness.state.params, f"params@it{it}")
 
             if it % log_every == 0 or it == iterations:
                 grown = cadence.log(it, metrics, tcfg, resolution_scale=scale,
                                     cached_scales=sources.scales())
-                if grown is not None:
-                    tcfg = grown
-                    step = None
-                    render_fn = make_render_fn(model, cfg, tcfg)
+            else:
+                # A chunk's budget maxima are read at its end.
+                grown = cadence.grow(it, tcfg) if chunked else None
+            if grown is not None:
+                tcfg = grown
+                step = chunk = None
+                render_fn = make_render_fn(model, cfg, tcfg)
 
             _post_step_events(
                 harness, it, active_sh_degree(it, cfg.model.sh_degree),

@@ -67,6 +67,13 @@ def _band_matrix(n: int, window: int, sigma: float, device: torch.device) -> tor
     return torch.as_tensor(_band_matrix_np(n, window, sigma), device=device)
 
 
+@functools.lru_cache(maxsize=4)
+def _window_tensor(window: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """The 1-D window as a tensor on `device`, built once (a copy from the
+    host every call would synchronise)."""
+    return torch.as_tensor(_gaussian_window(window, sigma), device=device)
+
+
 def _depthwise_blur(img: torch.Tensor, window: int, sigma: float,
                     amp: bool = False) -> torch.Tensor:
     """Separable Gaussian blur of [C, H, W] with SAME (zero) padding.
@@ -78,7 +85,7 @@ def _depthwise_blur(img: torch.Tensor, window: int, sigma: float,
     gradients to bf16 too, as JAX's casts do."""
     c, h, w = img.shape
     if max(h, w) > _BLUR_MATMUL_MAX:
-        g = torch.as_tensor(_gaussian_window(window, sigma), device=img.device)
+        g = _window_tensor(window, sigma, img.device)
         pad = window // 2
         x = F.conv2d(img[None], g.reshape(1, 1, window, 1).expand(c, 1, window, 1),
                      padding=(pad, 0), groups=c)

@@ -204,16 +204,27 @@ def _grads(leaves):
     return tree_map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad, leaves)
 
 
-def flame_forward(model: FlameModel, state: TrainState, flame: FlameTrainable, ts: int):
-    """The posed and canonical vertices [1, V, 3] of timestep `ts`."""
+def _at(x: torch.Tensor, ts) -> torch.Tensor:
+    """Row `ts` of `x` as [1, ...]. An int indexes; a 0-dim integer tensor
+    on `x`'s device selects with `index_select`, which reads nothing on the
+    host (indexing with it would), so a step with a tensor timestep can be
+    captured in a CUDA graph. Both give the same values."""
+    if isinstance(ts, torch.Tensor):
+        return x.index_select(0, ts.reshape(1).to(torch.int64))
+    return x[ts][None]
+
+
+def flame_forward(model: FlameModel, state: TrainState, flame: FlameTrainable, ts):
+    """The posed and canonical vertices [1, V, 3] of timestep `ts` (an int
+    or a 0-dim tensor, `_at`)."""
     fp = FlameParams(
         shape=state.flame_static.shape,
-        expr=flame.expr[ts][None], rotation=flame.rotation[ts][None],
-        neck=flame.neck[ts][None], jaw=flame.jaw[ts][None], eyes=flame.eyes[ts][None],
-        translation=flame.translation[ts][None],
+        expr=_at(flame.expr, ts), rotation=_at(flame.rotation, ts),
+        neck=_at(flame.neck, ts), jaw=_at(flame.jaw, ts), eyes=_at(flame.eyes, ts),
+        translation=_at(flame.translation, ts),
         static_offset=state.flame_static.static_offset,
         dynamic_offset=None if flame.dynamic_offset is None
-        else flame.dynamic_offset[ts][None],
+        else _at(flame.dynamic_offset, ts),
     )
     return model(fp, return_verts_cano=True)
 
@@ -229,7 +240,7 @@ def screen_space(params: GaussianParams, aux: GaussianAux, frames, camera, sh_de
 
 
 def binding_regularisers(model: FlameModel, cfg: Config, state: TrainState,
-                         params: GaussianParams, flame: FlameTrainable, ts: int, frames,
+                         params: GaussianParams, flame: FlameTrainable, ts, frames,
                          verts, verts_cano, visible: torch.Tensor) -> dict:
     """The FLAME-bound regularisers by name (`train.py:229-243`): xyz and
     scale over the `visible` Gaussians, the dynamic offsets, the laplacian."""
@@ -251,7 +262,7 @@ def binding_regularisers(model: FlameModel, cfg: Config, state: TrainState,
         reg_terms["scale"] = (torch.where(visible, sc_norm, zero).sum() / nvis
                               * o.lambda_scale)
     if flame.dynamic_offset is not None and o.lambda_dynamic_offset != 0:
-        reg_terms["dy_off"] = (safe_norm(flame.dynamic_offset[ts], dim=-1).mean()
+        reg_terms["dy_off"] = (safe_norm(_at(flame.dynamic_offset, ts)[0], dim=-1).mean()
                                * o.lambda_dynamic_offset)
     if flame.dynamic_offset is not None and o.lambda_dynamic_offset_std != 0:
         reg_terms["dynamic_offset_std"] = (
@@ -263,7 +274,7 @@ def binding_regularisers(model: FlameModel, cfg: Config, state: TrainState,
 
 
 def geometry(model: Optional[FlameModel], cfg: Config, state: TrainState,
-             params: GaussianParams, flame: Optional[FlameTrainable], ts: int, camera,
+             params: GaussianParams, flame: Optional[FlameTrainable], ts, camera,
              sh_degree: int):
     """Stage 1 of the step, under autograd: (screen, reg_total, proj,
     reg_terms, posed vertices [V, 3] or None). Unbound (`model=None`):
@@ -365,9 +376,13 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
                     spatial_lr_scale: float = 1.0, compositor=None):
     """Build the train step: FLAME-bound, or unbound with `model=None`.
 
-    Call: step(state, gt_image [H, W, 3], camera, timestep (int), bg_color [3],
+    Call: step(state, gt_image [H, W, 3], camera, timestep, bg_color [3],
     sh_degree) → StepOutput(new state, metrics (0-dim tensors), image). The
-    given state is not modified. An unbound step ignores `timestep`. The
+    timestep is an int or a 0-dim integer tensor on the state's device
+    (selected with `index_select`: the step then reads no device value on
+    the host, so it can be captured in a CUDA graph); both give the same
+    bits. The given state is not modified. An unbound step ignores
+    `timestep`. The
     sorted pipeline runs when `cfg.pipeline.use_sorted` and `use_pallas`
     and no `compositor` is given; otherwise the table pipeline, composited
     by `compositor` (default `composite_tiles`).
@@ -390,9 +405,9 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
                                        tile_cfg, compositor=step_compositor)
         return img, None
 
-    def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep: int,
+    def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep,
                    bg_color: torch.Tensor, sh_degree: int) -> StepOutput:
-        ts = int(timestep)
+        ts = timestep if isinstance(timestep, torch.Tensor) else int(timestep)
         params = _leaves(state.params)
         flame = _leaves(state.flame)
         color = _leaves(state.color_net)
@@ -467,6 +482,230 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
         return StepOutput(state=new_state, metrics=metrics, image=img)
 
     return train_step
+
+
+# The tensor fields of a `Camera`, stacked along a new leading axis by
+# `stack_cameras`.
+CAMERA_TENSORS = ("world_view", "proj", "full_proj", "camera_center")
+# Eager steps before a chunk captures its step: lazy initialisation
+# (kernel libraries, cached windows and maps, autograd's streams) happens
+# outside the capture.
+CHUNK_WARMUP = 3
+
+
+def stack_cameras(cams) -> Camera:
+    """Same-intrinsics cameras stacked along a new leading axis: a `Camera`
+    whose tensor fields are [K, ...], with the first camera's size, fovs and
+    metadata. The size and fovs are Python values fixed for a chunk, so
+    mixed resolutions or intrinsics raise `ValueError` (the JAX package's
+    `stack_cameras` asserts the same; `train()` single-steps such rigs)."""
+    c0 = cams[0]
+    for c in cams:
+        if (c.width, c.height) != (c0.width, c0.height):
+            raise ValueError("mixed resolutions")
+        if (c.fovx, c.fovy) != (c0.fovx, c0.fovy):
+            raise ValueError("mixed per-camera intrinsics cannot ride one chunk "
+                             "(fov is static metadata)")
+    return dataclasses.replace(c0, **{f: torch.stack([getattr(c, f) for c in cams])
+                                      for f in CAMERA_TENSORS})
+
+
+def camera_row(cams: Camera, i) -> Camera:
+    """Camera `i` of a `stack_cameras` stack: `i` an int, or a [1] integer
+    tensor on the cameras' device (selected with `index_select`)."""
+    if isinstance(i, torch.Tensor):
+        return dataclasses.replace(cams, **{f: getattr(cams, f).index_select(0, i)[0]
+                                            for f in CAMERA_TENSORS})
+    return dataclasses.replace(cams, **{f: getattr(cams, f)[i] for f in CAMERA_TENSORS})
+
+
+def _host_ints(x) -> list:
+    return x.tolist() if isinstance(x, torch.Tensor) else [int(v) for v in x]
+
+
+def _stack_metrics(rows: list) -> dict:
+    return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+
+class _CapturedStep:
+    """One training step captured in a CUDA graph, with its static buffers.
+
+    Inputs: the state leaves (`state`, written back in place by every
+    replay), the chunk's views, timesteps and camera tensors (`cap` rows),
+    the background, and `counter`, the row a replay takes. A replay selects
+    row `counter` of each (`index_select`), gathers that view's uint8
+    ground truth from the cache and converts it (`gt_to_float`), runs the
+    step, copies the new state into the state leaves, writes each metric
+    into row `counter` of its [cap] buffer and adds one to `counter`."""
+
+    def __init__(self, step, key, state: TrainState, gt_cache, cams: Camera, bg,
+                 sh_degree: int, metrics_like: dict, cap: int):
+        from ..data.pipeline import gt_to_float
+        from ..ops import composite_pairs
+        from .checkpoint import flatten_state
+
+        dev = gt_cache.device
+        self.key, self.cap, self.state = key, cap, state
+        self.leaves = flatten_state(state)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.views = torch.zeros(cap, dtype=torch.int64, device=dev)
+        self.timesteps = torch.zeros(cap, dtype=torch.int64, device=dev)
+        self.cams = dataclasses.replace(cams, **{
+            f: torch.zeros((cap, *getattr(cams, f).shape[1:]), dtype=getattr(cams, f).dtype,
+                           device=dev) for f in CAMERA_TENSORS})
+        self.bg = bg.detach().clone()
+        self.metrics = {k: torch.zeros(cap, dtype=v.dtype, device=dev)
+                        for k, v in metrics_like.items()}
+        launches = composite_pairs.LAUNCHES
+        before = dict(launches)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                c = self.counter
+                gt = gt_to_float(gt_cache.index_select(0, self.views.index_select(0, c))[0])
+                out = step(state, gt, camera_row(self.cams, c),
+                           self.timesteps.index_select(0, c)[0], self.bg, sh_degree)
+                for name, new in flatten_state(out.state).items():
+                    if new is not self.leaves[name]:
+                        self.leaves[name].copy_(new)
+                for name, buf in self.metrics.items():
+                    buf.index_copy_(0, c, out.metrics[name].reshape(1).to(buf.dtype))
+                self.counter.add_(1)
+            # The capture launched nothing: its counts are what a replay launches.
+            self.per_replay = {k: launches[k] - before[k] for k in launches}
+        finally:
+            launches.update(before)
+
+    def run(self, state: TrainState, views, timesteps, cams: Camera, bg, start: int,
+            k: int) -> dict:
+        """Rows `start`..k-1 of the chunk by replays, from `state` (copied
+        into the state leaves unless it is they); returns the metrics' rows."""
+        from ..ops import composite_pairs
+        from .checkpoint import flatten_state
+
+        for name, x in flatten_state(state).items():
+            if x is not self.leaves[name]:
+                self.leaves[name].copy_(x)
+        for buf, vals in ((self.views, views), (self.timesteps, timesteps)):
+            host = torch.tensor(vals, dtype=torch.int64)
+            if buf.device.type == "cuda":
+                host = host.pin_memory()
+            buf[:k].copy_(host, non_blocking=True)
+        for f in CAMERA_TENSORS:
+            getattr(self.cams, f)[:k].copy_(getattr(cams, f)[:k])
+        self.bg.copy_(bg)
+        self.counter.fill_(start)
+        for _ in range(start, k):
+            self.graph.replay()
+        for name, n in self.per_replay.items():
+            composite_pairs.LAUNCHES[name] += n * (k - start)
+        return {name: buf[start:k].clone() for name, buf in self.metrics.items()}
+
+
+class TrainChunk:
+    """K training steps a call, the port of the JAX package's
+    `make_train_scan` (`make_train_chunk` builds it).
+
+    Call: chunk(state, gt_cache [V, H, W, 3] uint8 (or float) on the
+    state's device, views [K] ints, cams (`stack_cameras` of the K views'
+    cameras; rows past K are not read), timesteps [K] ints, bg [3],
+    sh_degree) → (state, metrics: dict of [K] tensors, row k that of step
+    k). The K steps are the step's own, so the result is K
+    `make_train_step` calls on the same views. The
+    given state is consumed, as the JAX chunk donates it: on the card the
+    returned state's tensors are the captured graph's buffers, which the
+    next chunk overwrites.
+
+    On the CPU, and on the card on the table pipeline (`use_pallas=False`,
+    or `use_sorted=False`: its compositor reads max(counts) on the host
+    once a render, which no graph can capture; said once in the log), the
+    steps run one after another in a Python loop. On the card the sorted
+    pipeline's step is captured once in a CUDA graph and replayed: the
+    first `CHUNK_WARMUP` steps of a chunk with no graph yet run eagerly on
+    a side stream (real steps of the chunk), then one step is captured and
+    replayed for the rest; later chunks replay it from their first step.
+    Nothing is issued per step but the replay. The graph is kept for one
+    key, (image size, fovs, sh_degree, the state's leaf shapes, the ground
+    truth cache), so one private memory pool is alive at a time; a chunk
+    with another key drops it and captures anew, as does `drop()`. A
+    capture that fails raises: a chunk never falls back to eager steps on
+    the sorted pipeline. The compositor kernels' launch counts
+    (`ops/composite_pairs.LAUNCHES`) grow by their launches a step for every
+    replay, so they count steps as eager steps do."""
+
+    def __init__(self, model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
+                 spatial_lr_scale: float = 1.0):
+        self.step = make_train_step(model, cfg, tile_cfg, spatial_lr_scale)
+        self.capturable = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas
+        self.captured: Optional[_CapturedStep] = None
+        self.captures = 0
+        self._said_eager = False
+
+    def drop(self) -> None:
+        """Release the captured graph and its memory pool."""
+        self.captured = None
+
+    def eager(self, state, gt_cache, views, cams, timesteps, bg, sh_degree):
+        """The plain version: the step once a row, in order."""
+        from ..data.pipeline import gt_to_float
+
+        rows = []
+        for i, (v, ts) in enumerate(zip(_host_ints(views), _host_ints(timesteps))):
+            out = self.step(state, gt_to_float(gt_cache[v]), camera_row(cams, i), ts, bg,
+                            sh_degree)
+            state = out.state
+            rows.append(out.metrics)
+        return state, _stack_metrics(rows)
+
+    def __call__(self, state: TrainState, gt_cache: torch.Tensor, views, cams: Camera,
+                 timesteps, bg: torch.Tensor, sh_degree: int):
+        if gt_cache.device.type != "cuda":
+            return self.eager(state, gt_cache, views, cams, timesteps, bg, sh_degree)
+        if not self.capturable:
+            if not self._said_eager:
+                print("[info] table pipeline: its compositor reads max(counts) on the host, "
+                      "so chunks run their steps eagerly (no CUDA graph)")
+                self._said_eager = True
+            return self.eager(state, gt_cache, views, cams, timesteps, bg, sh_degree)
+        from .checkpoint import flatten_state
+
+        views, timesteps = _host_ints(views), _host_ints(timesteps)
+        k = len(views)
+        key = (cams.height, cams.width, cams.fovx, cams.fovy, int(sh_degree),
+               gt_cache.data_ptr(), tuple(gt_cache.shape), gt_cache.dtype,
+               tuple((n, tuple(x.shape), x.dtype) for n, x in flatten_state(state).items()))
+        if self.captured is not None and (self.captured.key != key or self.captured.cap < k):
+            self.drop()
+        start, warm = 0, None
+        if self.captured is None:
+            start = min(k, CHUNK_WARMUP)
+            dev = gt_cache.device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                state, warm = self.eager(state, gt_cache, views[:start], cams, timesteps[:start],
+                                         bg, sh_degree)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if start == k:
+                return state, warm
+            self.captured = _CapturedStep(
+                self.step, key, state, gt_cache, cams, bg, sh_degree,
+                {n: m[0] for n, m in warm.items()}, cap=max(64, 1 << (k - 1).bit_length()))
+            self.captures += 1
+        g = self.captured
+        rows = g.run(state, views, timesteps, cams, bg, start, k)
+        if warm is not None:
+            rows = {n: torch.cat([warm[n], r]) for n, r in rows.items()}
+        return dataclasses.replace(g.state, generator=state.generator), rows
+
+
+def make_train_chunk(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
+                     spatial_lr_scale: float = 1.0) -> TrainChunk:
+    """K training steps a dispatch (`TrainChunk`): one captured CUDA graph
+    of one step, replayed K times, on the card's sorted pipeline; the
+    step in a loop elsewhere. The port of the JAX package's
+    `make_train_scan` (one `lax.scan` a chunk)."""
+    return TrainChunk(model, cfg, tile_cfg, spatial_lr_scale)
 
 
 def active_sh_degree(iteration: int, max_degree: int = 3) -> int:

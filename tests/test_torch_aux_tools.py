@@ -157,7 +157,8 @@ def test_stage_timings_runs_every_stage(sparse_template, flags):
         "render fwd",
         "composite_tiles fwd (fixed)" if table else "composite fwd kernel (fixed)",
         "composite_tiles fwd+bwd (fixed)" if table else "composite bwd kernel (fixed)",
-        "render fwd+bwd (mse)", "render fwd+bwd (L1+SSIM)", "full train step"]
+        "render fwd+bwd (mse)", "render fwd+bwd (L1+SSIM)", "full train step",
+        "full train step (scan chunk)"]
     assert all(math.isfinite(v) and v > 0 for v in rows.values())
 
 

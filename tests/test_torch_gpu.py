@@ -424,3 +424,99 @@ def test_unbound_step_kernel_matches_plain_backward(cuda_device):
         y = getattr(out_k.state.adam.mu, name)
         assert float((y - x).abs().max()) <= 1e-4 * float(x.abs().max()), name
         assert float(x.abs().max()) > 0 or name == "sh_rest", name
+
+
+def _chunk_case(cuda_device, k: int):
+    """A small bench-scene avatar on the card, its state, a two-view uint8
+    cache and k steps' views (two cameras in turns, timesteps 0 and 1)."""
+    from gaussianavatars_torch.training.trainer import stack_cameras
+
+    model, params, aux, fl, cam, _n = build_scene(per_face=1, width=160, height=96,
+                                                  device=cuda_device)
+    tile = probe_tile_config(model, params, aux, fl, cam)
+    cfg = Config()
+    state = init_train_state(params, aux, cfg, num_timesteps=2, n_expr=fl.expr.shape[1],
+                             n_shape=fl.shape.shape[0], num_verts=model.num_verts)
+    g = torch.Generator().manual_seed(5)
+    cache = torch.randint(0, 256, (2, cam.height, cam.width, 3), generator=g,
+                          dtype=torch.uint8).to(cuda_device)
+    other = dataclasses.replace(cam, world_view=cam.world_view.clone(),
+                                full_proj=cam.full_proj.clone())
+    other.world_view[0, 3] += 0.01
+    other.full_proj.copy_(other.proj @ other.world_view)
+    cams = [cam if i % 2 == 0 else other for i in range(k)]
+    views, ts = [i % 2 for i in range(k)], [(i // 2) % 2 for i in range(k)]
+    return model, cfg, tile, state, cache, cams, stack_cameras(cams), views, ts
+
+
+def test_graph_chunk_matches_eager_steps(cuda_device):
+    """A chunk of 12 (3 eager warm-up steps, a capture, 9 replays), then a
+    chunk of 5 that only replays, against 17 `make_train_step` calls on the
+    same views: every state leaf and metric within 1e-5 of its largest
+    magnitude; rows 1 and 2 counted once a step."""
+    from gaussianavatars_torch.data.pipeline import gt_to_float
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_chunk
+
+    model, cfg, tile, state, cache, cams, stacked, views, ts = _chunk_case(cuda_device, 17)
+    bg = torch.zeros(3, device=cuda_device)
+    step = make_train_step(model, cfg, tile)
+    st, losses = state, []
+    for i in range(17):
+        out = step(st, gt_to_float(cache[views[i]]), cams[i], ts[i], bg, 3)
+        st = out.state
+        losses.append(out.metrics["loss"])
+    chunk = make_train_chunk(model, cfg, tile)
+    before = dict(tcp.LAUNCHES)
+    sc, m1 = chunk(state, cache, views[:12], stacked, ts[:12], bg, 3)
+    tail = dataclasses.replace(stacked, **{f: getattr(stacked, f)[12:] for f in
+                                           ("world_view", "proj", "full_proj", "camera_center")})
+    sc, m2 = chunk(sc, cache, views[12:], tail, ts[12:], bg, 3)
+    torch.cuda.synchronize()
+    assert chunk.captures == 1
+    assert tcp.LAUNCHES["composite_pairs_fwd"] - before["composite_pairs_fwd"] == 17
+    assert tcp.LAUNCHES["composite_pairs_bwd"] - before["composite_pairs_bwd"] == 17
+    got, want = flatten_state(sc), flatten_state(st)
+    for k, v in want.items():
+        err = float((got[k].double() - v.double()).abs().max())
+        assert err <= 1e-5 * max(float(v.double().abs().max()), 1e-30), k
+    loss = torch.cat([m1["loss"], m2["loss"]])
+    torch.testing.assert_close(loss, torch.stack(losses), rtol=1e-5, atol=0)
+
+
+def test_chunk_replays_make_no_host_sync(cuda_device):
+    """Once captured, a chunk's replays read nothing back: under the sync
+    debug mode "error" a chunk runs through; reading its loss then
+    synchronises (and raises)."""
+    from gaussianavatars_torch.training.trainer import make_train_chunk
+
+    model, cfg, tile, state, cache, _c, stacked, views, ts = _chunk_case(cuda_device, 8)
+    bg = torch.zeros(3, device=cuda_device)
+    chunk = make_train_chunk(model, cfg, tile)
+    st, _m = chunk(state, cache, views, stacked, ts, bg, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = chunk(st, cache, views, stacked, ts, bg, 3)
+        with pytest.raises(RuntimeError):
+            float(m["loss"][-1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert chunk.captures == 1 and bool(torch.isfinite(m["loss"]).all())
+
+
+def test_chunk_capture_error_raises(cuda_device, monkeypatch):
+    """A step that reads a device value on the host cannot be captured: the
+    chunk raises and does not fall back to eager steps."""
+    from gaussianavatars_torch.training import trainer as ttrainer
+
+    model, cfg, tile, state, cache, _c, stacked, views, ts = _chunk_case(cuda_device, 6)
+    psnr = ttrainer.psnr
+    monkeypatch.setattr(ttrainer, "psnr", lambda a, b: psnr(a, b) + float(a.sum()) * 0.0)
+    chunk = ttrainer.make_train_chunk(model, cfg, tile)
+    before = tcp.LAUNCHES["composite_pairs_bwd"]
+    with pytest.raises(RuntimeError):
+        chunk(state, cache, views, stacked, ts, torch.zeros(3, device=cuda_device), 3)
+    assert chunk.captured is None and chunk.captures == 0
+    # The three eager warm-up steps ran; nothing after the failed capture.
+    assert tcp.LAUNCHES["composite_pairs_bwd"] == before + 3

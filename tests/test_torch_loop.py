@@ -312,12 +312,11 @@ def test_train_synthetic_no_pallas_takes_the_jax_table_config():
 
 @pytest.mark.parametrize("argv,error", [
     (["--cameras", "1"], SystemExit),
-    (["--steps_per_call", "1"], SystemExit),
+    (["--steps_per_call", "0"], SystemExit),
 ])
 def test_train_synthetic_rejects_what_is_not_ported(argv, error, tmp_path):
-    """`tools/train_synthetic` refuses a lone camera before it writes
-    anything, and has no `--steps_per_call` (the port runs one step per
-    iteration)."""
+    """`tools/train_synthetic` refuses a lone camera and a chunk of no
+    steps (`--steps_per_call 0`) before it writes anything."""
     from gaussianavatars_torch.tools import train_synthetic
 
     with pytest.raises(error):
