@@ -154,10 +154,11 @@ non-zero):
                 each with its sized table; loss and Adam's first moments
                 within 1e-4), steps/s of both, kernels a step, peak memory;
                 (c) `tools.train_synthetic --no_pallas` (802×550, 4 × 4
-                views, 80 iterations) at 3/4 of the initial fullest tile:
+                views, 80 iterations, single steps: phase 20 runs its
+                chunks) at 3/4 of the initial fullest tile:
                 the capacity doubled once, the loss falling, rows 1 and 2
-                never launched; (d) `tools.stage_timings --iters 20` with
-                and without `--no_pallas`; (e) the H100's primitive rates
+                never launched; (d) `tools.stage_timings --iters 20`, and
+                `--iters 5 --no_pallas`; (e) the H100's primitive rates
                 (`utils.roofline.measure_primitive_rates`) and both
                 rooflines at the benchmark frame against the measured
                 frames/s and steps/s, every share of speed of light at most
@@ -184,8 +185,8 @@ non-zero):
                 digest equal after every step, rows 1 and 2 once a step in
                 every rank, each rank's step ms and collectives, and where
                 the backend puts the operands; (c) `tools.train --mesh 2x2`
-                on phase 12's dataset (100 iterations,
-                densify events, an eval, a save): only rank 0 printed, one
+                on phase 12's dataset (60 iterations,
+                a densify event, an eval, a save): only rank 0 printed, one
                 state digest on all ranks; (d) `tools.multiproc_check
                 --device cuda`; (e) `tools.scaling_bench` unsharded, 1×1
                 under NCCL, 1×2, 1×4 and 2×2 (the time-shared rows so
@@ -207,14 +208,40 @@ non-zero):
                 against eager steps in alternating blocks of 50, float32,
                 `use_amp` and the step-level innovations, with each one's
                 device-busy share and peak memory; (e) `train_synthetic` on
-                phase 12's dataset and recipe cut to 200 iterations (evals
-                and checkpoints at 100 and 200, an opacity reset at 150)
+                phase 12's dataset and recipe cut to 100 iterations (evals
+                and checkpoints at 50 and 100, an opacity reset at 75)
                 with `--steps_per_call 50` (its default, which phases 12, 15
                 and 16 run too) and `1`: the same events at the same
                 iterations, the logged losses at rtol 1e-4, `alive` and
                 `binding` equal, every parameter within 1e-2 of its largest
                 move; steps/s of both. `--chunks_only` runs phases 1, 2, 12
                 and 19 alone.
+ 20. frames   — frames as CUDA graphs (`utils/graphs.py`: one captured graph
+                of a frame, replayed once a call) and the table pipeline's
+                graphs: (a) `AvatarRenderer.render` at the benchmark frame,
+                300 frames with the jaw moving every frame, each returned
+                frame bit for bit its eager frame (`render_eager`), one
+                capture, row 1 once a frame, no synchronising call while 50
+                frames replay; (b) frames/s captured against eager in
+                alternating blocks of 150, each one's device-busy share and
+                peak memory; (c) both FPS tools' chains on phase 12's model
+                directory (`fps_benchmark_demo.run_chain`, the captured chain
+                the tools run) against the chain issued frame by frame: the
+                same final s and last image, frames/s a round; (d)
+                `evaluate_split` over val on phase 12's fit through one
+                `make_render_fn`, captured, eager and captured again: the
+                same metrics, one capture; (e) the table pipeline at the
+                benchmark frame with the table sized to it: a captured frame
+                (the fixed walk) against the eager planned walk, and a chunk
+                of 50 table steps against 50 eager table steps, every leaf,
+                metric and image within 1e-5 of its largest magnitude (the
+                largest difference printed), with each form's time, rate and
+                peak memory (the planned walk, the fixed walk eagerly, the
+                graph), then `train_synthetic --no_pallas` (phase 17's
+                recipe, 30 iterations) at `--steps_per_call` 50 against 1:
+                the same events, one capacity doubling, the losses at rtol
+                1e-4, steps/s of both. `--frames_only` runs phases 1, 2, 12
+                and 20 alone.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -2845,6 +2872,9 @@ CARD_CPU_SHARE = 1e-3
 TABLE_DEVICE = "cuda"
 TABLE_GRAD_REL = 1e-4    # the same file: the gradients within 1e-4 of their largest
 STAGE_ITERS = 20
+# The table run's chunk row replays the fixed walk (~1.5 s a step at the
+# benchmark table on an H100 80GB HBM3, phase 20 (e)): 5 iterations a row.
+STAGE_ITERS_TABLE = 5
 ROOFLINE_SHARE_MAX = 1.05
 TRACE_RANGES = ("train/geometry_fwd", "train/image_fwd", "train/image_bwd",
                 "train/densify_stats", "train/geometry_bwd", "train/adam")
@@ -3129,9 +3159,11 @@ def table_phase_fit(card) -> dict:
     fullest, tiles = fullest_train_tile(h0)
     capacity = 3 * fullest // 4
     del h0
+    # Single steps: phase 20 (e) runs this recipe's chunks against them.
     args = ts.parse_args([*TABLE_FIT_FLAGS, "--iterations", str(TABLE_FIT_ITERS),
                           "--capacity_per_tile", str(capacity),
-                          "--max_tiles_per_gaussian", str(tiles), "--workdir", workdir])
+                          "--max_tiles_per_gaussian", str(tiles), "--workdir", workdir,
+                          "--steps_per_call", "1"])
     harness, result = ts.run(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -3168,9 +3200,10 @@ def table_phase_stages(card) -> tuple:
     out["sorted"] = stage_timings.main(["--iters", str(STAGE_ITERS)])
     launches = cp_launches()
     reset_launches()
-    out["table"] = stage_timings.main(["--iters", str(STAGE_ITERS), "--no_pallas"])
+    out["table"] = stage_timings.main(["--iters", str(STAGE_ITERS_TABLE), "--no_pallas"])
     table_launches = cp_launches()
-    log("table/stage_timings", ms=out, iters=STAGE_ITERS, card=card["nvidia_smi"])
+    log("table/stage_timings", ms=out, iters={"sorted": STAGE_ITERS, "table": STAGE_ITERS_TABLE},
+        card=card["nvidia_smi"])
     bad = {p: k for p, rows in out.items() for k, v in rows.items()
            if not (math.isfinite(v) and v > 0)}
     if bad or len(out["sorted"]) != 9 or len(out["table"]) != 9 or any(table_launches.values()):
@@ -3381,9 +3414,9 @@ SHARDED_TIMEOUT_S = 420   # a launch's wall-clock limit
 SHARDED_RUNS = ("1x4", "1x4:gauss_shard", "2x2")
 SHARDED_YAW = 0.03        # radians: 2x2's second view, ~40 px off the first at 802x550
 SHARDED_SCALING_SIZE = ()   # scaling_bench's defaults: the benchmark avatar at 802x550
-SHARDED_CLI_ITERS = 100
+SHARDED_CLI_ITERS = 60
 SHARDED_CLI_FLAGS = ("--bind_to_mesh", "--eval", "--iterations", str(SHARDED_CLI_ITERS),
-                     "--test_iterations", "60", "--save_iterations", str(SHARDED_CLI_ITERS),
+                     "--test_iterations", "40", "--save_iterations", str(SHARDED_CLI_ITERS),
                      "--checkpoint_iterations", str(SHARDED_CLI_ITERS),
                      "--densify_from_iter", "10", "--densification_interval", "40",
                      "--densify_until_iter", str(SHARDED_CLI_ITERS),
@@ -3689,11 +3722,11 @@ N_CHUNK_BUSY = 10         # (d): steps of each profiled block (device-busy share
 CHUNK_FIT_REL = 1e-2      # (e): tests/test_torch_train.py's 3-step trajectory bound
 CHUNK_FIT_LOSS_RTOL = 1e-4
 CHUNK_FIT_DIR = os.path.join("build", "chip_smoke", "chunk_fit")
-# Phase 12's recipe cut to 200 iterations, its events moved inside: evals
-# and checkpoints at 100 and 200, an opacity reset at 150.
-CHUNK_FIT_FLAGS = (*LOOP_FLAGS[:LOOP_FLAGS.index("--iterations")], "--iterations", "200",
-                   "--log_every", "50", "--eval_every", "100", "--checkpoint_every", "100",
-                   "--opacity_reset_interval", "150")
+# Phase 12's recipe cut to 100 iterations, its events moved inside: evals
+# and checkpoints at 50 and 100, an opacity reset at 75.
+CHUNK_FIT_FLAGS = (*LOOP_FLAGS[:LOOP_FLAGS.index("--iterations")], "--iterations", "100",
+                   "--log_every", "25", "--eval_every", "50", "--checkpoint_every", "50",
+                   "--opacity_reset_interval", "75")
 
 
 def chunk_views(cam, k: int) -> tuple:
@@ -3771,8 +3804,7 @@ def chunk_vs_steps(card, model, cfg, tile_cfg, state0, cache, cam, bg, label: st
     m_e = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     leaf_rel, leaf = max_rel(flatten_state(st_c), flatten_state(st))
     metric_rel, metric = max_rel(m_c, m_e)
-    diff = max(float((a.double() - b.double()).abs().max())
-               for a, b in zip(flatten_state(st_c).values(), flatten_state(st).values()))
+    diff = max_abs(flatten_state(st_c), flatten_state(st))
     res = dict(steps=N_CHUNK, captures=chunk.captures, largest_leaf_rel=leaf_rel,
                at_leaf=leaf, largest_metric_rel=metric_rel, at_metric=metric,
                largest_abs_diff=diff, eager_launches={k: v for k, v in eager["launches"].items()
@@ -3991,6 +4023,377 @@ def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
     return launches
 
 
+N_FRAME_GRAPH = 300       # (a): frames of the captured-against-eager check, the jaw moving
+N_FRAME_SYNC = 50         # (a): replays under the sync check
+N_FRAME_BLOCK = 150       # (b): frames a block of the captured/eager alternation
+N_FRAME_BUSY = 20         # (b): frames of each profiled block (device-busy share)
+N_FPS_CHAIN = 200         # (c): frames a round of both FPS tools' chains
+N_FPS_CHAIN_ROUNDS = 2
+N_TABLE_GRAPH_FRAMES = 3  # (e): timed frames of each table form
+N_TABLE_CHUNK = 50        # (e): steps of the table chunk against eager table steps
+N_TABLE_RATE = 3          # (e): steps of the timed table blocks
+TABLE_GRAPH_REL = 1e-5    # (e): every leaf, metric and image against its largest magnitude
+# (e): the `--no_pallas` fit of phase 17 cut to 30 iterations (logs, so
+# chunk ends, at 15 and 30), at --steps_per_call 50 and 1.
+TABLE_GRAPH_FIT_ITERS = 30
+FRAMES_FIT_DIR = os.path.join("build", "chip_smoke", "frames_fit")
+
+
+def frame_poses(fl, n: int) -> list:
+    """Phase 4's poses: the jaw moving every frame, device tensors."""
+    dev = fl.jaw.device
+    return [fl._replace(jaw=torch.tensor([[0.002 * (i % 150), 0.0, 0.0]], device=dev))
+            for i in range(n)]
+
+
+def outputs_equal(a, b):
+    """(every field of two frames equal, their largest difference), on the
+    device."""
+    same = torch.ones((), dtype=torch.bool, device=a[0].device)
+    diff = torch.zeros((), dtype=torch.float64, device=a[0].device)
+    for x, y in zip(a, b):
+        same &= (x == y).all()
+        diff = torch.maximum(diff, (x.double() - y.double()).abs().max())
+    return same, diff
+
+
+def frames_serving(card, model, params, aux, fl, cam, tile_cfg) -> dict:
+    """(a) and (b): `AvatarRenderer.render` captured against its eager
+    frame, then frames/s of both in alternating blocks."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.render import AvatarRenderer
+
+    dev = cam.world_view.device
+    renderer = AvatarRenderer(model, params, aux, cam, tile_cfg, device=dev)
+    poses = frame_poses(fl, N_FRAME_GRAPH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs = [renderer.render(p) for p in poses]
+    torch.cuda.synchronize()
+    graph_launches = cp.LAUNCHES["composite_pairs_fwd"]
+    peak_graph = torch.cuda.max_memory_allocated() / 2**20
+    same = torch.ones((), dtype=torch.bool, device=dev)
+    diff = torch.zeros((), dtype=torch.float64, device=dev)
+    for p, o in zip(poses, outs):
+        s, d = outputs_equal(o, renderer.render_eager(p))
+        same &= s
+        diff = torch.maximum(diff, d)
+    moved = float((outs[0].color - outs[149].color).abs().max())
+    del outs
+    syncs = sync_count(lambda: [renderer.render(p) for p in poses[:N_FRAME_SYNC]])
+    res = dict(frames=N_FRAME_GRAPH, captures=renderer.captures, launches=graph_launches,
+               every_frame_bit_equal=bool(same), largest_abs_diff=float(diff),
+               jaw_image_max_diff=moved, syncs_in_replays=syncs, replays_synced=N_FRAME_SYNC,
+               peak_mem_mib_graph_run=peak_graph)
+    log("frames/serving_vs_eager", **res, card=card["nvidia_smi"])
+    if not (res["every_frame_bit_equal"] and renderer.captures == 1
+            and graph_launches == N_FRAME_GRAPH and syncs == 0 and moved > 0):
+        raise AssertionError(f"frames/serving_vs_eager: {res}")
+
+    # (b) frames/s in blocks: captured, eager, eager, captured.
+    secs = {"graph": [], "eager": []}
+    peak = {"graph": 0.0, "eager": 0.0}
+    calls = {"graph": renderer.render, "eager": renderer.render_eager}
+    for kind in ("graph", "eager", "eager", "graph"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(N_FRAME_BLOCK):
+            calls[kind](poses[i])
+        torch.cuda.synchronize()
+        secs[kind].append(time.perf_counter() - t0)
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**20)
+    rate = {k: N_FRAME_BLOCK * len(v) / sum(v) for k, v in secs.items()}
+    busy = {}
+    for kind, fn in calls.items():
+        ms, counts, ops = kernel_busy_ms(
+            lambda: [fn(poses[i]) for i in range(N_FRAME_BUSY)], N_FRAME_BUSY)
+        busy[kind] = dict(device_busy_ms_per_frame=ms, device_busy_share=ms * rate[kind] / 1e3,
+                          kernels_per_frame=ops, compositor_kernels_per_frame=counts)
+    res = dict(frames_per_s=rate, block_ms_per_frame={k: [1e3 * x / N_FRAME_BLOCK for x in v]
+                                                      for k, v in secs.items()},
+               speedup=rate["graph"] / rate["eager"], peak_mem_mib=peak, device=busy,
+               captures=renderer.captures)
+    log("frames/serving_rate", **res, card=card["nvidia_smi"],
+        resolution=f"{cam.width}x{cam.height}")
+    if renderer.captures != 1:
+        raise AssertionError(f"frames/serving_rate: recaptured: {res}")
+    return dict(res, launches=dict(cp.LAUNCHES))
+
+
+def eager_chain(frame, dev, n_iter: int, n_rounds: int) -> tuple:
+    """The FPS benchmarks' chain issued frame by frame from the host, timed
+    as `run_chain` times its rounds: (frames/s a round, last image, s)."""
+    fps = []
+    for _ in range(n_rounds):
+        s = torch.zeros((), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            img, s = frame(s)
+        torch.cuda.synchronize()
+        fps.append(n_iter / (time.perf_counter() - t0))
+    return fps, img, s
+
+
+def frames_fps(card) -> dict:
+    """(c): both FPS tools' chains on phase 12's model directory, captured
+    (`run_chain`, what the tools run) against the eager chain: the same
+    final s and last image, frames/s a round."""
+    from gaussianavatars_torch.models.io import checkpoint_ply_path
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.tools import fps_benchmark_dataset as fds
+    from gaussianavatars_torch.tools import fps_benchmark_demo as fdemo
+    from gaussianavatars_torch.viewers.local import AvatarViewerCore
+
+    model_dir = os.path.join(LOOP_WORKDIR, "model")
+    dev = torch.device("cuda")
+    cores = {"demo": (AvatarViewerCore(checkpoint_ply_path(model_dir), device=dev), None),
+             "dataset": fds.load(fds.parse_args(["-m", model_dir]))}
+    res, launches = {}, dict.fromkeys(cp.LAUNCHES, 0)
+    for tool, (core, cam) in cores.items():
+        frame = fdemo.frame_chain(core, cam)
+        reset_launches()
+        fps_g, img_g, s_g = fdemo.run_chain(frame, dev, N_FPS_CHAIN, N_FPS_CHAIN_ROUNDS)
+        torch.cuda.synchronize()
+        n_graph = cp.LAUNCHES["composite_pairs_fwd"]
+        with torch.inference_mode():
+            fps_e, img_e, s_e = eager_chain(frame, dev, N_FPS_CHAIN, N_FPS_CHAIN_ROUNDS)
+        for k, v in cp.LAUNCHES.items():
+            launches[k] += v
+        res[tool] = dict(frames_per_round=N_FPS_CHAIN, fps_graph=fps_g, fps_eager=fps_e,
+                         speedup=sum(fps_g) / sum(fps_e), s_graph=float(s_g), s_eager=float(s_e),
+                         image_bit_equal=bool(torch.equal(img_g, img_e)),
+                         image_max=float(img_g.max()), graph_launches=n_graph,
+                         expected_graph_launches=N_FPS_CHAIN * N_FPS_CHAIN_ROUNDS
+                         + fdemo.N_WARMUP, resolution=f"{img_g.shape[1]}x{img_g.shape[0]}")
+    log("frames/fps_tools", **res, card=card["nvidia_smi"])
+    for tool, r in res.items():
+        if not (r["s_graph"] == r["s_eager"] and r["image_bit_equal"] and r["image_max"] > 0
+                and r["graph_launches"] == r["expected_graph_launches"]):
+            raise AssertionError(f"frames/fps_tools/{tool}: {r}")
+    return launches
+
+
+def frames_eval(card, harness) -> dict:
+    """(d): `evaluate_split` over val on phase 12's fit through one
+    `make_render_fn` (captured) and through its eager frame: the same
+    metrics, one capture."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.training.trainer import active_sh_degree
+
+    cfg = harness.cfg
+    render_fn = loop.make_render_fn(harness.model, cfg, harness.live_tile_config)
+    sh = active_sh_degree(cfg.opt.iterations, cfg.model.sh_degree)
+    reset_launches()
+    n0 = harness.frame_captures
+    out, secs = {}, {}
+    for kind, fn in (("graph", render_fn), ("eager", render_fn.eager), ("graph_again", render_fn)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[kind] = loop.evaluate_split(harness, "val", fn, sh)
+        secs[kind] = time.perf_counter() - t0
+    res = dict(metrics=out, seconds=secs, captures=render_fn.captures,
+               harness_frame_captures=harness.frame_captures - n0,
+               fit_frame_captures=n0, fit_chunk_captures=harness.chunk_captures,
+               launches={k: v for k, v in cp.LAUNCHES.items() if v})
+    log("frames/eval", **res, card=card["nvidia_smi"])
+    if not (out["graph"] == out["eager"] == out["graph_again"] and render_fn.captures == 1
+            and res["harness_frame_captures"] == 1
+            and cp.LAUNCHES["composite_pairs_fwd"] == 3 * out["graph"]["n"]):
+        raise AssertionError(f"frames/eval: {res}")
+    return dict(cp.LAUNCHES)
+
+
+def max_abs(a: dict, b: dict) -> float:
+    """The largest |a - b| over the leaves."""
+    return max((float((a[k].double() - y.double()).abs().max()) for k, y in b.items()
+                if y.numel()), default=0.0)
+
+
+def timed_calls(fn, n: int, warm: bool = True) -> dict:
+    """n calls of fn (after one more when `warm`): host ms and stream ms a
+    call (CUDA events), peak memory."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return dict(host_ms=1e3 * (time.perf_counter() - t0) / n, device_ms=e0.elapsed_time(e1) / n,
+                peak_mem_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def frames_table(card, model, params, aux, fl, cam, setup) -> dict:
+    """(e): the table pipeline at the sized benchmark table: a captured
+    frame and a chunk of N_TABLE_CHUNK against eager calls, each form's
+    time and peak memory, and the `--no_pallas` fit at --steps_per_call
+    50 against 1."""
+    from gaussianavatars_torch.config import Config
+    from gaussianavatars_torch.data.pipeline import gt_to_float
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.ops.rasterize_tiled import fixed_walk
+    from gaussianavatars_torch.render import probe_tile_config
+    from gaussianavatars_torch.training import loop
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_chunk, make_train_step
+
+    cfg0, gt, bg, state0 = setup
+    tile = probe_tile_config(model, params, aux, fl, cam, table=True)
+    cfg = Config(model=cfg0.model, pipeline=dataclasses.replace(cfg0.pipeline, use_pallas=False),
+                 opt=cfg0.opt)
+    reset_launches()
+    # Frames: the planned walk (eager), the fixed walk (eager), the graph.
+    render_fn = loop.make_render_fn(model, cfg, tile)
+    frame = {}
+    with torch.no_grad():
+        planned = render_fn.eager(state0, cam, 0, bg, 3)
+        frame["eager_planned"] = timed_calls(lambda: render_fn.eager(state0, cam, 0, bg, 3),
+                                             N_TABLE_GRAPH_FRAMES)
+        with fixed_walk():
+            frame["eager_fixed"] = timed_calls(lambda: render_fn.eager(state0, cam, 0, bg, 3), 1,
+                                               warm=False)
+        render_fn(state0, cam, 0, bg, 3)   # the warm-up; the next call captures
+        t0 = time.perf_counter()
+        graphed = render_fn(state0, cam, 0, bg, 3)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        frame["graph"] = timed_calls(lambda: render_fn(state0, cam, 0, bg, 3),
+                                     N_TABLE_GRAPH_FRAMES)
+    img_rel, _k = max_rel({"img": graphed}, {"img": planned})
+    img_abs = max_abs({"img": graphed}, {"img": planned})
+    frame_res = dict(forms=frame, capture_and_first_replay_s=capture_s,
+                     image_rel_to_planned=img_rel, image_largest_abs_diff=img_abs,
+                     captures=render_fn.captures, capacity=tile.capacity,
+                     tiles_per_gaussian=tile.max_tiles_per_gaussian,
+                     frames_per_s={k: 1e3 / v["host_ms"] for k, v in frame.items()})
+    log("frames/table_frame", **frame_res, card=card["nvidia_smi"])
+    del render_fn
+
+    # Steps: a chunk (3 warm-up steps, a capture, replays; the fixed walk)
+    # against eager steps (the planned walk) on the same views.
+    cache = (torch.clamp(gt, 0.0, 1.0)[None] * 255).to(torch.uint8)
+    gt8 = gt_to_float(cache[0])
+    views, cams, stacked, ts = chunk_views(cam, N_TABLE_CHUNK)
+    step = make_train_step(model, cfg, tile)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, rows = state0, []
+    for i in range(N_TABLE_CHUNK):
+        out = step(st, gt8, cams[i], ts[i], bg, 3)
+        st, rows = out.state, rows + [out.metrics]
+    torch.cuda.synchronize()
+    eager_s, peak_eager = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**20
+    chunk = make_train_chunk(model, cfg, tile)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st_c, m_c = chunk(state0, cache, views, stacked, ts, bg, 3)
+    torch.cuda.synchronize()
+    chunk_s, peak_chunk = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**20
+    m_e = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    leaf_rel, leaf = max_rel(flatten_state(st_c), flatten_state(st))
+    leaf_abs = max_abs(flatten_state(st_c), flatten_state(st))
+    metric_rel, metric = max_rel(m_c, m_e)
+    metric_abs = max_abs(m_c, m_e)
+    del st, rows
+    # Rates, host clock and CUDA events: a chunk of replays, eager steps
+    # of the planned walk, and one eager step of the fixed walk.
+    vk, _c, sk, tk = chunk_views(cam, N_TABLE_RATE)
+    rate = {"graph": timed_calls(lambda: chunk(st_c, cache, vk, sk, tk, bg, 3), 1, warm=False),
+            "eager_planned": timed_calls(lambda: [step(state0, gt8, cams[i], ts[i], bg, 3)
+                                                  for i in range(N_TABLE_RATE)], 1)}
+    rate = {k: dict(v, host_ms=v["host_ms"] / N_TABLE_RATE, device_ms=v["device_ms"] / N_TABLE_RATE)
+            for k, v in rate.items()}
+    with fixed_walk():
+        rate["eager_fixed"] = timed_calls(lambda: step(state0, gt8, cam, 0, bg, 3), 1, warm=False)
+    step_res = dict(steps=N_TABLE_CHUNK, captures=chunk.captures, largest_leaf_rel=leaf_rel,
+                    at_leaf=leaf, leaf_largest_abs_diff=leaf_abs, largest_metric_rel=metric_rel,
+                    at_metric=metric, metric_largest_abs_diff=metric_abs,
+                    seconds={"eager_steps": eager_s, "chunk_with_capture": chunk_s},
+                    peak_mem_mib={"eager": peak_eager, "chunk": peak_chunk},
+                    per_step=rate, steps_per_s={k: 1e3 / v["host_ms"] for k, v in rate.items()},
+                    launches={k: v for k, v in cp.LAUNCHES.items() if v})
+    log("frames/table_chunk", **step_res, card=card["nvidia_smi"])
+    chunk.drop()
+    if not (img_rel <= TABLE_GRAPH_REL and leaf_rel <= TABLE_GRAPH_REL
+            and metric_rel <= TABLE_GRAPH_REL and chunk.captures == 1
+            and frame_res["captures"] == 1 and not any(cp.LAUNCHES.values())):
+        raise AssertionError(f"frames/table: {frame_res} {step_res}")
+    return dict(frame=frame_res, step=step_res, fit=frames_table_fit(card))
+
+
+def frames_table_fit(card) -> dict:
+    """(e): `train_synthetic --no_pallas` (phase 17's recipe, 30
+    iterations) at --steps_per_call 50 and 1: the same events, the capacity
+    doubled once, the logged losses within rtol 1e-4; steps/s of both."""
+    from gaussianavatars_torch.tools import train_synthetic as ts
+
+    shutil.rmtree(FRAMES_FIT_DIR, ignore_errors=True)
+    h0, _r0 = ts.run(ts.parse_args([*TABLE_FIT_FLAGS, "--iterations", "0",
+                                    "--workdir", FRAMES_FIT_DIR]))
+    fullest, tiles = fullest_train_tile(h0)
+    del h0
+    runs = {}
+    for spc in (50, 1):
+        reset_launches()
+        args = ts.parse_args([*TABLE_FIT_FLAGS, "--iterations", str(TABLE_GRAPH_FIT_ITERS),
+                              "--capacity_per_tile", str(3 * fullest // 4),
+                              "--max_tiles_per_gaussian", str(tiles),
+                              "--workdir", FRAMES_FIT_DIR, "--steps_per_call", str(spc)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        harness, result = ts.run(args)
+        runs[spc] = dict(
+            events=[(e["kind"], e["iteration"]) for e in harness.events
+                    if e["kind"] not in ("gt_cache",)],
+            loss=[r["loss"] for r in result["logs"]],
+            capacity_final=harness.live_tile_config.capacity,
+            steps_per_s=args.iterations / result["train_s"],
+            captures=harness.chunk_captures, peak_mem_mib=torch.cuda.max_memory_allocated() / 2**20,
+            launches={k: v for k, v in cp_launches().items() if v})
+        del harness
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs[50]["loss"], runs[1]["loss"]))
+    res = dict(iterations=TABLE_GRAPH_FIT_ITERS, runs=runs, loss_rel_max=loss_rel,
+               events_equal=runs[50]["events"] == runs[1]["events"],
+               speedup=runs[50]["steps_per_s"] / runs[1]["steps_per_s"])
+    log("frames/table_fit", **res, card=card["nvidia_smi"])
+    grows = [e for e in runs[50]["events"] if e[0] == "grow_table"]
+    if not (res["events_equal"] and loss_rel <= CHUNK_FIT_LOSS_RTOL and len(grows) == 1
+            and runs[50]["captures"] >= 1 and not runs[50]["launches"]):
+        raise AssertionError(f"frames/table_fit: {res}")
+    return res
+
+
+def phase_frames(card, model, params, aux, fl, cam, tile_cfg, setup, harness) -> dict:
+    """Phase 20. Returns row 1's launches on its paths."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    launches = dict.fromkeys(cp.LAUNCHES, 0)
+
+    def add(run):
+        for k, v in run.items():
+            launches[k] += v
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        add(frames_serving(card, model, params, aux, fl, cam, tile_cfg)["launches"])
+        add(frames_fps(card))
+        add(frames_eval(card, harness))
+    torch.set_grad_enabled(True)
+    table = frames_table(card, model, params, aux, fl, cam, setup)
+    log("frames/seconds", seconds=time.perf_counter() - t0,
+        table_fit_steps_per_s={k: v["steps_per_s"] for k, v in table["fit"]["runs"].items()})
+    return launches
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -4006,6 +4409,9 @@ def parse_args(argv=None):
     ap.add_argument("--chunks_only", action="store_true",
                     help="phases 1, 2, 12 and 19 alone: the chunks of training steps as "
                          "CUDA graphs")
+    ap.add_argument("--frames_only", action="store_true",
+                    help="phases 1, 2, 12 and 20 alone: the frames as CUDA graphs and the "
+                         "table pipeline's graphs")
     return ap.parse_args(argv)
 
 
@@ -4050,6 +4456,24 @@ def chunks_only(card) -> int:
     return 0
 
 
+def frames_only(card) -> int:
+    """`--frames_only`: phase 12 (the fit that (c) and (d) read) and phase
+    20 on the benchmark scene, then the last line."""
+    from gaussianavatars_torch.render import build_scene, probe_tile_config
+
+    dev = torch.device("cuda")
+    model, params, aux, fl, cam, _n = build_scene(device=dev)
+    tile_cfg = probe_tile_config(model, params, aux, fl, cam)
+    setup = train_setup(dev, model, params, aux, fl, cam, tile_cfg)
+    harness = phase_loop(card)["harness"]
+    launches = phase_frames(card, model, params, aux, fl, cam, tile_cfg, setup, harness)
+    log("frames/launches", **{k: v for k, v in launches.items() if v})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     args = parse_args(argv)
@@ -4078,6 +4502,8 @@ def main(argv=None) -> int:
         return sharded_only(card)
     if args.chunks_only:
         return chunks_only(card)
+    if args.frames_only:
+        return frames_only(card)
     against = build_against(args.against) if args.against else []
     torch.set_grad_enabled(False)
 
@@ -4290,7 +4716,6 @@ def main(argv=None) -> int:
                        poses=poses, plan_counts=plan0.counts)
     table_launches = phase_table(card, table_scene, setup, harness, N_FRAMES / wall_s,
                                  train["steps_per_s"])
-    del harness
 
     # --- 18. multi-device training over a rank mesh ---------------------------
     torch.set_grad_enabled(True)
@@ -4301,17 +4726,22 @@ def main(argv=None) -> int:
     chunk_launches = phase_chunks(card, model, params, aux, cam, cfg, setup)
     log("chunks/seconds", seconds=time.perf_counter() - t0)
 
+    # --- 20. frames as CUDA graphs, the table pipeline's graphs -----------------
+    frame_launches = phase_frames(card, model, params, aux, fl, cam, cfg, setup, harness)
+    del harness
+
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training, the loop, the replay, the
     # innovations' loop and step, the CLI, phase 17's sorted paths
     # (the serving and step comparisons, the stage timings, the profiled
     # steps, the two viewer tools), phase 18's (the 1x1 step in this
-    # process and the four ranks' bands) and phase 19's (chunks and eager
-    # steps, float32, amp and the innovations).
+    # process and the four ranks' bands), phase 19's (chunks and eager
+    # steps, float32, amp and the innovations) and phase 20's (captured and
+    # eager frames of serving, both FPS tools and eval).
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
                 loop_res["launches"], replay_launches, innov_loop["launches"],
                 innov_step["launches"], cli_launches, table_launches, sharded_launches,
-                chunk_launches):
+                chunk_launches, frame_launches):
         for e, k in run.items():
             path_launches[e] += k
     numbers = dict(var_timing)

@@ -26,8 +26,10 @@ with the viewer server of `viewers.network_gui` and the debug hooks of
 training server (`tools.local_viewer`, `tools.remote_viewer`) and the FPS
 benchmarks; the table pipeline (`use_pallas=False`: the padded-table
 binning and compositor of `ops.rasterize_tiled`) through the render, the
-step, the loop and the tools; and the profiling tools
-(`utils.profiling`, `utils.roofline`, `tools.stage_timings`).
+step, the loop and the tools; the profiling tools
+(`utils.profiling`, `utils.roofline`, `tools.stage_timings`); and on the
+card, chunks of training steps and rendered frames as CUDA graphs, one
+captured graph replayed once a step or a frame (`utils.graphs`).
 """
 
 __version__ = "0.1.0"

@@ -17,13 +17,23 @@ them (`sorted_data = use_pallas and compositor is None`):
     kept. It is plain PyTorch: the JAX version is a `lax.scan` of one slot
     a step over every tile, not a Pallas kernel.
 
-The table path gathers and composites the first min(max(counts),
-capacity) slots only (one host read a render): the slots past the fullest
-tile are empty and change neither the outputs nor the gradients.
+The table path has two forms that compute the same bits. Eager calls take
+the planned walk: `rasterize_binned` gathers and composites the first
+min(max(counts), capacity) slots only, and `composite_tiles` orders the
+tiles by their live slots and skips, pass by pass, the tiles with nothing
+left to composite (host reads of the counts and of which tiles remain).
+Work captured in a CUDA graph, and work inside `fixed_walk()`, takes the
+fixed walk, which reads nothing on the host: all `capacity` slots are
+gathered, and every pass covers every tile, the masks of the planned walk
+deciding on the device what a tile adds. A pass with nothing to add for
+a tile multiplies its transmittance by exactly 1 and adds exactly 0, so
+both forms give the same outputs and gradients.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -194,18 +204,40 @@ def _pixels(tile_origin, cfg):
     return tile_origin[:, 0:1] + px0[None, :], tile_origin[:, 1:2] + py0[None, :]
 
 
-# Slots composited a pass: each pass works on [active tiles, SLOT_CHUNK,
+# Slots composited a pass: each pass works on [tiles, SLOT_CHUNK,
 # pixels] blocks, so a frame takes ~35 launches a pass forward and ~80
 # backward where one slot a step took ~35 forward and ~45 backward a slot.
 SLOT_CHUNK = 32
 
+_FORM = threading.local()
+
+
+@contextlib.contextmanager
+def fixed_walk():
+    """Within the block (in this thread), the table pipeline takes its
+    fixed walk, which reads nothing on the host, the form a CUDA graph
+    captures: for tests and measurements of that form outside a graph."""
+    before = getattr(_FORM, "fixed", False)
+    _FORM.fixed = True
+    try:
+        yield
+    finally:
+        _FORM.fixed = before
+
+
+def host_read_free(x: torch.Tensor) -> bool:
+    """Whether the table pipeline takes its fixed walk for `x`: inside
+    `fixed_walk()`, or while `x`'s device captures a CUDA graph."""
+    return getattr(_FORM, "fixed", False) or (
+        x.is_cuda and torch.cuda.is_current_stream_capturing())
+
 
 class _Plan(NamedTuple):
-    order: torch.Tensor    # [NT] tiles by live slots, most first
-    chunks: tuple          # (first slot, active tiles) a pass
+    order: Optional[torch.Tensor]   # [NT] tiles by live slots, most first; None: as given
+    chunks: tuple          # (first slot, tiles of the walk's order it covers) a pass
     slots: int             # C, the slots given
     chunk: int             # slots a pass
-    length: torch.Tensor   # [NT] live slots a tile, in that order, on the host
+    length: Optional[torch.Tensor]  # [NT] live slots a tile, in that order, on the host
 
 
 def _plan(g_opac, chunk: int) -> _Plan:
@@ -226,6 +258,13 @@ def _plan(g_opac, chunk: int) -> _Plan:
     return _Plan(order=order, chunks=tuple(chunks), slots=c, chunk=chunk, length=sorted_len)
 
 
+def _fixed_plan(g_opac, chunk: int) -> _Plan:
+    """The fixed walk: every pass over every tile, in the given order."""
+    nt, c = g_opac.shape
+    return _Plan(order=None, chunks=tuple((s0, nt) for s0 in range(0, c, chunk)), slots=c,
+                 chunk=chunk, length=None)
+
+
 def _by_plan(plan: _Plan, *xs):
     """Each [NT, C, ...] tensor in the plan's tile order, its slot axis
     padded with zeros (empty slots) to a multiple of the pass length."""
@@ -233,7 +272,8 @@ def _by_plan(plan: _Plan, *xs):
     pad = (-c) % plan.chunk
     out = []
     for x in xs:
-        x = x[plan.order]
+        if plan.order is not None:
+            x = x[plan.order]
         if pad:
             x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
         out.append(x)
@@ -250,6 +290,8 @@ def _rows(keep: torch.Tensor, n: int):
 
 
 def _unorder(plan: _Plan, x):
+    if plan.order is None:
+        return x
     out = torch.empty_like(x)
     out[plan.order] = x
     return out
@@ -262,9 +304,11 @@ def _composite_fwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac, cfg, pl
     first, as the JAX scan multiplies); the first slot whose product falls
     below T_EPS stops the pixel, as the scan's trigger does. A tile whose
     pixels have all stopped leaves the later passes (one host read a pass),
-    where the JAX scan walks on with nothing left to add. Returns (acc,
-    t_final, stop) in the plan's tile order."""
-    px, py = _pixels(tile_origin[plan.order], cfg)
+    where the JAX scan walks on with nothing left to add; the fixed walk
+    (`plan.order` None) covers every tile in every pass, as the JAX scan
+    does. Returns (acc, t_final, stop) in the plan's tile order."""
+    fixed = plan.order is None
+    px, py = _pixels(tile_origin if fixed else tile_origin[plan.order], cfg)
     t = torch.ones_like(px)
     stop = torch.full(px.shape, plan.slots, dtype=torch.int32, device=px.device)
     acc = torch.zeros(px.shape + (3,), dtype=px.dtype, device=px.device)
@@ -273,7 +317,7 @@ def _composite_fwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac, cfg, pl
     slot = torch.arange(chunk, device=px.device)[None, :, None]
     done = torch.zeros(px.shape[0], dtype=torch.bool, device=px.device)
     for s0, n in plan.chunks:
-        r = _rows(~done[:n], n)
+        r = slice(0, n) if fixed else _rows(~done[:n], n)
         if r is None:       # the later passes' tiles are among these
             break
         sl = slice(s0, s0 + chunk)
@@ -292,7 +336,8 @@ def _composite_fwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac, cfg, pl
         t[r] = torch.where(running, tt.gather(1, first[:, None].long())[:, 0], t_r)
         stop_r = torch.where(running & hit, s0 + first, stop_r).to(stop.dtype)
         stop[r] = stop_r
-        done[r] = (stop_r < plan.slots).all(1)
+        if not fixed:
+            done[r] = (stop_r < plan.slots).all(1)
     return acc, t, stop
 
 
@@ -306,9 +351,11 @@ def _composite_bwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac, t_final
     passes' part) and summed within the pass (an exclusive reverse sum of
     w_j · (g_acc · c_j)): [n, S, P] planes, no [n, S, P, 3] ones. A pass
     skips the tiles whose pixels all stopped before it (no slot there
-    composites). t_final, stop, g_acc, g_t: in the plan's tile order.
-    Returns the four slot gradients in the caller's order."""
-    px, py = _pixels(tile_origin[plan.order], cfg)
+    composites); the fixed walk covers every tile in every pass. t_final,
+    stop, g_acc, g_t: in the plan's tile order. Returns the four slot
+    gradients in the caller's order."""
+    fixed = plan.order is None
+    px, py = _pixels(tile_origin if fixed else tile_origin[plan.order], cfg)
     mean2d, conic, color, opac = _by_plan(plan, g_mean2d, g_conic, g_color, g_opac)
     chunk = plan.chunk
     nt, cp = opac.shape
@@ -320,10 +367,11 @@ def _composite_bwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac, t_final
     g_suffix = torch.zeros_like(t_final)    # g_acc · Σ over later passes of c_j α_j T_j
     ga = [g_acc[..., k][:, None] for k in range(3)]     # [NT, 1, P] a channel
     slot = torch.arange(chunk, device=px.device)[None, :, None]
-    # Slots that can composite a tile: its live ones before its last stop.
-    reach = torch.minimum(plan.length, stop.max(1).values.cpu())
+    if not fixed:
+        # Slots that can composite a tile: its live ones before its last stop.
+        reach = torch.minimum(plan.length, stop.max(1).values.cpu())
     for s0, n in reversed(plan.chunks):
-        r = _rows(reach[:n] > s0, n)
+        r = slice(0, n) if fixed else _rows(reach[:n] > s0, n)
         if r is None:
             continue
         if isinstance(r, torch.Tensor):
@@ -370,7 +418,7 @@ def _composite_bwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac, t_final
 class _CompositeTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tile_origin, g_mean2d, g_conic, g_color, g_opac, cfg):
-        plan = _plan(g_opac, SLOT_CHUNK)
+        plan = (_fixed_plan if host_read_free(g_opac) else _plan)(g_opac, SLOT_CHUNK)
         acc, t_final, stop = _composite_fwd_scan(
             tile_origin, g_mean2d, g_conic, g_color, g_opac, cfg, plan)
         ctx.cfg, ctx.plan = cfg, plan
@@ -381,8 +429,10 @@ class _CompositeTiles(torch.autograd.Function):
     def backward(ctx, g_acc, g_t):
         tile_origin, g_mean2d, g_conic, g_color, g_opac, t_final, stop = ctx.saved_tensors
         order = ctx.plan.order
+        if order is not None:
+            g_acc, g_t = g_acc[order], g_t[order]
         grads = _composite_bwd_scan(tile_origin, g_mean2d, g_conic, g_color, g_opac,
-                                    t_final, stop, g_acc[order], g_t[order], ctx.cfg, ctx.plan)
+                                    t_final, stop, g_acc, g_t, ctx.cfg, ctx.plan)
         return (None, *grads, None)
 
 
@@ -395,32 +445,47 @@ def composite_tiles(tile_origin, g_mean2d, g_conic, g_color, g_opac, cfg: TileCo
     P = tile_h × tile_w. Differentiable in the four slot tensors (the JAX
     package's custom VJP, which keeps nothing of size C × P). The JAX
     version scans one slot at a time over every tile; this one passes
-    SLOT_CHUNK slots at a time over the tiles with a live slot there (the
-    same function, summed in another order).
+    SLOT_CHUNK slots at a time (the same function, summed in another
+    order): over the tiles with a live slot there, or in the fixed walk
+    (`host_read_free`) over every tile, with the same bits.
     """
     return _CompositeTiles.apply(tile_origin.detach(), g_mean2d, g_conic, g_color, g_opac, cfg)
 
 
+def _gather_slots(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The slots' rows [NT, K, 9] of `packed` [N, 9], `idx` [NT, K] (-1:
+    empty), by one gather from the table padded with K zero rows: an
+    empty slot at position j reads row N + j. So empty slots hold zeros,
+    and the gather's backward adds their (zero) gradients into the spare
+    rows, spread over the slot position, which the table's slice then
+    drops. Routing every empty slot to one row made the card serialise
+    millions of additions into it (0.7 s of a 0.78 s step at the benchmark
+    frame on an H100 80GB HBM3)."""
+    n, k = packed.shape[0], idx.shape[1]
+    spare = torch.arange(n, n + k, dtype=torch.int64, device=idx.device)
+    route = torch.where(idx >= 0, idx.to(torch.int64), spare)
+    return torch.cat([packed, packed.new_zeros((k, packed.shape[1]))])[route]
+
+
 def rasterize_binned(proj_mean2d, proj_conic, colors, opacity, binned: Binned, height: int,
                      width: int, bg_color, cfg: TileConfig, compositor=composite_tiles):
-    """Gather each tile's slot data with ONE packed [N, 9] row gather of the
-    binned slots and composite. Differentiable in the screen-space inputs.
-    Only the first min(max(counts), capacity) slots are gathered and
-    composited. Returns (color [H, W, 3], alpha [H, W]).
+    """Gather each tile's slot data with ONE packed [N, 9] row gather
+    (`_gather_slots`) and composite. Differentiable in the screen-space
+    inputs. The planned walk gathers and composites the first
+    min(max(counts), capacity) slots (one host read); the fixed walk
+    (`host_read_free`) all of them. Returns (color [H, W, 3], alpha
+    [H, W]).
 
     An empty slot holds zeros (opacity 0), where the JAX package gathers
     Gaussian 0's row and multiplies its opacity by the slot's validity:
     the same image and gradients (an empty slot composites nothing), but
-    the gather's backward then adds only the binned slots into their
-    Gaussians. Routing every empty slot to Gaussian 0 made the card
-    serialise millions of additions into one row (0.7 s of a 0.78 s step
-    at the benchmark frame).
+    no empty slot's gradient reaches a Gaussian.
     """
-    k = min(int(binned.counts.max()), cfg.capacity) if binned.counts.numel() else 0
-    idx = binned.idx[:, :k].detach()
-    valid = (idx >= 0).nonzero(as_tuple=True)
+    idx = binned.idx.detach()
+    if not host_read_free(idx):
+        idx = idx[:, :min(int(binned.counts.max()), cfg.capacity) if binned.counts.numel() else 0]
     packed = torch.cat([proj_mean2d, proj_conic, colors, opacity[:, None]], dim=-1)  # [N, 9]
-    g = packed.new_zeros(idx.shape + (9,)).index_put(valid, packed[idx[valid].long()])
+    g = _gather_slots(packed, idx)
     acc, t_final = compositor(binned.tile_origin.detach(), g[..., 0:2], g[..., 2:5],
                               g[..., 5:8], g[..., 8], cfg)
     out = acc + t_final[..., None] * bg_color[None, None, :]

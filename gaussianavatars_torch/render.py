@@ -3,7 +3,7 @@
 `AvatarRenderer.render(flame_params)` runs the whole forward path of one
 frame: the FLAME forward, the per-face binding frames, the world-space
 Gaussians, projection + SH colours, the sorted-data binning and the pair
-compositor kernel. `build_scene` builds the synthetic trained-avatar scene
+compositor kernel; on the card as one captured CUDA graph a frame. `build_scene` builds the synthetic trained-avatar scene
 of the JAX package's benchmark (`bench.build_scene`): 9 Gaussians per FLAME
 face with splats hugging their triangles, sub-triangle scales and high
 opacity, seen at 802×550.
@@ -26,6 +26,7 @@ from .ops.projection import project_from_params
 from .ops.rasterize_dense import RenderOutput
 from .ops.rasterize_tiled import TileConfig, bin_gaussians, render_tiled
 from .ops.sort_binning import bbox_tiles, probe_tiers
+from .utils.graphs import FrameGraph
 
 WIDTH, HEIGHT = 802, 550
 CAPACITY_ALIGN = 8192  # padded Gaussian capacity multiple of the bench scene
@@ -118,7 +119,13 @@ class AvatarRenderer:
     """Renders a FLAME-bound Gaussian avatar from one camera.
 
     Every `render` call runs the FLAME update for the given parameters, so
-    an animated sequence is one call per frame.
+    an animated sequence is one call per frame. On the card a call replays
+    one captured CUDA graph of the frame (`utils/graphs.FrameGraph`, keyed
+    by the FLAME parameters' shapes and dtypes): the parameters are copied
+    into its buffers (a device copy, or a pinned copy from the host), the
+    graph replays, and the call returns fresh `RenderOutput` tensors. The
+    first call with a key is its eager warm-up and the second captures.
+    `render_eager` is the plain frame, op by op, which the CPU runs.
     """
 
     def __init__(self, model: FlameModel, params: GaussianParams, aux: GaussianAux,
@@ -134,9 +141,14 @@ class AvatarRenderer:
         if bg_color is None:
             bg_color = torch.zeros(3)
         self.bg_color = bg_color.to(self.device, torch.float32)
+        self.graph = FrameGraph(self._frame, self.device)
+
+    @property
+    def captures(self) -> int:
+        return self.graph.captures
 
     @torch.inference_mode()
-    def render(self, flame_params: FlameParams) -> RenderOutput:
+    def render_eager(self, flame_params: FlameParams) -> RenderOutput:
         fp = FlameParams(*(None if x is None else x.to(self.device) for x in flame_params))
         verts = self.model(fp)
         wg = world_gaussians(self.params, self.aux, face_frames(verts[0], self.model.faces))
@@ -144,3 +156,14 @@ class AvatarRenderer:
             wg.means, wg.scales, wg.quats, wg.opacity, self.camera, self.bg_color,
             sh=wg.sh, sh_degree=self.sh_degree, alive=wg.alive, cfg=self.tile_cfg,
         )
+
+    def _frame(self, buffers: dict) -> RenderOutput:
+        return self.render_eager(FlameParams(**{f: buffers.get(f) for f in FlameParams._fields}))
+
+    @torch.inference_mode()
+    def render(self, flame_params: FlameParams) -> RenderOutput:
+        if self.device.type != "cuda":
+            return self.render_eager(flame_params)
+        inputs = {f: x for f, x in zip(FlameParams._fields, flame_params) if x is not None}
+        key = tuple((f, tuple(x.shape), x.dtype) for f, x in inputs.items())
+        return self.graph(key, inputs)

@@ -4,8 +4,10 @@
 The port of the JAX package's `scripts/fps_benchmark_dataset.py`, with
 `--device`: loads the trained model directory and its dataset, and renders
 the first camera of `--split` (the training split when that one is empty)
-`n_iter` × `n_rounds` times with the FLAME mesh updated every frame, timed
-as `fps_benchmark_demo.run_benchmark` times its frames. The tier budgets
+`n_iter` × `n_rounds` times with the FLAME mesh updated every frame, as
+`fps_benchmark_demo.run_benchmark` chains and times its frames: on the
+card one captured CUDA graph of the chained frame, replayed `n_iter` times
+a round, where the JAX script runs a jitted `fori_loop`. The tier budgets
 are probed from that camera's view (the JAX script keeps the defaults).
 
     python -m gaussianavatars_torch.tools.fps_benchmark_dataset -m MODEL_DIR \\
@@ -34,9 +36,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> list:
-    """Frames per second of each round."""
-    a = parse_args(argv)
+def load(a) -> tuple:
+    """(the viewer core of the model directory's checkpoint, the camera
+    the benchmark renders from), its tier budgets probed from that view."""
     with open(os.path.join(a.model_path, "cfg_args.json")) as f:
         cfg = from_json(f.read())
     core = AvatarViewerCore(checkpoint_ply_path(a.model_path, a.iteration), device=a.device)
@@ -47,6 +49,13 @@ def main(argv=None) -> list:
     )
     cam = (scene.cameras(a.split) or scene.cameras("train"))[0]
     core.probe_tiles(cam)
+    return core, cam
+
+
+def main(argv=None) -> list:
+    """Frames per second of each round."""
+    a = parse_args(argv)
+    core, cam = load(a)
     print(f"{core.num_points} Gaussians; view {cam.width}x{cam.height}")
     fps = run_benchmark(core, a.n_iter, a.n_rounds, camera=cam)
     for rd, f in enumerate(fps):

@@ -173,6 +173,7 @@ def main(argv=None) -> dict:
         print("[warn] --render_mesh ignored: model has no FLAME binding")
 
     stats = {}
+    render_fns = {}
     for split, skip in (("train", a.skip_train), ("val", a.skip_val), ("test", a.skip_test)):
         if skip or not scene.cameras(split):
             continue
@@ -187,8 +188,10 @@ def main(argv=None) -> dict:
         t_split = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
             for i in range(n):
-                render_fn = make_render_fn(model, cfg, view_tile_config(tcfg, model, state,
-                                                                        cams[i]))
+                # One render fn (one CUDA graph on the card) a tile config.
+                vt = view_tile_config(tcfg, model, state, cams[i])
+                render_fn = render_fns.get(vt) or render_fns.setdefault(
+                    vt, make_render_fn(model, cfg, vt))
                 t0 = time.perf_counter()
                 img = render_fn(state, cams[i], cams[i].timestep, bg,
                                 cfg.model.sh_degree).cpu().numpy()

@@ -69,12 +69,13 @@ from ..ops.sort_binning import grow_tiers
 from ..render import probe_tile_config
 from ..utils.debug import assert_finite
 from ..utils.image import error_map
-from .checkpoint import flatten_state, load_train_state, save_train_state
+from ..utils.graphs import FrameGraph
+from .checkpoint import _rebuild, flatten_state, load_train_state, save_train_state
 from .innovations import color_net_apply, resolution_scale_at, smart_thresholds
 from .loss import psnr as psnr_fn, ssim as ssim_fn
 from .trainer import (
-    TrainState, active_sh_degree, init_train_state, make_train_chunk, make_train_step,
-    stack_cameras,
+    CAMERA_TENSORS, TrainState, _at, active_sh_degree, init_train_state, make_train_chunk,
+    make_train_step, stack_cameras,
 )
 
 
@@ -152,8 +153,10 @@ class TrainerHarness:
     events: List[dict] = dataclasses.field(default_factory=list)
     # Training steps taken at each image size (height, width): host counts.
     steps_by_size: Dict[tuple, int] = dataclasses.field(default_factory=dict)
-    # CUDA graphs captured by the loop's chunks (`trainer.TrainChunk`).
+    # CUDA graphs captured by the loop's chunks (`trainer.TrainChunk`) and
+    # by the eval renders (`RenderFn`, counted by `evaluate_split`).
     chunk_captures: int = 0
+    frame_captures: int = 0
 
 
 def image_scales(cfg: Config) -> tuple:
@@ -238,12 +241,15 @@ def build_harness(
                           start_iteration=start_iteration)
 
 
-def _flame_params(state: TrainState, t: int) -> FlameParams:
+def _flame_params(state: TrainState, t) -> FlameParams:
+    """The FLAME parameters of timestep `t`: an int, or a 0-dim integer
+    tensor on the state's device (selected with `index_select`, which
+    reads nothing on the host; the same values)."""
+    f = state.flame
     return FlameParams(
         shape=state.flame_static.shape,
-        expr=state.flame.expr[t][None], rotation=state.flame.rotation[t][None],
-        neck=state.flame.neck[t][None], jaw=state.flame.jaw[t][None],
-        eyes=state.flame.eyes[t][None], translation=state.flame.translation[t][None],
+        expr=_at(f.expr, t), rotation=_at(f.rotation, t), neck=_at(f.neck, t),
+        jaw=_at(f.jaw, t), eyes=_at(f.eyes, t), translation=_at(f.translation, t),
         static_offset=state.flame_static.static_offset,
     )
 
@@ -266,32 +272,95 @@ def probe_tier_budgets(tcfg: TileConfig, cfg: Config, model: Optional[FlameModel
     return dataclasses.replace(tcfg, base_budget=probed.base_budget, tiers=probed.tiers)
 
 
-def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
-    """Full-forward render for eval and offline use: render(state, camera,
-    timestep, bg, sh_degree) → image [H, W, 3]. `model=None` renders the
-    stored Gaussians as they are (an unbound point cloud; `timestep` is
-    ignored). A state with a colour net gets the calibrated image, as in
-    the JAX package; a render-only state (`tools/render`) has none. The
-    pipeline is chosen by `cfg.pipeline.use_pallas` alone, as in the JAX
-    package: with `use_sorted=False` and `use_pallas=True` the step runs
-    the table path and this render the sorted one."""
+def _render_view(state: TrainState) -> TrainState:
+    """The state without the leaves a render does not read (the Adam
+    moments, the contrastive cache, the generator)."""
+    return dataclasses.replace(state, adam=None, flame_adam=None, color_adam=None,
+                               contrastive=None, generator=None)
+
+
+class RenderFn:
+    """Full-forward render for eval and offline use (`make_render_fn`):
+    render(state, camera, timestep, bg, sh_degree) → image [H, W, 3].
+
+    On the card a call replays one captured CUDA graph of the frame
+    (`utils/graphs.FrameGraph`), the counterpart of the JAX package's
+    `jax.jit(render)`: the first call with a key renders eagerly (its
+    warm-up), the second captures. The key is the image size, the fovs,
+    `sh_degree`, the tile config and the shapes and dtypes of the state's
+    leaves that a render reads (a colour net's included), so a model
+    whose shapes change recaptures once. The camera tensors, `bg`, the
+    timestep and those leaves are copied into the graph's buffers at every
+    call (a state's leaves may be another graph's buffers, which that
+    graph rewrites in place); the timestep selects its FLAME row on the
+    device. Each call returns a fresh image. `captures` counts the graphs
+    captured. On the CPU every call is the eager frame (`eager`)."""
+
+    def __init__(self, model: Optional[FlameModel], cfg: Config, tcfg: TileConfig):
+        self.model, self.tcfg, self.use_pallas = model, tcfg, cfg.pipeline.use_pallas
+        self.graph: Optional[FrameGraph] = None
+        self._template = None
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.graph is None else self.graph.captures
 
     @torch.no_grad()
-    def render(state: TrainState, camera: Camera, timestep: int, bg: torch.Tensor,
-               sh_degree: int) -> torch.Tensor:
+    def eager(self, state: TrainState, camera: Camera, timestep, bg: torch.Tensor,
+              sh_degree: int) -> torch.Tensor:
+        """The frame, op by op. `timestep`: an int or a 0-dim integer
+        tensor on the state's device (the same image)."""
         frames = None
-        if model is not None:
-            verts = model(_flame_params(state, int(timestep)))
-            frames = face_frames(verts[0], model.faces)
+        if self.model is not None:
+            t = timestep if isinstance(timestep, torch.Tensor) else int(timestep)
+            verts = self.model(_flame_params(state, t))
+            frames = face_frames(verts[0], self.model.faces)
         wg = world_gaussians(state.params, state.aux, frames)
         img = render_tiled(wg.means, wg.scales, wg.quats, wg.opacity, camera, bg,
-                           sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=tcfg,
-                           use_pallas=cfg.pipeline.use_pallas).color
+                           sh=wg.sh, sh_degree=sh_degree, alive=wg.alive, cfg=self.tcfg,
+                           use_pallas=self.use_pallas).color
         if state.color_net is not None:
             img = color_net_apply(state.color_net, img)
         return img
 
-    return render
+    def _frame(self, buffers: dict) -> torch.Tensor:
+        view, camera, sh_degree = self._template
+        state = _rebuild(view, "", {n[len("state/"):]: b for n, b in buffers.items()
+                                    if n.startswith("state/")})
+        cam = dataclasses.replace(camera, **{f: buffers["camera/" + f] for f in CAMERA_TENSORS})
+        return self.eager(state, cam, buffers.get("timestep"), buffers["bg"], sh_degree)
+
+    @torch.no_grad()
+    def __call__(self, state: TrainState, camera: Camera, timestep, bg: torch.Tensor,
+                 sh_degree: int) -> torch.Tensor:
+        dev = state.params.means.device
+        if dev.type != "cuda":
+            return self.eager(state, camera, timestep, bg, sh_degree)
+        view = _render_view(state)
+        leaves = flatten_state(view)
+        key = (camera.height, camera.width, camera.fovx, camera.fovy, int(sh_degree), self.tcfg,
+               tuple((n, tuple(x.shape), x.dtype) for n, x in leaves.items()))
+        inputs = {**{"state/" + n: x for n, x in leaves.items()},
+                  **{"camera/" + f: getattr(camera, f) for f in CAMERA_TENSORS}, "bg": bg}
+        if self.model is not None:
+            inputs["timestep"] = timestep if isinstance(timestep, torch.Tensor) else int(timestep)
+        if self.graph is None:
+            self.graph = FrameGraph(self._frame, dev)
+        self._template = (view, camera, int(sh_degree))
+        return self.graph(key, inputs)
+
+
+def make_render_fn(model: Optional[FlameModel], cfg: Config, tcfg: TileConfig) -> RenderFn:
+    """Full-forward render for eval and offline use: render(state, camera,
+    timestep, bg, sh_degree) → image [H, W, 3], one captured CUDA graph a
+    frame on the card (`RenderFn`). `model=None` renders the stored
+    Gaussians as they are (an unbound point cloud; `timestep` is ignored).
+    A state with a colour net gets the calibrated image, as in the JAX
+    package; a render-only state (`tools/render`) has none. The pipeline
+    is chosen by `cfg.pipeline.use_pallas` alone, as in the JAX package:
+    with `use_sorted=False` and `use_pallas=True` the step runs the table
+    path and this render the sorted one."""
+    return RenderFn(model, cfg, tcfg)
 
 
 def _background(cfg: Config, device) -> torch.Tensor:
@@ -324,6 +393,7 @@ def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: in
         bg = _background(cfg, dev)
     n = len(cams) if max_views is None else min(max_views, len(cams))
     lp = _eval_lpips_params(str(dev))
+    captures = getattr(render_fn, "captures", 0)
     psnrs, ssims, lpipss = [], [], []
     first_pair = None
     for i in range(n):
@@ -336,6 +406,7 @@ def evaluate_split(harness: TrainerHarness, split: str, render_fn, sh_degree: in
         ssims.append(float(ssim_fn(img.permute(2, 0, 1), gt.permute(2, 0, 1))))
         if lp is not None:
             lpipss.append(float(lpips_fn(lp, img, gt)))
+    harness.frame_captures += getattr(render_fn, "captures", 0) - captures
     m = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)), "n": n}
     if lpipss:
         m["lpips"] = float(np.mean(lpipss))

@@ -58,6 +58,7 @@ from ..ops.rasterize_sorted import rasterize_sorted
 from ..ops.rasterize_tiled import (
     TileConfig, bin_gaussians, composite_tiles, rasterize_binned, view_colors,
 )
+from ..utils.graphs import GraphSlot, copy_in, warm_up
 from . import innovations as inn
 from .loss import l1_loss, psnr, safe_norm, ssim, weighted_l1_loss
 from .optim import AdamState, adam_init, adam_update, expon_lr, tree_leaves, tree_map
@@ -527,8 +528,8 @@ def _stack_metrics(rows: list) -> dict:
     return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
 
-class _CapturedStep:
-    """One training step captured in a CUDA graph, with its static buffers.
+class _StepBuffers:
+    """The static buffers of a captured training step.
 
     Inputs: the state leaves (`state`, written back in place by every
     replay), the chunk's views, timesteps and camera tensors (`cap` rows),
@@ -538,14 +539,11 @@ class _CapturedStep:
     step, copies the new state into the state leaves, writes each metric
     into row `counter` of its [cap] buffer and adds one to `counter`."""
 
-    def __init__(self, step, key, state: TrainState, gt_cache, cams: Camera, bg,
-                 sh_degree: int, metrics_like: dict, cap: int):
-        from ..data.pipeline import gt_to_float
-        from ..ops import composite_pairs
+    def __init__(self, state: TrainState, cams: Camera, bg, metrics_like: dict, cap: int):
         from .checkpoint import flatten_state
 
-        dev = gt_cache.device
-        self.key, self.cap, self.state = key, cap, state
+        dev = bg.device
+        self.cap, self.state = cap, state
         self.leaves = flatten_state(state)
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
         self.views = torch.zeros(cap, dtype=torch.int64, device=dev)
@@ -556,50 +554,36 @@ class _CapturedStep:
         self.bg = bg.detach().clone()
         self.metrics = {k: torch.zeros(cap, dtype=v.dtype, device=dev)
                         for k, v in metrics_like.items()}
-        launches = composite_pairs.LAUNCHES
-        before = dict(launches)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                c = self.counter
-                gt = gt_to_float(gt_cache.index_select(0, self.views.index_select(0, c))[0])
-                out = step(state, gt, camera_row(self.cams, c),
-                           self.timesteps.index_select(0, c)[0], self.bg, sh_degree)
-                for name, new in flatten_state(out.state).items():
-                    if new is not self.leaves[name]:
-                        self.leaves[name].copy_(new)
-                for name, buf in self.metrics.items():
-                    buf.index_copy_(0, c, out.metrics[name].reshape(1).to(buf.dtype))
-                self.counter.add_(1)
-            # The capture launched nothing: its counts are what a replay launches.
-            self.per_replay = {k: launches[k] - before[k] for k in launches}
-        finally:
-            launches.update(before)
 
-    def run(self, state: TrainState, views, timesteps, cams: Camera, bg, start: int,
-            k: int) -> dict:
-        """Rows `start`..k-1 of the chunk by replays, from `state` (copied
-        into the state leaves unless it is they); returns the metrics' rows."""
-        from ..ops import composite_pairs
+    def step(self, step, gt_cache, sh_degree: int) -> None:
+        """One step over the buffers: the body the graph captures."""
+        from ..data.pipeline import gt_to_float
         from .checkpoint import flatten_state
 
-        for name, x in flatten_state(state).items():
-            if x is not self.leaves[name]:
-                self.leaves[name].copy_(x)
-        for buf, vals in ((self.views, views), (self.timesteps, timesteps)):
-            host = torch.tensor(vals, dtype=torch.int64)
-            if buf.device.type == "cuda":
-                host = host.pin_memory()
-            buf[:k].copy_(host, non_blocking=True)
-        for f in CAMERA_TENSORS:
-            getattr(self.cams, f)[:k].copy_(getattr(cams, f)[:k])
-        self.bg.copy_(bg)
+        c = self.counter
+        gt = gt_to_float(gt_cache.index_select(0, self.views.index_select(0, c))[0])
+        out = step(self.state, gt, camera_row(self.cams, c), self.timesteps.index_select(0, c)[0],
+                   self.bg, sh_degree)
+        for name, new in flatten_state(out.state).items():
+            if new is not self.leaves[name]:
+                self.leaves[name].copy_(new)
+        for name, buf in self.metrics.items():
+            buf.index_copy_(0, c, out.metrics[name].reshape(1).to(buf.dtype))
+        self.counter.add_(1)
+
+    def fill(self, state: TrainState, views, timesteps, cams: Camera, bg, start: int,
+             k: int) -> None:
+        """Rows ..k-1 of the chunk and `state` (copied into the state leaves
+        unless it is they); the next replay takes row `start`."""
+        from .checkpoint import flatten_state
+
+        copy_in(self.leaves, flatten_state(state))
+        copy_in({"views": self.views[:k], "timesteps": self.timesteps[:k], "bg": self.bg,
+                 **{f: getattr(self.cams, f)[:k] for f in CAMERA_TENSORS}},
+                {"views": torch.tensor(views, dtype=torch.int64),
+                 "timesteps": torch.tensor(timesteps, dtype=torch.int64), "bg": bg,
+                 **{f: getattr(cams, f)[:k] for f in CAMERA_TENSORS}})
         self.counter.fill_(start)
-        for _ in range(start, k):
-            self.graph.replay()
-        for name, n in self.per_replay.items():
-            composite_pairs.LAUNCHES[name] += n * (k - start)
-        return {name: buf[start:k].clone() for name, buf in self.metrics.items()}
 
 
 class TrainChunk:
@@ -616,34 +600,42 @@ class TrainChunk:
     returned state's tensors are the captured graph's buffers, which the
     next chunk overwrites.
 
-    On the CPU, and on the card on the table pipeline (`use_pallas=False`,
-    or `use_sorted=False`: its compositor reads max(counts) on the host
-    once a render, which no graph can capture; said once in the log), the
-    steps run one after another in a Python loop. On the card the sorted
-    pipeline's step is captured once in a CUDA graph and replayed: the
-    first `CHUNK_WARMUP` steps of a chunk with no graph yet run eagerly on
-    a side stream (real steps of the chunk), then one step is captured and
+    On the CPU the steps run one after another in a Python loop. On the
+    card, on the sorted and the table pipeline alike, the step is captured
+    once in a CUDA graph and replayed (`utils/graphs.py`): the first
+    `CHUNK_WARMUP` steps of a chunk with no graph yet run eagerly on a side
+    stream (real steps of the chunk), then one step is captured and
     replayed for the rest; later chunks replay it from their first step.
-    Nothing is issued per step but the replay. The graph is kept for one
-    key, (image size, fovs, sh_degree, the state's leaf shapes, the ground
-    truth cache), so one private memory pool is alive at a time; a chunk
-    with another key drops it and captures anew, as does `drop()`. A
-    capture that fails raises: a chunk never falls back to eager steps on
-    the sorted pipeline. The compositor kernels' launch counts
-    (`ops/composite_pairs.LAUNCHES`) grow by their launches a step for every
-    replay, so they count steps as eager steps do."""
+    Nothing is issued per step but the replay. The captured step runs the
+    table pipeline in its host-read-free form (`ops/rasterize_tiled.
+    fixed_walk`: every slot of the table's capacity, a pass over every
+    tile), the same bits as the planned walk of eager steps. The graph is
+    kept for one key, (image size, fovs, sh_degree, the state's leaf
+    shapes, the ground truth cache), so one private memory pool is alive
+    at a time; a chunk with another key drops it and captures anew, as
+    does `drop()`. A capture that fails raises: a chunk never falls back
+    to eager steps on the card. The compositor kernels' launch counts
+    (`ops/composite_pairs.LAUNCHES`) grow by their launches a step for
+    every replay, so they count steps as eager steps do."""
 
     def __init__(self, model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
                  spatial_lr_scale: float = 1.0):
         self.step = make_train_step(model, cfg, tile_cfg, spatial_lr_scale)
-        self.capturable = cfg.pipeline.use_sorted and cfg.pipeline.use_pallas
-        self.captured: Optional[_CapturedStep] = None
-        self.captures = 0
-        self._said_eager = False
+        self.slot = GraphSlot()
+        self.buffers: Optional[_StepBuffers] = None
+
+    @property
+    def captures(self) -> int:
+        return self.slot.captures
+
+    @property
+    def captured(self):
+        return self.slot.captured
 
     def drop(self) -> None:
         """Release the captured graph and its memory pool."""
-        self.captured = None
+        self.slot.drop()
+        self.buffers = None
 
     def eager(self, state, gt_cache, views, cams, timesteps, bg, sh_degree):
         """The plain version: the step once a row, in order."""
@@ -661,12 +653,6 @@ class TrainChunk:
                  timesteps, bg: torch.Tensor, sh_degree: int):
         if gt_cache.device.type != "cuda":
             return self.eager(state, gt_cache, views, cams, timesteps, bg, sh_degree)
-        if not self.capturable:
-            if not self._said_eager:
-                print("[info] table pipeline: its compositor reads max(counts) on the host, "
-                      "so chunks run their steps eagerly (no CUDA graph)")
-                self._said_eager = True
-            return self.eager(state, gt_cache, views, cams, timesteps, bg, sh_degree)
         from .checkpoint import flatten_state
 
         views, timesteps = _host_ints(views), _host_ints(timesteps)
@@ -674,29 +660,27 @@ class TrainChunk:
         key = (cams.height, cams.width, cams.fovx, cams.fovy, int(sh_degree),
                gt_cache.data_ptr(), tuple(gt_cache.shape), gt_cache.dtype,
                tuple((n, tuple(x.shape), x.dtype) for n, x in flatten_state(state).items()))
-        if self.captured is not None and (self.captured.key != key or self.captured.cap < k):
+        g = self.slot.get(key)
+        if g is not None and self.buffers.cap < k:
             self.drop()
+            g = None
         start, warm = 0, None
-        if self.captured is None:
+        if g is None:
             start = min(k, CHUNK_WARMUP)
-            dev = gt_cache.device
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                state, warm = self.eager(state, gt_cache, views[:start], cams, timesteps[:start],
-                                         bg, sh_degree)
-            torch.cuda.current_stream(dev).wait_stream(side)
+            state, warm = warm_up(gt_cache.device, lambda: self.eager(
+                state, gt_cache, views[:start], cams, timesteps[:start], bg, sh_degree))
             if start == k:
                 return state, warm
-            self.captured = _CapturedStep(
-                self.step, key, state, gt_cache, cams, bg, sh_degree,
-                {n: m[0] for n, m in warm.items()}, cap=max(64, 1 << (k - 1).bit_length()))
-            self.captures += 1
-        g = self.captured
-        rows = g.run(state, views, timesteps, cams, bg, start, k)
+            self.buffers = b = _StepBuffers(state, cams, bg, {n: m[0] for n, m in warm.items()},
+                                            cap=max(64, 1 << (k - 1).bit_length()))
+            g = self.slot.capture(key, lambda: b.step(self.step, gt_cache, sh_degree))
+        b = self.buffers
+        b.fill(state, views, timesteps, cams, bg, start, k)
+        g.replay(k - start)
+        rows = {name: buf[start:k].clone() for name, buf in b.metrics.items()}
         if warm is not None:
             rows = {n: torch.cat([warm[n], r]) for n, r in rows.items()}
-        return dataclasses.replace(g.state, generator=state.generator), rows
+        return dataclasses.replace(b.state, generator=state.generator), rows
 
 
 def make_train_chunk(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,

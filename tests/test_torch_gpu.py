@@ -13,6 +13,7 @@ import torch
 
 from gaussianavatars_torch.config import Config
 from gaussianavatars_torch.data.cameras import look_at_camera
+from gaussianavatars_torch.models.flame.flame_model import zero_params
 from gaussianavatars_torch.ops import composite_pairs as tcp
 from gaussianavatars_torch.ops.projection import project_from_params
 from gaussianavatars_torch.ops.rasterize_sorted import depth_key, sort_gather
@@ -520,3 +521,156 @@ def test_chunk_capture_error_raises(cuda_device, monkeypatch):
     assert chunk.captured is None and chunk.captures == 0
     # The three eager warm-up steps ran; nothing after the failed capture.
     assert tcp.LAUNCHES["composite_pairs_bwd"] == before + 3
+
+
+def _frame_case(cuda_device):
+    """A small bench-scene avatar on the card, a render state with three
+    timesteps of different jaw poses, and two cameras of one size."""
+    from gaussianavatars_torch.training.trainer import init_train_state as init
+
+    model, params, aux, fl, cam, _n = build_scene(per_face=1, width=160, height=96,
+                                                  device=cuda_device)
+    tile = probe_tile_config(model, params, aux, fl, cam)
+    cfg = Config()
+    state = init(params, aux, cfg, num_timesteps=3, n_expr=fl.expr.shape[1],
+                 n_shape=fl.shape.shape[0], num_verts=model.num_verts)
+    state.flame.jaw[:, 0] = torch.tensor([0.0, 0.15, 0.3], device=cuda_device)
+    other = dataclasses.replace(cam, world_view=cam.world_view.clone(),
+                                full_proj=cam.full_proj.clone())
+    other.world_view[0, 3] += 0.02
+    other.full_proj.copy_(other.proj @ other.world_view)
+    return model, cfg, tile, state, fl, (cam, other)
+
+
+def test_graph_frames_match_eager_frames(cuda_device):
+    """`make_render_fn` over 3 FLAME poses × 2 cameras of one size, and
+    `AvatarRenderer.render` over 3 poses: each returned frame equals its
+    eager frame bit for bit, with one capture each; row 1 counted once a
+    frame."""
+    from gaussianavatars_torch.training.loop import make_render_fn
+
+    model, cfg, tile, state, fl, cams = _frame_case(cuda_device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda_device)
+    render = make_render_fn(model, cfg, tile)
+    before = tcp.LAUNCHES["composite_pairs_fwd"]
+    frames = [(render(state, c, ts, bg, 3), c, ts) for ts in range(3) for c in cams]
+    assert render.captures == 1
+    assert tcp.LAUNCHES["composite_pairs_fwd"] - before == 6
+    images = []
+    for img, c, ts in frames:
+        assert torch.equal(img, render.eager(state, c, ts, bg, 3))
+        images.append(img)
+    assert not torch.equal(images[0], images[2]) and not torch.equal(images[0], images[1])
+    renderer = AvatarRenderer(model, state.params, state.aux, cams[0], tile, device=cuda_device)
+    for jaw in (0.0, 0.15, 0.3):
+        fp = fl._replace(jaw=torch.tensor([[jaw, 0.0, 0.0]], device=cuda_device))
+        out, want = renderer.render(fp), renderer.render_eager(fp)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    assert renderer.captures == 1
+
+
+def test_frame_graph_key_change_recaptures(cuda_device):
+    """Another SH degree or another image size is another graph; the same
+    key again replays (no capture)."""
+    from gaussianavatars_torch.training.loop import make_render_fn
+
+    model, cfg, tile, state, _fl, (cam, _other) = _frame_case(cuda_device)
+    bg = torch.zeros(3, device=cuda_device)
+    render = make_render_fn(model, cfg, tile)
+    for _ in range(3):
+        render(state, cam, 0, bg, 3)
+    assert render.captures == 1
+    for _ in range(2):
+        img = render(state, cam, 0, bg, 1)
+    assert render.captures == 2 and torch.equal(img, render.eager(state, cam, 0, bg, 1))
+    small = look_at_camera(eye=np.array([0.0, 0.0, -1.0]), target=np.zeros(3), fovy=0.4,
+                           width=96, height=64, device=cuda_device)
+    for _ in range(2):
+        img = render(state, small, 0, bg, 3)
+    assert render.captures == 3 and img.shape == (64, 96, 3)
+
+
+def test_frame_replays_make_no_host_sync(cuda_device):
+    """Once captured, `AvatarRenderer.render` and `make_render_fn` replay
+    under the sync debug mode "error" (device FLAME parameters; a host
+    timestep is a fill, not a copy)."""
+    from gaussianavatars_torch.training.loop import make_render_fn
+
+    model, cfg, tile, state, fl, cams = _frame_case(cuda_device)
+    bg = torch.zeros(3, device=cuda_device)
+    render = make_render_fn(model, cfg, tile)
+    renderer = AvatarRenderer(model, state.params, state.aux, cams[0], tile, device=cuda_device)
+    poses = [fl._replace(jaw=torch.tensor([[0.01 * i, 0.0, 0.0]], device=cuda_device))
+             for i in range(4)]
+    for i in range(2):
+        render(state, cams[i], i, bg, 3)
+        renderer.render(poses[i])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2, 4):
+            img = render(state, cams[i % 2], i % 3, bg, 3)
+            out = renderer.render(poses[i])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert render.captures == renderer.captures == 1
+    assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(out.color).all())
+
+
+def test_table_chunk_matches_eager_table_steps(cuda_device):
+    """The table pipeline (`use_pallas=False`, a table sized to the frame)
+    in a chunk of 5 (3 warm-up steps, a capture, 2 replays; the fixed
+    walk) against 5 eager table steps (the planned walk): every state leaf
+    and metric within 1e-5 of its largest magnitude; rows 1 and 2 never
+    launched."""
+    from gaussianavatars_torch.data.pipeline import gt_to_float
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_chunk
+
+    model, cfg, _tile, state, cache, cams, stacked, views, ts = _chunk_case(cuda_device, 5)
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline, use_pallas=False))
+    fl = zero_params(state.flame_static.shape.shape[0], state.flame.expr.shape[1],
+                     device=cuda_device)
+    tile = probe_tile_config(model, state.params, state.aux, fl, cams[0], table=True)
+    bg = torch.zeros(3, device=cuda_device)
+    step = make_train_step(model, cfg, tile)
+    st, rows = state, []
+    for i in range(5):
+        out = step(st, gt_to_float(cache[views[i]]), cams[i], ts[i], bg, 3)
+        st, rows = out.state, rows + [out.metrics]
+    before = dict(tcp.LAUNCHES)
+    chunk = make_train_chunk(model, cfg, tile)
+    sc, m = chunk(state, cache, views, stacked, ts, bg, 3)
+    torch.cuda.synchronize()
+    assert chunk.captures == 1 and tcp.LAUNCHES == before
+    got, want = flatten_state(sc), flatten_state(st)
+    for k, v in want.items():
+        err = float((got[k].double() - v.double()).abs().max())
+        assert err <= 1e-5 * max(float(v.double().abs().max()), 1e-30), k
+    for k in rows[0]:
+        w = torch.stack([r[k] for r in rows]).double()
+        assert float((m[k].double() - w).abs().max()) <= 1e-5 * max(float(w.abs().max()),
+                                                                   1e-30), k
+
+
+def test_frame_capture_error_raises(cuda_device, monkeypatch):
+    """A frame that reads a device value on the host cannot be captured:
+    the second call raises, no graph is kept, and nothing falls back."""
+    from gaussianavatars_torch import render as trender
+
+    model, _cfg, tile, state, fl, cams = _frame_case(cuda_device)
+    wg = trender.world_gaussians
+
+    def world_gaussians_read(*a):
+        out = wg(*a)
+        float(out.means.sum())   # a host read
+        return out
+
+    monkeypatch.setattr(trender, "world_gaussians", world_gaussians_read)
+    renderer = trender.AvatarRenderer(model, state.params, state.aux, cams[0], tile,
+                                      device=cuda_device)
+    renderer.render(fl)   # the eager warm-up reads the host freely
+    with pytest.raises(RuntimeError):
+        renderer.render(fl)
+    assert renderer.captures == 0 and renderer.graph.slot.captured is None
