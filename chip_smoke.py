@@ -172,28 +172,42 @@ non-zero):
  18. sharded  — multi-device training over a rank mesh at the benchmark
                 width (the 90,090-Gaussian avatar, 802×550, `Config`
                 defaults, the sorted pipeline): (a) an NCCL world of one
-                rank in this process, the sharded step against
-                `make_train_step` from one state for 3 steps (every leaf and
+                rank in this process: the eager sharded step against
+                `make_train_step` from one state for 2 steps (every leaf and
                 the loss within 1e-5 of its largest value; the largest
-                difference printed), rows 1 and 2 once a step, steps/s of
-                both in alternating blocks and the collectives' ms and
-                bytes; (b) four ranks through the launcher, over gloo on
-                one card, NCCL on four (`tools/sharded_steps`: 1×4, 1×4 with
-                `gauss_shard`, 2×2), each held to the single-device step on
-                the card at the CPU tests' bounds (2×2: the mean loss and the
-                summed statistics of its two cameras), every rank's state
-                digest equal after every step, rows 1 and 2 once a step in
-                every rank, each rank's step ms and collectives, and where
+                difference printed), rows 1 and 2 once a step; the step's
+                captured form (`sharded.ShardedStep`: one CUDA graph, its
+                NCCL collectives inside, replayed once a step) against the
+                eager sharded step over 50 steps with a densify event and an
+                opacity reset among them, every leaf and metric bit for bit,
+                one capture, rows 1 and 2 once a step, the collectives'
+                counts equal; no synchronising call while 10 steps replay;
+                steps/s of the unsharded, the eager and the captured step in
+                alternating blocks, each one's peak memory, device-busy
+                share and kernels a step from the profiler, and the
+                collectives' ms and bytes; (b) four ranks through the
+                launcher, over gloo on one card (eager), NCCL on four
+                (captured; the steps rerun eagerly beside them) with
+                `tools/sharded_steps`: 1×4, 1×4 with `gauss_shard`, 2×2,
+                each held to the single-device step on the card at the CPU
+                tests' bounds (2×2: the mean loss and the summed statistics
+                of its two cameras), every rank's state digest equal after
+                every step, rows 1 and 2 once a step in every rank, each
+                rank's form, captures, step ms and collectives, and where
                 the backend puts the operands; (c) `tools.train --mesh 2x2`
-                on phase 12's dataset (60 iterations,
-                a densify event, an eval, a save): only rank 0 printed, one
-                state digest on all ranks; (d) `tools.multiproc_check
-                --device cuda`; (e) `tools.scaling_bench` unsharded, 1×1
-                under NCCL, 1×2, 1×4 and 2×2 (the time-shared rows so
-                labelled). `--sharded_only` runs phases 1, 2 and 18 alone
-                (phase 12's dataset written, not fitted): the multi-card
-                proof on a machine with four cards, where every rank has
-                its own card and phase 18 runs over NCCL.
+                on phase 12's dataset (60 iterations, a densify event, an
+                eval, a save): only rank 0 printed, the step's form as the
+                rule picks it, one state digest on all ranks; (d)
+                `tools.multiproc_check --device cuda`; (e)
+                `tools.scaling_bench` unsharded (chunks of 50 against eager
+                steps), 1×1 under NCCL (captured against eager), and 2×2
+                (gloo, time-shared and so labelled) or 2×2 and 1×4 (NCCL):
+                cameras/s against the eager mesh and the chunked single
+                card. `sharded/seconds` holds each part's seconds.
+                `--sharded_only` runs phases 1, 2 and 18 alone (phase 12's
+                dataset written, not fitted): the multi-card proof on a
+                machine with four cards, where every rank has its own card
+                and phase 18 runs over NCCL.
  19. chunks   — K training steps a dispatch (`trainer.make_train_chunk`: one
                 captured CUDA graph of the step, replayed once a step) on the
                 benchmark scene (802×550, `Config` defaults, SH 3): (a) a
@@ -3406,14 +3420,22 @@ def phase_table(card, scene, setup, harness, serving_fps: float, train_steps_s: 
 
 SHARDED_DIR = os.path.join("build", "chip_smoke", "sharded")
 SHARDED_DEVICE = "cuda"   # "cpu" only in a CPU rehearsal (gloo for the one-rank world)
-N_SHARDED_STEPS = 3       # steps of each comparison run
-N_SHARDED_BLOCK = 10      # steps a block of the unsharded / 1x1 alternation
-N_SHARDED_BLOCKS = 3      # blocks of each
+N_SHARDED_STEPS = 2       # steps of each eager comparison run ((a) against the single step, (b))
+N_SHARDED_NCCL_STEPS = 6  # (b) over NCCL: 3 eager warm-up steps, the capture, 2 more replays
+N_SHARDED_CAPTURED = 50   # (a): captured 1x1 steps against as many eager sharded steps
+SHARDED_EVENTS = {20: "densify", 35: "opacity_reset"}   # (a): before these steps
+N_SHARDED_SYNC = 10       # (a): replays under the sync check
+N_SHARDED_PROFILED = 5    # (a): steps of each form under the profiler
+N_SHARDED_BLOCK = 20      # (a): steps a block of the unsharded / eager / captured alternation
+SHARDED_BLOCKS = ("unsharded", "eager", "captured", "captured", "eager", "unsharded")
 SHARDED_REL = 1e-5        # the 1x1 step against the single-device step, every leaf
 SHARDED_TIMEOUT_S = 420   # a launch's wall-clock limit
 SHARDED_RUNS = ("1x4", "1x4:gauss_shard", "2x2")
 SHARDED_YAW = 0.03        # radians: 2x2's second view, ~40 px off the first at 802x550
 SHARDED_SCALING_SIZE = ()   # scaling_bench's defaults: the benchmark avatar at 802x550
+# (e): scaling_bench's multi-rank meshes; on one card (gloo) they time-share it, so
+# one mesh shows the path runs.
+SHARDED_SCALING_MESHES = {"gloo": ("2x2", "5"), "nccl": ("2x2,1x4", "20")}   # meshes, iters
 SHARDED_CLI_ITERS = 60
 SHARDED_CLI_FLAGS = ("--bind_to_mesh", "--eval", "--iterations", str(SHARDED_CLI_ITERS),
                      "--test_iterations", "40", "--save_iterations", str(SHARDED_CLI_ITERS),
@@ -3443,12 +3465,169 @@ def max_rel(a: dict, b: dict) -> tuple:
     return worst
 
 
+def sharded_event(kind: str, state, model, cfg, it: int):
+    """The loop's densify or opacity-reset event (`loop.densify_event`,
+    `loop.opacity_reset_event`) on `state`: (new state, report)."""
+    import types
+
+    from gaussianavatars_torch.training import loop
+
+    h = types.SimpleNamespace(cfg=cfg, model=model, state=state, spatial_lr_scale=1.0)
+    report = loop.densify_event(h, it) if kind == "densify" else loop.opacity_reset_event(h)
+    return h.state, report
+
+
+def run_steps(fn, state, rows, bg, n: int, events=None, model=None, cfg=None):
+    """n steps of fn (a sharded step's form) on the rows in turns, the
+    SHARDED_EVENTS-like `events` applied before their steps: (state, each
+    step's metrics, the events' reports)."""
+    metrics, reports = [], {}
+    for i in range(n):
+        if events and i in events:
+            state, reports[i] = sharded_event(events[i], state, model, cfg, i)
+        state, m = fn(state, *rows[i % TRAIN_TIMESTEPS], bg, 3)
+        metrics.append(m)
+    return state, metrics, reports
+
+
+def sharded_captured_1x1(card, step, rows, bg, model, cfg, state0) -> dict:
+    """Phase 18 (a2): the step in its form (captured on the card over NCCL)
+    against its eager form over N_SHARDED_CAPTURED steps from one state,
+    with SHARDED_EVENTS among them: every leaf and every step's metrics bit
+    for bit, the same event reports, one capture, rows 1 and 2 once a step,
+    the collectives' counts equal; then no synchronising call while
+    N_SHARDED_SYNC steps replay. Returns the runs' final states and
+    launches."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+    from gaussianavatars_torch.parallel.sharded import CAPTURED
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+
+    runs, launches = {}, dict.fromkeys(cp.LAUNCHES, 0)
+    for kind, fn in (("eager", step.eager), ("captured", step)):
+        st0 = dataclasses.replace(state0, generator=torch.Generator().set_state(
+            state0.generator.get_state()))
+        reset_launches()
+        step.collectives.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, metrics, reports = run_steps(fn, st0, rows, bg, N_SHARDED_CAPTURED, SHARDED_EVENTS,
+                                         model, cfg)
+        torch.cuda.synchronize()
+        runs[kind] = dict(state=st, metrics={k: torch.stack([m[k] for m in metrics])
+                                             for k in metrics[0]},
+                          reports=reports, launches={k: v for k, v in cp.LAUNCHES.items() if v},
+                          collectives={k: (v["calls"], v["bytes"])
+                                       for k, v in step.collectives.stats.items()},
+                          seconds=time.perf_counter() - t0,
+                          peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        for k, v in cp.LAUNCHES.items():
+            launches[k] += v
+    e, c = runs["eager"], runs["captured"]
+    fe, fc = flatten_state(e["state"]), flatten_state(c["state"])
+    leaves_equal = list(fe) == list(fc) and all(torch.equal(fc[k], fe[k]) for k in fe)
+    metrics_equal = set(e["metrics"]) == set(c["metrics"]) and all(
+        torch.equal(c["metrics"][k], e["metrics"][k]) for k in e["metrics"])
+    want = {"composite_pairs_fwd": N_SHARDED_CAPTURED, "composite_pairs_bwd": N_SHARDED_CAPTURED}
+    res = dict(form=step.form, steps=N_SHARDED_CAPTURED, events=SHARDED_EVENTS,
+               reports=c["reports"], reports_equal=c["reports"] == e["reports"],
+               leaves_bit_equal=leaves_equal, metrics_bit_equal=metrics_equal,
+               largest_leaf_rel=max_rel(fc, fe), largest_metric_rel=max_rel(c["metrics"],
+                                                                             e["metrics"]),
+               captures=step.captures, launches={k: runs[k]["launches"] for k in runs},
+               collectives={k: runs[k]["collectives"] for k in runs},
+               seconds={k: runs[k]["seconds"] for k in runs},
+               peak_mem_mib={k: runs[k]["peak_mib"] for k in runs},
+               loss_first_last=[float(c["metrics"]["loss"][0]), float(c["metrics"]["loss"][-1])])
+    log("sharded/nccl_1x1/captured", card=card["nvidia_smi"], **res)
+    if not (step.form == CAPTURED and leaves_equal and metrics_equal and res["reports_equal"]
+            and step.captures == 1 and e["launches"] == want and c["launches"] == want
+            and c["collectives"] == e["collectives"]):
+        raise AssertionError(f"sharded/nccl_1x1/captured: {res}")
+
+    # (a3) no host synchronisation while the step replays.
+    reset_launches()
+    out = {}
+    syncs = sync_count(lambda: out.update(r=run_steps(step, c["state"], rows, bg,
+                                                      N_SHARDED_SYNC)))
+    for k, v in cp.LAUNCHES.items():
+        launches[k] += v
+    log("sharded/nccl_1x1/syncs", syncs_while_replaying=syncs, steps=N_SHARDED_SYNC,
+        captures=step.captures)
+    if syncs != 0 or step.captures != 1:
+        raise AssertionError(f"sharded/nccl_1x1/syncs: {syncs} synchronising calls in "
+                             f"{N_SHARDED_SYNC} replays, {step.captures} captures")
+    return dict(states={"eager": e["state"], "captured": out["r"][0]}, launches=launches)
+
+
+def sharded_rates_1x1(card, single, step, rows, gt, cam, bg, states) -> dict:
+    """Phase 18 (a4)-(a6): steps/s of the unsharded, the eager sharded and
+    the captured sharded step in SHARDED_BLOCKS of N_SHARDED_BLOCK steps,
+    each continuing its own state, with each one's peak memory; a profiler
+    trace of N_SHARDED_PROFILED steps of each (the unsharded step from the
+    eager one's state; kernels a step, rows 1 and 2 once a replayed step,
+    device-busy share);
+    the collectives' ms and bytes a step, timed in eager steps. Returns
+    rows 1 and 2's launches."""
+    from gaussianavatars_torch.ops import composite_pairs as cp
+
+    coll = step.collectives
+    forms = {"unsharded": lambda st, ts: single(st, gt, cam, ts, bg, 3).state,
+             "eager": lambda st, ts: step.eager(st, *rows[ts], bg, 3)[0],
+             "captured": lambda st, ts: step(st, *rows[ts], bg, 3)[0]}
+
+    def run(kind, n):
+        st = states[kind]
+        for i in range(n):
+            st = forms[kind](st, i % TRAIN_TIMESTEPS)
+        states[kind] = st
+
+    secs = {k: [] for k in forms}
+    peak = dict.fromkeys(forms, 0.0)
+    reset_launches()
+    for kind in SHARDED_BLOCKS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(kind, N_SHARDED_BLOCK)
+        torch.cuda.synchronize()
+        secs[kind].append(time.perf_counter() - t0)
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() / 2**20)
+    rates = {k: N_SHARDED_BLOCK * len(v) / sum(v) for k, v in secs.items()}
+    device = {}
+    states["unsharded"] = states["eager"]   # the unsharded and the eager profile: one state
+    for kind in ("unsharded", "eager", "captured"):
+        ms, counts, ops = kernel_busy_ms(lambda: run(kind, N_SHARDED_PROFILED),
+                                         N_SHARDED_PROFILED)
+        device[kind] = dict(device_busy_ms_per_step=ms, device_busy_share=ms * rates[kind] / 1e3,
+                            kernels_per_step=ops, compositor_kernels_per_step=counts)
+    coll.timed = True
+    coll.reset()
+    run("eager", N_SHARDED_BLOCK)
+    per = {k: v / N_SHARDED_BLOCK for k, v in coll.summary().items()}
+    coll.timed = False
+    launches = dict(cp.LAUNCHES)
+    res = dict(steps_per_s=rates, block_ms_per_step={k: [1e3 * x / N_SHARDED_BLOCK for x in v]
+                                                     for k, v in secs.items()},
+               captured_over_eager=rates["captured"] / rates["eager"],
+               eager_over_unsharded=rates["eager"] / rates["unsharded"],
+               peak_mem_mib=peak, device=device, captures=step.captures,
+               collective_ms_per_step=per["ms"], collective_bytes_per_step=per["bytes"],
+               collective_calls_per_step=per["calls"])
+    log("sharded/nccl_1x1/numbers", card=card["nvidia_smi"], **res,
+        note="blocks alternate; collectives timed synchronised in a separate eager block")
+    if any(v != 1 for v in device["captured"]["compositor_kernels_per_step"].values()):
+        raise AssertionError(f"rows 1 and 2 not once a replayed step: {device}")
+    return launches
+
+
 def sharded_nccl_1x1(card, model, cam, tile_cfg, setup) -> dict:
-    """Phase 18 (a): an NCCL world of one rank in this process. The sharded
-    step against `make_train_step` from the same state for N_SHARDED_STEPS
-    steps (every leaf of the state and the loss within SHARDED_REL of its
-    largest value), rows 1 and 2 once a sharded step, then steps/s of
-    both in alternating blocks."""
+    """Phase 18 (a): an NCCL world of one rank in this process. (a1) the
+    eager sharded step against `make_train_step` from the same state for
+    N_SHARDED_STEPS steps (every leaf of the state and the loss within
+    SHARDED_REL of its largest value), rows 1 and 2 once a sharded step;
+    (a2)-(a3) the captured step (`sharded_captured_1x1`); (a4)-(a6) the
+    rates (`sharded_rates_1x1`). Returns rows 1 and 2's launches."""
     import tempfile
 
     import torch.distributed as dist
@@ -3484,7 +3663,7 @@ def sharded_nccl_1x1(card, model, cam, tile_cfg, setup) -> dict:
             out = single(a, gt, cam, ts, bg, 3)
             a = out.state
             reset_launches()
-            b, m = step(b, *rows[ts], bg, 3)
+            b, m = step.eager(b, *rows[ts], bg, 3)
             torch.cuda.synchronize()
             launches.append({k: v for k, v in cp.LAUNCHES.items() if v})
             loss_rel = max(loss_rel, abs(float(m["loss"]) - float(out.metrics["loss"]))
@@ -3493,45 +3672,22 @@ def sharded_nccl_1x1(card, model, cam, tile_cfg, setup) -> dict:
         res = dict(steps=N_SHARDED_STEPS, loss_max_rel=loss_rel, state_max_rel=worst[0],
                    state_worst_leaf=worst[1], exact=worst[0] == 0.0 and loss_rel == 0.0,
                    launches_per_step=launches, digest=state_digest(b),
-                   host_staged=coll.host_staged(gt.device), padded_height=hp)
+                   host_staged=coll.host_staged(gt.device), padded_height=hp, form=step.form)
         log("sharded/nccl_1x1", backend=backend, **res)
         if not (loss_rel <= SHARDED_REL and worst[0] <= SHARDED_REL):
             raise AssertionError(f"the 1x1 sharded step left the single-device step: {res}")
         if any(x.get("composite_pairs_fwd") != 1 or x.get("composite_pairs_bwd") != 1
                for x in launches):
             raise AssertionError(f"rows 1 and 2 not once a sharded step: {launches}")
-
-        def block(fn, st):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(N_SHARDED_BLOCK):
-                st = fn(st, i % TRAIN_TIMESTEPS)
-            torch.cuda.synchronize()
-            return st, N_SHARDED_BLOCK / (time.perf_counter() - t0)
-
-        def run_single(st, ts):
-            return single(st, gt, cam, ts, bg, 3).state
-
-        def run_sharded(st, ts):
-            return step(st, *rows[ts], bg, 3)[0]
-
-        rates = {"unsharded": [], "sharded_1x1": []}
-        sa, sb = a, b
-        for _ in range(N_SHARDED_BLOCKS):
-            sa, r = block(run_single, sa)
-            rates["unsharded"].append(r)
-            sb, r = block(run_sharded, sb)
-            rates["sharded_1x1"].append(r)
-        coll.timed = True
-        coll.reset()
-        block(run_sharded, sb)
-        per = {k: v / N_SHARDED_BLOCK for k, v in coll.summary().items()}
-        ratio = sum(rates["sharded_1x1"]) / sum(rates["unsharded"])
-        log("sharded/nccl_1x1/numbers", card=card["nvidia_smi"], steps_per_s=rates,
-            ratio_1x1_to_unsharded=ratio, collective_ms_per_step=per["ms"],
-            collective_bytes_per_step=per["bytes"], collective_calls_per_step=per["calls"],
-            note="blocks alternate; collectives timed synchronised in a separate block")
-        return dict(res, rates=rates, ratio=ratio, fwd=N_SHARDED_STEPS, bwd=N_SHARDED_STEPS)
+        total = {"composite_pairs_fwd": N_SHARDED_STEPS, "composite_pairs_bwd": N_SHARDED_STEPS}
+        cap = sharded_captured_1x1(card, step, rows, bg, model, cfg, state0)
+        states = dict(cap["states"], unsharded=a)
+        rate_launches = sharded_rates_1x1(card, single, step, rows, gt, cam, bg, states)
+        for run in (cap["launches"], rate_launches):
+            for k in total:
+                total[k] += run[k]
+        step.drop()
+        return total
     finally:
         dist.destroy_process_group()
 
@@ -3547,7 +3703,7 @@ def nudged_camera(cam, yaw: float, timestep: int):
     return dataclasses.replace(cam, world_view=w2v, full_proj=cam.proj @ w2v, timestep=timestep)
 
 
-def to_cpu_case(model, cfg, tile_cfg, state, cams, gt, bg) -> dict:
+def to_cpu_case(model, cfg, tile_cfg, state, cams, gt, bg, steps: int) -> dict:
     """A `tools/sharded_steps` case of the card's objects, on the CPU (the
     ranks move it to their device)."""
     from gaussianavatars_torch.training.optim import tree_map
@@ -3560,14 +3716,13 @@ def to_cpu_case(model, cfg, tile_cfg, state, cams, gt, bg) -> dict:
                                           if isinstance(getattr(c, f.name), torch.Tensor)})
                 for c in cams]
     return dict(model=copy.deepcopy(model).to("cpu"), cfg=cfg, tile=tile_cfg, state=cpu_state,
-                cameras=cpu_cams, gt=gt.cpu(), bg=bg.cpu(), sh_degree=3,
-                steps=N_SHARDED_STEPS)
+                cameras=cpu_cams, gt=gt.cpu(), bg=bg.cpu(), sh_degree=3, steps=steps)
 
 
 def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
     """Phase 18 (b): four ranks through the launcher over `backend` (gloo:
-    time-sharing one card), running 1x4, 1x4 with `gauss_shard` and 2x2
-    (`tools/sharded_steps`), each
+    time-sharing one card; NCCL: a card each, the step captured), running
+    1x4, 1x4 with `gauss_shard` and 2x2 (`tools/sharded_steps`), each
     against the single-device step on the card from the same state: the
     CPU tests' bounds (loss rtol 1e-4; Adam's first moments within 1e-4 of
     each leaf's largest; grad_accum atol 1e-4; denom exact), and every
@@ -3575,7 +3730,12 @@ def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
     views with their own ground truth (the camera at timestep 0 on the
     target, and the camera turned by SHARDED_YAW at timestep 1 on the
     target mirrored): its loss and first moments are the means of the two
-    single-device steps', its grad_accum and denom increments their sums."""
+    single-device steps', its grad_accum and denom increments their sums.
+    Over NCCL the ranks run N_SHARDED_NCCL_STEPS steps, the last three
+    replays of one capture, and the same steps eagerly: whether the
+    captured digests equal the eager ones is printed (NCCL may sum in
+    another order inside a graph)."""
+    from gaussianavatars_torch.parallel.sharded import CAPTURED, EAGER_GLOO
     from gaussianavatars_torch.tools import sharded_steps
     from gaussianavatars_torch.training.trainer import make_train_step
 
@@ -3584,10 +3744,14 @@ def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
     gts = [gt, gt.flip(1)]
     single = make_train_step(model, cfg, tile_cfg)
     singles = [single(state0, g, c, c.timestep, bg, 3) for g, c in zip(gts, cams)]
-    case = to_cpu_case(model, cfg, tile_cfg, state0, cams, torch.stack(gts), bg)
+    nccl = backend == "nccl"
+    case = to_cpu_case(model, cfg, tile_cfg, state0, cams, torch.stack(gts), bg,
+                       N_SHARDED_NCCL_STEPS if nccl else N_SHARDED_STEPS)
     t0 = time.perf_counter()
+    # A captured step's collectives cannot be timed (it would synchronise
+    # inside the capture): NCCL's are timed by (e)'s eager steps.
     runs = sharded_steps.run_cases([case], list(SHARDED_RUNS), device=SHARDED_DEVICE,
-                                   backend=backend, timeout_s=SHARDED_TIMEOUT_S, timed=True)
+                                   backend=backend, timeout_s=SHARDED_TIMEOUT_S, timed=not nccl)
     wall = time.perf_counter() - t0
     launches = {"composite_pairs_fwd": 0, "composite_pairs_bwd": 0}
     out = {}
@@ -3616,6 +3780,11 @@ def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
         want = {k: sum(getattr(o.state.adam.mu, k).cpu() for o in ref) / n_data
                 for k in UPDATE_KEYS}
         checks["mu_max_rel"] = max_rel(mu, want)[0]
+        checks["forms"] = sorted({r["form"] for r in res})
+        checks["captures"] = [r["captures"] for r in res]
+        if nccl:
+            checks["captured_digests_equal_eager"] = [r["digests"] == r["eager_digests"]
+                                                      for r in res]
         per_rank = [{
             "rank": r["rank"], "d": r["d"], "t": r["t"],
             "launches": r["results"][0]["launches"], "ms": r["results"][0]["ms"],
@@ -3632,6 +3801,8 @@ def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
         ok = (checks["digests_equal"] and checks["loss_rel"] <= 1e-4
               and checks["grad_accum_abs"] <= 1e-4 and checks["denom_equal"]
               and checks["mu_max_rel"] <= 1e-4
+              and checks["forms"] == [CAPTURED if nccl else EAGER_GLOO]
+              and checks["captures"] == [int(nccl)] * len(res)
               and all(x.get("composite_pairs_fwd") == 1 and x.get("composite_pairs_bwd") == 1
                       for r in res for x in r["launches"]))
         if not ok:
@@ -3645,9 +3816,10 @@ def sharded_ranks(card, model, cam, tile_cfg, setup, backend: str) -> dict:
 def sharded_cli(card, backend: str) -> dict:
     """Phase 18 (c): `tools.train --mesh 2x2 --dist_backend <backend>` (four
     ranks) on phase 12's dataset, FLAME-bound, with a densify event,
-    an eval and a save: only rank 0 printed and wrote, the ranks ended on
-    one state digest (the loop checks it at every log and raises on a
-    difference)."""
+    an eval and a save: only rank 0 printed and wrote, the step's form as
+    the rule picks it (captured over NCCL), the ranks ended on one state
+    digest (the loop checks it at every log and raises on a difference)."""
+    from gaussianavatars_torch.parallel.sharded import step_form
     from gaussianavatars_torch.tools import train as ttrain
 
     model_dir = os.path.join(SHARDED_DIR, "cli")
@@ -3658,9 +3830,10 @@ def sharded_cli(card, backend: str) -> dict:
     out = res.stdout[0]
     line = [ln for ln in out.splitlines() if ln.startswith("[mesh 2x2] 4 ranks hold state")]
     files = sorted(os.listdir(model_dir))
+    form_line = f"[mesh 2x2] sharded step: {step_form(SHARDED_DEVICE, backend, True)}"
     checks = dict(
         others_silent=all(s == "" for s in res.stdout[1:]),
-        digest_line=line[-1] if line else None,
+        digest_line=line[-1] if line else None, form_line=form_line in out,
         densified="[densify 40]" in out, evaluated="[eval val]" in out,
         saved=os.path.exists(os.path.join(model_dir, "point_cloud",
                                           f"iteration_{SHARDED_CLI_ITERS}", "point_cloud.ply")),
@@ -3671,14 +3844,14 @@ def sharded_cli(card, backend: str) -> dict:
         note="steps/s in the digest line: between the first and last log, events included; "
              "end_to_end: the launch's wall clock, rank start and set-up included")
     if not (checks["others_silent"] and line and checks["densified"] and checks["evaluated"]
-            and checks["saved"] and checks["checkpoint"]):
+            and checks["saved"] and checks["checkpoint"] and checks["form_line"]):
         raise AssertionError(f"the 2x2 CLI run failed its checks: {checks}\n{out[-3000:]}")
     return checks
 
 
 def phase_sharded(card, model, cam, tile_cfg, setup) -> dict:
     """Phase 18. Returns rows 1 and 2's launches on its paths (this
-    process's 1x1 run and the ranks of (b))."""
+    process's 1x1 runs and the ranks of (b))."""
     from gaussianavatars_torch.tools import multiproc_check, scaling_bench
 
     os.makedirs(SHARDED_DIR, exist_ok=True)
@@ -3700,17 +3873,26 @@ def phase_sharded(card, model, cam, tile_cfg, setup) -> dict:
         raise AssertionError("multiproc_check failed")
     scaling = {}
     dev = ["--device", SHARDED_DEVICE, *SHARDED_SCALING_SIZE]
-    scaling.update(part("scaling_unsharded", lambda: scaling_bench.main(["--unsharded", *dev])))
+    meshes, iters = SHARDED_SCALING_MESHES[backend]
+    scaling.update(part("scaling_unsharded", lambda: scaling_bench.main(
+        ["--unsharded", "--iters", "50", *dev])))
     scaling.update(part("scaling_1x1", lambda: scaling_bench.main(["--meshes", "1x1", *dev])))
     scaling.update(part("scaling_ranks", lambda: scaling_bench.main(
-        ["--meshes", "1x2,1x4,2x2", "--dist_backend", backend, "--iters", "10", *dev])))
+        ["--meshes", meshes, "--dist_backend", backend, "--iters", iters, *dev])))
+    chunked = scaling["unsharded"]["steps_per_s"]
+    cameras = {m: dict(form=r["form"], cameras_per_s=r["cameras_per_s"],
+                       eager_cameras_per_s=r["eager_cameras_per_s"],
+                       over_eager=r["cameras_per_s"] / r["eager_cameras_per_s"],
+                       over_chunked_single_card=r["cameras_per_s"] / chunked,
+                       time_shared=r["time_shared"])
+               for m, r in scaling.items() if m != "unsharded"}
     log("sharded/scaling", card=card["nvidia_smi"], cards=torch.cuda.device_count(),
-        backend=backend, results=scaling,
+        backend=backend, results=scaling, cameras=cameras,
+        chunked_single_card_steps_per_s=chunked,
         note="meshes of more ranks than cards time-share the card: their speed-ups are not "
-             "scaling")
+             "scaling; the single card's yardstick is the chunked step (one camera a step)")
     log("sharded/seconds", seconds=time.perf_counter() - t0, parts=seconds)
-    return {"composite_pairs_fwd": a["fwd"] + b["launches"]["composite_pairs_fwd"],
-            "composite_pairs_bwd": a["bwd"] + b["launches"]["composite_pairs_bwd"]}
+    return {k: a[k] + b["launches"][k] for k in ("composite_pairs_fwd", "composite_pairs_bwd")}
 
 
 # --- 19. chunks of training steps as CUDA graphs ------------------------------
@@ -4720,6 +4902,7 @@ def main(argv=None) -> int:
     # --- 18. multi-device training over a rank mesh ---------------------------
     torch.set_grad_enabled(True)
     sharded_launches = phase_sharded(card, model, cam, cfg, setup)
+    log("sharded/launches", **sharded_launches)
 
     # --- 19. chunks of training steps as CUDA graphs ----------------------------
     t0 = time.perf_counter()

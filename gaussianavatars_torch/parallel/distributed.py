@@ -112,7 +112,9 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
 
 
 def shutdown() -> None:
-    """Leave the world (when in one)."""
+    """Leave the world (when in one). Drop every captured sharded step
+    first (`sharded.ShardedStep.drop`): NCCL waits for the graphs that
+    captured a communicator's collectives before it destroys it."""
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -139,12 +141,23 @@ def make_local_batch(mesh: RankMesh, cams, gt: torch.Tensor):
     return row, (gt if gt.shape[0] == 1 else gt[mesh.d:mesh.d + 1])
 
 
+def _capturing(x: torch.Tensor) -> bool:
+    """Whether `x` is a CUDA tensor and this thread's stream is capturing a
+    CUDA graph."""
+    return x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 class Collectives:
     """The collectives of the sharded step, with their bookkeeping.
 
     `stats[op]` holds the calls, the bytes (the operand: the gathered
     tensor of a gather, the input of a reduce-scatter) and, with `timed`,
     the host milliseconds from a synchronised start to a synchronised end.
+    A timed collective inside a CUDA graph capture raises (it would
+    synchronise). A captured step's collectives run at each replay, where
+    Python calls none: its owner takes their counts out of `stats` after
+    the capture (`since`) and adds them back a replay (`add`), so that
+    `stats` counts steps whether they ran eagerly or replayed.
     """
 
     def __init__(self, backend: str, timed: bool = False):
@@ -163,7 +176,28 @@ class Collectives:
     def reset(self) -> None:
         self.stats = {}
 
+    def snapshot(self) -> dict:
+        return {op: dict(s) for op, s in self.stats.items()}
+
+    def since(self, before: dict) -> dict:
+        """The calls and bytes by op recorded since `before` (a `snapshot`),
+        which `stats` is set back to."""
+        new = {op: {k: s[k] - before.get(op, {}).get(k, 0) for k in ("calls", "bytes")}
+               for op, s in self.stats.items()}
+        self.stats = before
+        return {op: s for op, s in new.items() if s["calls"]}
+
+    def add(self, counts: dict) -> None:
+        """Calls and bytes by op (`since`) into `stats`."""
+        for op, c in counts.items():
+            s = self.stats.setdefault(op, {"calls": 0, "bytes": 0, "ms": 0.0})
+            s["calls"] += c["calls"]
+            s["bytes"] += c["bytes"]
+
     def _record(self, op: str, nbytes: int, fn, x: torch.Tensor):
+        if self.timed and _capturing(x):
+            raise RuntimeError(f"a timed {op} cannot be captured in a CUDA graph "
+                               "(it synchronises); capture with timed=False")
         sync = self.timed and x.is_cuda
         if sync:
             torch.cuda.synchronize(x.device)

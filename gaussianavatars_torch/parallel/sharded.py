@@ -64,6 +64,14 @@ reduction (9 floats a Gaussian; a reduce-scatter and a 2-float gather
 under `gauss_shard`, after a 15-float gather), one world sum (the
 gradients, the statistics, the metrics and the contrastive thumbnail) and
 one world maximum (the radii and the budget flags).
+
+The JAX step is one `jax.jit` a step, its collectives inside. Its
+counterpart here is `ShardedStep`'s captured form: on the card, over NCCL
+and on the sorted pipeline, each rank captures its step once in a CUDA
+graph, the collectives above inside, and replays it once a step; the
+step's body reads nothing on the host (the row's fovs are Python floats
+of the graph's key, the timestep a device scalar). Elsewhere the step
+runs eagerly (`step_form`).
 """
 from __future__ import annotations
 
@@ -87,13 +95,14 @@ from ..ops.projection import Projected
 from ..ops.rasterize_sorted import rasterize_sorted
 from ..ops.rasterize_tiled import TileConfig, bin_gaussians, rasterize_binned
 from ..training import innovations as inn
-from ..training.checkpoint import flatten_state
+from ..training.checkpoint import _rebuild, flatten_state
 from ..training.loss import psnr
 from ..training.optim import tree_leaves, tree_map
 from ..training.trainer import (
-    ImageLoss, TrainState, _grads, _leaves, apply_updates, binding_regularisers,
-    flame_forward, geometry, screen_space,
+    CAMERA_TENSORS, CHUNK_WARMUP, ImageLoss, TrainState, _grads, _leaves, apply_updates,
+    binding_regularisers, flame_forward, geometry, screen_space,
 )
+from ..utils.graphs import GraphSlot, copy_in, warm_up
 from .distributed import Collectives
 from .mesh import RankMesh
 
@@ -101,7 +110,10 @@ from .mesh import RankMesh
 class CameraBatch(NamedTuple):
     """Per-view tensors of B cameras (the image size is shared; the fovs
     are per camera, so rigs with per-camera intrinsics project right).
-    `tan_half_fov*` are float64, the `Camera` properties' own values."""
+    The matrices and centres lie on the cameras' device; `timestep` and
+    `tan_half_fov*` are the batch's host copy (CPU tensors), which the
+    step reads without waiting for the device. `tan_half_fov*` are
+    float64, the `Camera` properties' own values."""
 
     world_view: torch.Tensor     # [B, 4, 4]
     proj: torch.Tensor           # [B, 4, 4]
@@ -119,15 +131,12 @@ def camera_batch(cams: list[Camera]) -> CameraBatch:
     def stack(f):
         return torch.stack([getattr(c, f) for c in cams])
 
-    dev = cams[0].device
     return CameraBatch(
         world_view=stack("world_view"), proj=stack("proj"), full_proj=stack("full_proj"),
         camera_center=stack("camera_center"),
-        timestep=torch.tensor([c.timestep for c in cams], dtype=torch.int32, device=dev),
-        tan_half_fovx=torch.tensor([c.tan_half_fovx for c in cams], dtype=torch.float64,
-                                   device=dev),
-        tan_half_fovy=torch.tensor([c.tan_half_fovy for c in cams], dtype=torch.float64,
-                                   device=dev),
+        timestep=torch.tensor([c.timestep for c in cams], dtype=torch.int32),
+        tan_half_fovx=torch.tensor([c.tan_half_fovx for c in cams], dtype=torch.float64),
+        tan_half_fovy=torch.tensor([c.tan_half_fovy for c in cams], dtype=torch.float64),
     )
 
 
@@ -215,13 +224,8 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
                             mesh: RankMesh, template_camera: Camera,
                             spatial_lr_scale: float = 1.0, gauss_shard: bool = False,
                             collectives: Optional[Collectives] = None):
-    """Build this rank's sharded train step.
-
-    Call: step(state, cams: CameraBatch [1] (this rank's data row,
-    `distributed.make_local_batch`), gt [1, H_pad, W, 3] (uint8 or float,
-    `pad_gt_for_mesh`), bg [3], sh_degree) → (new state, metrics). The
-    state is replicated and not modified; the new state is the same on
-    every rank. `step.collectives` keeps the collectives' bookkeeping.
+    """Build this rank's sharded train step, a `ShardedStep` (its call and
+    forms there).
 
     With `gauss_shard` the per-Gaussian geometry is also split over
     `tile` (the module docstring); the capacity must divide by n_tile.
@@ -238,6 +242,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
     lead = mesh.t == 0
     coll = collectives or Collectives(dist.get_backend())
     image_loss = ImageLoss(model, cfg)
+    band_shift = torch.tensor([[0.0, float(y0)]], device=template_camera.device)
 
     def shard_slice(tree, chunk: int):
         sl = slice(mesh.t * chunk, (mesh.t + 1) * chunk)
@@ -267,18 +272,13 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
                                          verts_cano, proj_full.radius > 0)
         return screen, screen_full, sum(reg_terms.values()), proj_full, reg_terms, verts[0]
 
-    def step(state: TrainState, cams: CameraBatch, gt: torch.Tensor, bg: torch.Tensor,
-             sh_degree: int = 0):
-        if cams.world_view.shape[0] != 1 or gt.shape[0] != 1:
-            raise ValueError("the sharded step takes this rank's data row (make_local_batch)")
-        cam = _DeviceCamera(
-            world_view=cams.world_view[0], proj=cams.proj[0], full_proj=cams.full_proj[0],
-            camera_center=cams.camera_center[0], tan_half_fovx=float(cams.tan_half_fovx[0]),
-            tan_half_fovy=float(cams.tan_half_fovy[0]), width=W, height=H)
-        ts = int(cams.timestep[0])
-        gt_full = gt_to_float(gt[0, :H])
+    def body(state: TrainState, cam: _DeviceCamera, ts, gt: torch.Tensor, bg: torch.Tensor,
+             sh_degree: int):
+        """The step of one camera row: (new state, metrics). `ts` is an int
+        or a 0-dim int64 tensor on the device (the same bits); `gt` is the
+        row's [H_pad, W, 3]. It reads nothing on the host."""
+        gt_full = gt_to_float(gt[:H])
         dev = gt_full.device
-        band_shift = torch.tensor([[0.0, float(y0)]], device=dev)
         params = _leaves(state.params)
         flame = _leaves(state.flame)
         color = _leaves(state.color_net)
@@ -406,5 +406,185 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
                                contrastive=new_contrastive, generator=state.generator, **new)
         return new_state, metrics
 
-    step.collectives = coll
-    return step
+    form = step_form(template_camera.device, coll.backend, use_sorted)
+    return ShardedStep(body, form, coll, (H, W))
+
+
+# The forms of a sharded step (`step_form`).
+CAPTURED = "captured"
+EAGER_CPU = "eager (cpu)"
+EAGER_GLOO = "eager (gloo)"
+EAGER_TABLE = "eager (table pipeline)"
+
+
+def step_form(device, backend: str, use_sorted: bool) -> str:
+    """The form of a sharded step, chosen by rule when it is built: captured
+    on the card over NCCL on the sorted pipeline, else eager: on the CPU;
+    under gloo, which stages every collective through host buffers, so that
+    a CUDA graph cannot hold it; on the table pipeline, whose captured form,
+    the fixed walk over every slot and tile, is many times slower a step
+    than the eager planned walk (`ops/rasterize_tiled.fixed_walk`)."""
+    if torch.device(device).type != "cuda":
+        return EAGER_CPU
+    if backend != "nccl":
+        return EAGER_GLOO
+    if not use_sorted:
+        return EAGER_TABLE
+    return CAPTURED
+
+
+def _check_row(cams: CameraBatch, gt: torch.Tensor) -> None:
+    if cams.world_view.shape[0] != 1 or gt.shape[0] != 1:
+        raise ValueError("the sharded step takes this rank's data row (make_local_batch)")
+
+
+class _StepBuffers:
+    """The static inputs of a captured sharded step: the state's leaves
+    (which every replay writes back in place), the row's camera tensors,
+    the timestep (a 0-dim int64 device tensor), the padded ground truth
+    [H_pad, W, 3] and the background; `key` is the graph's."""
+
+    def __init__(self, key, state: TrainState, cams: CameraBatch, gt: torch.Tensor,
+                 bg: torch.Tensor):
+        self.key = key
+        self.leaves = {k: torch.empty_like(v) for k, v in flatten_state(state).items()}
+        self.state = _rebuild(state, "", self.leaves)
+        self.inputs = {f: torch.empty_like(getattr(cams, f)[0]) for f in CAMERA_TENSORS}
+        self.inputs.update(timestep=torch.zeros((), dtype=torch.int64, device=bg.device),
+                           gt=torch.empty_like(gt[0]), bg=torch.empty_like(bg))
+        self.fill(state, cams, gt, bg)
+
+    def fill(self, state: TrainState, cams: CameraBatch, gt: torch.Tensor,
+             bg: torch.Tensor) -> None:
+        """The state (nothing to copy for a leaf that is its buffer) and the
+        row's inputs into the buffers, with no host synchronisation."""
+        copy_in(self.leaves, flatten_state(state))
+        copy_in(self.inputs, {**{f: getattr(cams, f)[0] for f in CAMERA_TENSORS},
+                              "timestep": int(cams.timestep[0]), "gt": gt[0], "bg": bg})
+
+
+class ShardedStep:
+    """This rank's sharded train step (`make_sharded_train_step`).
+
+    Call: step(state, cams: CameraBatch [1] (this rank's data row,
+    `distributed.make_local_batch`), gt [1, H_pad, W, 3] (uint8 or float,
+    `pad_gt_for_mesh`), bg [3], sh_degree) → (new state, metrics). The new
+    state is the same on every rank. `collectives` keeps the collectives'
+    bookkeeping. `form` (`step_form`) says how the step runs:
+
+      * captured, the port of the JAX step's `jax.jit`: the first
+        CHUNK_WARMUP calls with a key run `eager` on a side stream (kernel
+        libraries, NCCL's communicators and cached tables initialise
+        outside the capture); the next captures the step over static
+        buffers (`_StepBuffers`), its collectives inside, and it and every
+        later call copy their inputs into the buffers and replay the graph,
+        one launch from the host. The given state is consumed, as the JAX
+        step donates it: the returned state's tensors are the graph's
+        buffers, which the next call overwrites; handed back, they copy
+        nothing, and a leaf an event replaced is copied in. The key is (the
+        ground truth's shape and dtype, the row's fovs, sh_degree, the
+        state's leaf shapes and dtypes); another key, or `drop`, releases
+        the graph and its memory pool (a rig whose cameras have their own
+        intrinsics changes the key from view to view, so its steps are
+        mostly eager warm-up calls). A capture or replay that fails
+        raises: the step never falls back to eager calls. The collectives'
+        `stats` and the compositor launch counts grow a replay by the
+        step's own.
+      * eager (the CPU, gloo, the table pipeline): `eager`, every kernel
+        and collective issued from Python; the given state is not
+        modified.
+
+    `through_buffers` runs the captured form's body over its buffers
+    without a graph: the CPU tests hold it to `eager` bit for bit.
+
+    `drop` the step before the world is left (`distributed.shutdown`):
+    NCCL does not destroy a communicator while a graph that captured its
+    collectives lives, so the ranks would hang there."""
+
+    def __init__(self, body, form: str, collectives: Collectives, size: tuple):
+        self.body, self.form, self.collectives = body, form, collectives
+        self.height, self.width = size
+        self.slot = GraphSlot()
+        self.buffers: Optional[_StepBuffers] = None
+        self.names: list = []
+        self._per_replay: dict = {}
+        self._warm = (None, 0)   # (key, eager calls with it)
+
+    @property
+    def captures(self) -> int:
+        return self.slot.captures
+
+    def drop(self) -> None:
+        """Release the captured graph, its memory pool and the buffers."""
+        self.slot.drop()
+        self.buffers = None
+
+    def _camera(self, tensors: dict, fovx: float, fovy: float) -> _DeviceCamera:
+        return _DeviceCamera(**tensors, tan_half_fovx=fovx, tan_half_fovy=fovy,
+                             width=self.width, height=self.height)
+
+    def eager(self, state: TrainState, cams: CameraBatch, gt: torch.Tensor, bg: torch.Tensor,
+              sh_degree: int = 0):
+        """The plain version: the body on the row's own tensors."""
+        _check_row(cams, gt)
+        cam = self._camera({f: getattr(cams, f)[0] for f in CAMERA_TENSORS},
+                           float(cams.tan_half_fovx[0]), float(cams.tan_half_fovy[0]))
+        return self.body(state, cam, int(cams.timestep[0]), gt[0], bg, sh_degree)
+
+    def _key(self, state: TrainState, cams: CameraBatch, gt: torch.Tensor, sh_degree: int):
+        return (tuple(gt.shape), gt.dtype, float(cams.tan_half_fovx[0]),
+                float(cams.tan_half_fovy[0]), int(sh_degree),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in flatten_state(state).items()))
+
+    def _fill(self, key, state, cams, gt, bg) -> None:
+        if self.buffers is None or self.buffers.key != key:
+            self.buffers = _StepBuffers(key, state, cams, gt, bg)
+        else:
+            self.buffers.fill(state, cams, gt, bg)
+
+    def _buffer_body(self, sh_degree: int) -> torch.Tensor:
+        """One step over the buffers, the body the graph captures: the new
+        state written into the state's buffers; the metrics stacked [M]."""
+        b = self.buffers
+        cam = self._camera({f: b.inputs[f] for f in CAMERA_TENSORS}, b.key[2], b.key[3])
+        new, metrics = self.body(b.state, cam, b.inputs["timestep"], b.inputs["gt"],
+                                 b.inputs["bg"], sh_degree)
+        for name, x in flatten_state(new).items():
+            if x is not b.leaves[name]:
+                b.leaves[name].copy_(x)
+        self.names = list(metrics)
+        return torch.stack([metrics[k] for k in self.names])
+
+    def _out(self, stacked: torch.Tensor, generator):
+        return (dataclasses.replace(self.buffers.state, generator=generator),
+                dict(zip(self.names, stacked.clone().unbind())))
+
+    def through_buffers(self, state: TrainState, cams: CameraBatch, gt: torch.Tensor,
+                        bg: torch.Tensor, sh_degree: int = 0):
+        """The captured form's body over its buffers, run eagerly; the given
+        state is consumed as the captured form consumes it."""
+        _check_row(cams, gt)
+        self._fill(self._key(state, cams, gt, sh_degree), state, cams, gt, bg)
+        return self._out(self._buffer_body(sh_degree), state.generator)
+
+    def __call__(self, state: TrainState, cams: CameraBatch, gt: torch.Tensor, bg: torch.Tensor,
+                 sh_degree: int = 0):
+        if self.form != CAPTURED:
+            return self.eager(state, cams, gt, bg, sh_degree)
+        _check_row(cams, gt)
+        key = self._key(state, cams, gt, sh_degree)
+        g = self.slot.get(key)
+        if g is None:
+            n = self._warm[1] + 1 if self._warm[0] == key else 1
+            self._warm = (key, n)
+            if n <= CHUNK_WARMUP:
+                return warm_up(gt.device, lambda: self.eager(state, cams, gt, bg, sh_degree))
+            self._fill(key, state, cams, gt, bg)
+            before = self.collectives.snapshot()
+            g = self.slot.capture(key, lambda: self._buffer_body(sh_degree))
+            self._per_replay = self.collectives.since(before)
+        else:
+            self._fill(key, state, cams, gt, bg)
+        g.replay()
+        self.collectives.add(self._per_replay)
+        return self._out(g.outputs, state.generator)

@@ -67,6 +67,7 @@ def worker(a) -> None:
     backend = a.dist_backend or pdist.default_backend(a.device)
     pdist.initialize(a.coordinator_address, a.num_processes, a.process_id, backend=backend,
                      device=a.device)
+    step = None
     try:
         dev = pdist.rank_device(a.device)
         tile = TileConfig(tile_h=8, tile_w=16, capacity=128, max_tiles_per_gaussian=16)
@@ -111,6 +112,8 @@ def worker(a) -> None:
         if pdist.is_coordinator():
             print(f"[rank 0] done, losses {losses[0]:.5f} -> {losses[-1]:.5f}")
     finally:
+        if step is not None:
+            step.drop()
         pdist.shutdown()
 
 

@@ -1,17 +1,23 @@
 """Scaling harness: the sharded train step over growing rank meshes.
 
 The port of the JAX package's `scripts/scaling_bench.py`. For each mesh
-`DxT` of `--meshes` it starts D·T local ranks
+`DxT` of `--meshes` (default 1x1) it starts D·T local ranks
 (`parallel/distributed.launch`; the meshes of one world size share one
 launch), each building the benchmark avatar (`render.build_scene`: FLAME-
 bound, SH degree 3, 802×550 by default, probed tier budgets), and times
 the sharded step (`parallel/sharded.py`, `--gauss_shard` to shard the
-geometry too): steps/s and cameras/s on rank 0's host clock over `--iters`
-steps after a warm-up (synchronised at both ends), then `--coll_iters`
-steps with every collective timed (synchronised around each): the
-collectives' milliseconds and bytes a step. `--unsharded` times the
-single-device step on the same scene instead, in one launched process as
-fresh as a rank's: the denominator of the 1×1 mesh's overhead.
+geometry too) in the form the loop runs it (`ShardedStep.form`: captured
+in a CUDA graph on the card over NCCL, else eager) and its eager form
+beside it, in alternating blocks of `--iters` steps (form, eager, eager,
+form) after a warm-up (a captured step's capture included), each kind
+continuing its own state: steps/s and cameras/s on rank 0's host clock,
+synchronised around each block; then `--coll_iters` eager steps with
+every collective timed (synchronised around each): the collectives'
+milliseconds and bytes a step. `--unsharded` times the single-device step
+on the same scene instead, in one launched process as fresh as a rank's,
+in the form the single-device loop runs it (`trainer.make_train_chunk`,
+chunks of `--iters` steps) beside the eager step, in the same blocks: the
+yardstick a mesh's cameras/s is read against. It takes no mesh flags.
 
 On one card the ranks of a mesh share it: they time-share its SMs and
 its memory bandwidth, so a speed-up over 1×1 there is not scaling, and
@@ -43,17 +49,18 @@ def parse_args(argv=None):
     p.add_argument("--height", type=int, default=550)
     p.add_argument("--per_face", type=int, default=9,
                    help="Gaussians a face (9: the 90,090-Gaussian benchmark avatar)")
-    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--iters", type=int, default=20, help="steps a timed block")
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--coll_iters", type=int, default=3,
                    help="steps with every collective timed")
-    p.add_argument("--meshes", type=str, default="1x1",
-                   help="comma list like 1x1,1x2,2x2 (data x tile)")
+    p.add_argument("--meshes", type=str, default=None,
+                   help="comma list like 1x1,1x2,2x2 (data x tile); default 1x1")
     p.add_argument("--gauss_shard", action="store_true",
                    help="also shard per-Gaussian geometry over the tile axis")
     p.add_argument("--unsharded", action="store_true",
-                   help="time the single-device train step on the same scene instead: "
-                        "the mesh-(1,1) denominator")
+                   help="time the single-device train step on the same scene instead, "
+                        "chunked as the single-device loop runs it and eager: the "
+                        "yardstick of a mesh's cameras/s")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None)
     p.add_argument("--timeout", type=float, default=900.0,
@@ -88,7 +95,7 @@ def _sync(dev) -> None:
 
 
 def time_steps(run_step, state, n: int, dev) -> tuple:
-    """(state, seconds a step) over n steps, synchronised at both ends."""
+    """(state, seconds a call) over n calls, synchronised at both ends."""
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(n):
@@ -97,21 +104,67 @@ def time_steps(run_step, state, n: int, dev) -> tuple:
     return state, (time.perf_counter() - t0) / n
 
 
+BLOCKS = ("form", "eager", "eager", "form")
+
+
+def alternate(blocks: dict, state, steps: int, dev, on_block=None) -> dict:
+    """Seconds a step of each kind over BLOCKS, where `blocks[kind]`
+    (state) → state runs `steps` steps, each kind continuing its own chain
+    of states from `state`; `on_block(kind, before)` is called with True
+    before each block and False after it."""
+    states = dict.fromkeys(blocks, state)
+    secs: dict = {k: [] for k in blocks}
+    for kind in BLOCKS:
+        if on_block:
+            on_block(kind, True)
+        states[kind], dt = time_steps(blocks[kind], states[kind], 1, dev)
+        if on_block:
+            on_block(kind, False)
+        secs[kind].append(dt / steps)
+    return {k: sum(v) / len(v) for k, v in secs.items()}
+
+
+def _repeat(run_step, n: int):
+    def block(st):
+        for _ in range(n):
+            st = run_step(st)
+        return st
+    return block
+
+
+def _peak_mib(dev):
+    return torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else None
+
+
 def unsharded(a) -> dict:
     from ..parallel.distributed import rank_device
-    from ..training.trainer import make_train_step
+    from ..training.trainer import make_train_chunk, make_train_step, stack_cameras
 
     dev = rank_device(a.device)
     model, cfg, tile, state, cams, gt = scene(a, dev, 1)
     step = make_train_step(model, cfg, tile)
+    chunk = make_train_chunk(model, cfg, tile)
     bg = torch.zeros(3, device=dev)
+    views = timesteps = [0] * a.iters
+    stacked = stack_cameras(cams * a.iters)
 
-    def run(st):
+    def run_eager(st):
         return step(st, gt[0], cams[0], 0, bg, 3).state
 
-    state, _ = time_steps(run, state, a.warmup, dev)
-    _state, dt = time_steps(run, state, a.iters, dev)
-    return {"unsharded": {"ms": dt * 1e3, "steps_per_s": 1.0 / dt}}
+    def run_chunk(st):
+        return chunk(st, gt, views, stacked, timesteps, bg, 3)[0]
+
+    state, _ = time_steps(run_eager, state, a.warmup, dev)
+    run_chunk(state)   # a chunk with no graph yet captures one
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sec = alternate({"form": run_chunk, "eager": _repeat(run_eager, a.iters)}, state, a.iters,
+                    dev)
+    return {"unsharded": {"form": "chunk" if dev.type == "cuda" else "eager loop",
+                          "steps_per_call": a.iters, "captures": chunk.captures,
+                          "ms": sec["form"] * 1e3, "steps_per_s": 1.0 / sec["form"],
+                          "eager_ms": sec["eager"] * 1e3,
+                          "eager_steps_per_s": 1.0 / sec["eager"], "peak_mib": _peak_mib(dev)}}
 
 
 def worker(a) -> None:
@@ -125,6 +178,7 @@ def worker(a) -> None:
     from ..parallel.sharded import (
         camera_batch, make_sharded_train_step, pad_gt_for_mesh, padded_height,
     )
+    from ..training.trainer import CHUNK_WARMUP
 
     backend = a.dist_backend or pdist.default_backend(a.device)
     pdist.initialize(a.coordinator_address, a.num_processes, a.process_id, backend=backend,
@@ -147,19 +201,46 @@ def worker(a) -> None:
             def run(st):
                 return step(st, row_cams, row_gt, bg, 3)[0]
 
-            state, _ = time_steps(run, state, a.warmup, dev)
-            before = dict(cp.LAUNCHES)
-            state, dt = time_steps(run, state, a.iters, dev)
-            launches = {k: (v - before[k]) / a.iters for k, v in cp.LAUNCHES.items()
-                        if v != before[k]}
+            def run_eager(st):
+                return step.eager(st, row_cams, row_gt, bg, 3)[0]
+
+            state, _ = time_steps(run_eager, state, a.warmup, dev)
+            # The form's warm-up: a captured step's eager calls and its capture.
+            time_steps(run, state, CHUNK_WARMUP + 1, dev)
+            launches = dict.fromkeys(cp.LAUNCHES, 0)
+            calls = {}
+
+            def on_block(kind, before):
+                if kind != "form":
+                    return
+                sign = -1 if before else 1
+                for k, v in cp.LAUNCHES.items():
+                    launches[k] += sign * v
+                if before:
+                    coll.reset()
+                else:
+                    calls["form"] = coll.summary()["calls"] / a.iters
+
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            sec = alternate({"form": _repeat(run, a.iters), "eager": _repeat(run_eager, a.iters)},
+                            state, a.iters, dev, on_block=on_block)
+            n_form = a.iters * BLOCKS.count("form")
             coll.timed = True
             coll.reset()
-            state, _ = time_steps(run, state, a.coll_iters, dev)
+            time_steps(run_eager, state, a.coll_iters, dev)
             per = {k: v / a.coll_iters for k, v in coll.summary().items()}
-            out[m] = {"ms": dt * 1e3, "steps_per_s": 1.0 / dt, "cameras_per_s": d / dt,
+            step.drop()   # before the world is left
+            out[m] = {"form": step.form, "captures": step.captures,
+                      "ms": sec["form"] * 1e3, "steps_per_s": 1.0 / sec["form"],
+                      "cameras_per_s": d / sec["form"], "eager_ms": sec["eager"] * 1e3,
+                      "eager_steps_per_s": 1.0 / sec["eager"],
+                      "eager_cameras_per_s": d / sec["eager"],
                       "coll_ms": per["ms"], "coll_bytes": per["bytes"],
-                      "coll_calls": per["calls"], "launches_per_step": launches,
-                      "host_staged": coll.host_staged(dev), "backend": backend}
+                      "coll_calls": per["calls"], "coll_calls_form": calls["form"],
+                      "launches_per_step": {k: v / n_form for k, v in launches.items() if v},
+                      "peak_mib": _peak_mib(dev), "host_staged": coll.host_staged(dev),
+                      "backend": backend}
         with open(os.path.join(a.worker, f"rank{mesh.rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -168,6 +249,10 @@ def worker(a) -> None:
 
 def main(argv=None) -> dict:
     a = parse_args(argv)
+    if a.unsharded and (a.meshes is not None or a.gauss_shard):
+        raise ValueError("--unsharded times the single-device step alone: it takes no "
+                         "--meshes or --gauss_shard")
+    a.meshes = a.meshes or "1x1"
     if a.worker:
         worker(a)
         return {}
@@ -189,8 +274,10 @@ def main(argv=None) -> dict:
 
     if a.unsharded:
         res = run(1, ["--unsharded"])[0]
-        dt = res["unsharded"]["ms"] / 1e3
-        print(f"unsharded step: {dt * 1e3:8.2f} ms/iter ({1.0 / dt:6.2f} iters/s)")
+        r = res["unsharded"]
+        print(f"unsharded step ({r['form']}, {r['steps_per_call']} steps a call): "
+              f"{r['ms']:8.2f} ms/iter ({r['steps_per_s']:6.2f} iters/s); eager "
+              f"{r['eager_ms']:8.2f} ms/iter ({r['eager_steps_per_s']:6.2f} iters/s)")
         return res
     shapes = [tuple(int(x) for x in m.lower().split("x")) for m in a.meshes.split(",")]
     sizes = sorted({d * t for d, t in shapes})
@@ -209,11 +296,12 @@ def main(argv=None) -> dict:
             results[m] = res
             note = (f"  [{size} ranks time-share {cards} card(s): not scaling]"
                     if res["time_shared"] else "")
-            print(f"mesh {m} ({backend}{', gauss_shard' if a.gauss_shard else ''}): "
-                  f"{res['ms']:8.2f} ms/iter ({res['steps_per_s']:6.2f} iters/s, "
-                  f"{res['cameras_per_s']:6.2f} cameras/s), collectives "
-                  f"{res['coll_ms']:.2f} ms and {res['coll_bytes'] / 2**20:.2f} MiB a step"
-                  f"{note}")
+            print(f"mesh {m} ({backend}{', gauss_shard' if a.gauss_shard else ''}, "
+                  f"{res['form']}): {res['ms']:8.2f} ms/iter ({res['steps_per_s']:6.2f} "
+                  f"iters/s, {res['cameras_per_s']:6.2f} cameras/s; eager "
+                  f"{res['eager_cameras_per_s']:6.2f} cameras/s), collectives "
+                  f"{res['coll_ms']:.2f} ms (eager, timed) and "
+                  f"{res['coll_bytes'] / 2**20:.2f} MiB a step{note}")
     if "1x1" in results:
         base = results["1x1"]["steps_per_s"]
         for m, r in results.items():

@@ -17,7 +17,13 @@ metrics of each step, the state digest after each step
 (`sharded.state_digest`), rank 0's state leaves as numpy
 (`checkpoint.flatten_state`) after the first step and the last, the compositor launches of each
 step, each step's milliseconds (synchronised) and the collectives'
-calls, bytes and milliseconds a step (timed with `--timed`).
+calls, bytes and milliseconds a step (timed with `--timed`), and the
+step's form and captures. The steps run in the step's own form
+(`sharded.ShardedStep`: captured on the card over NCCL); a captured form's
+steps run a second time eagerly from the same state (`eager_digests`,
+`eager_metrics`). A case with `buffer_body` set runs its steps a second
+time through the captured form's body over its buffers, without a graph
+(`ShardedStep.through_buffers`): `buffer_digests` and `buffer_metrics`.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from ..ops import composite_pairs as cp
 from ..parallel import distributed as pdist
 from ..parallel.mesh import make_rank_mesh
 from ..parallel.sharded import (
-    camera_batch, make_sharded_train_step, pad_gt_for_mesh, padded_height, state_digest,
+    CAPTURED, camera_batch, make_sharded_train_step, pad_gt_for_mesh, padded_height, state_digest,
 )
 from ..training.checkpoint import flatten_state
 from ..training.optim import tree_map
@@ -114,6 +120,19 @@ def run_rank(case: dict, mesh, gauss_shard: bool, backend: str, timed: bool) -> 
     if mesh.rank == 0:
         out["state"] = {k: v.detach().cpu().numpy() for k, v in flatten_state(state).items()}
     out["host_staged"] = step.collectives.host_staged(row_gt.device)
+    out["form"], out["captures"] = step.form, step.captures
+    again = {"eager": step.form == CAPTURED and step.eager,
+             "buffer": case.get("buffer_body") and step.through_buffers}
+    for name, fn in again.items():
+        if not fn:
+            continue
+        state = case["state"]
+        out[f"{name}_metrics"], out[f"{name}_digests"] = [], []
+        for _ in range(case["steps"]):
+            state, metrics = fn(state, row_cams, row_gt, case["bg"], case["sh_degree"])
+            out[f"{name}_metrics"].append({k: float(v) for k, v in metrics.items()})
+            out[f"{name}_digests"].append(state_digest(state))
+    step.drop()   # before the world is left
     return out
 
 

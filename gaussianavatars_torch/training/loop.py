@@ -880,7 +880,7 @@ def train(
     bg = _background(cfg, dev)
     if steps_per_call > 1 and len({(c.fovx, c.fovy) for c in scene.cameras("train")}) > 1:
         print("[warn] per-camera intrinsics detected — disabling chunks (single-step "
-              "dispatch; train_sharded supports mixed intrinsics at full speed)")
+              "dispatch; train_sharded takes mixed intrinsics)")
         steps_per_call = 1
 
     step = chunk = None
@@ -1008,7 +1008,12 @@ def train_sharded(
     At the log cadence every rank checks that all hold the same state
     (`state_digest` in the log record); they raise when one has drifted.
     `collectives` (default: a new `Collectives` on the world's backend)
-    keeps the step's collective bookkeeping."""
+    keeps the step's collective bookkeeping.
+
+    On the card over NCCL on the sorted pipeline each step is one replay of
+    a captured CUDA graph (`sharded.ShardedStep`, one graph a scale; a drop
+    releases its memory pool), and the work around it reads nothing on the
+    host: only the log cadence does. The step's form is printed once."""
     from ..parallel.distributed import (
         Collectives, CoordinatorHold, is_coordinator, make_local_batch,
     )
@@ -1034,6 +1039,7 @@ def train_sharded(
                                   verbose=coord)
     bg = _background(cfg, dev)
     steps: Dict[float, Callable] = {}
+    form = None
     sources = _ScaleSources(harness, recs, seed, device_cache_bytes, prefetch_workers,
                             batch=mesh.data)
     render_fn = make_render_fn(model, cfg, tcfg)
@@ -1051,7 +1057,8 @@ def train_sharded(
             if o.use_progressive_resolution:
                 scale = resolution_scale_at(it, o.resolution_schedule, o.resolution_milestones)
                 for d in sources.evict_past(it):
-                    steps.pop(d, None)
+                    if d in steps:
+                        steps.pop(d).drop()
             # The same views in every rank (the samplers are seeded alike);
             # each rank keeps its own row's ground truth.
             views, gt, cams_all = sources.draw(1.0 / scale, it, row=mesh.d)
@@ -1060,6 +1067,9 @@ def train_sharded(
                 steps[1.0 / scale] = make_sharded_train_step(
                     model, cfg, tcfg, mesh, template, spatial_lr_scale=harness.spatial_lr_scale,
                     gauss_shard=gauss_shard, collectives=coll)
+                if coord and form is None:
+                    form = steps[1.0 / scale].form
+                    print(f"[mesh {mesh.data}x{mesh.tile}] sharded step: {form}")
             step = steps[1.0 / scale]
             hp = padded_height(template.height, tcfg.tile_h, mesh.tile)
             cams, gt = make_local_batch(mesh, camera_batch([cams_all[v] for v in views]),
@@ -1083,6 +1093,8 @@ def train_sharded(
                                     cached_scales=sources.scales())
                 if grown is not None:
                     tcfg = grown
+                    for st in steps.values():
+                        st.drop()
                     steps.clear()
                     render_fn = make_render_fn(model, cfg, tcfg)
 
@@ -1096,6 +1108,8 @@ def train_sharded(
             if it % log_every == 0 or it == iterations:
                 logs[-1]["state_digest"] = _same_state_everywhere(harness.state, coll)
     finally:
+        for st in steps.values():   # before the world is left (`ShardedStep.drop`)
+            st.drop()
         sources.close()
         if writer:
             writer.close()

@@ -7,6 +7,8 @@ same work in one CUDA graph and replay it, so that the host issues one
 replay where it would issue hundreds of kernels:
 
   * `training/trainer.TrainChunk`, a step replayed K times a chunk;
+  * `parallel/sharded.ShardedStep`, a rank's sharded step, its NCCL
+    collectives inside, replayed once a step;
   * `FrameGraph`, a frame replayed once a call: `training/loop.make_render_fn`
     (eval, `tools/render`, the viewer server) and `render.AvatarRenderer`;
   * `tools/fps_benchmark_demo.run_chain`, the FPS benchmarks' frame chain.
@@ -75,7 +77,12 @@ class Captured:
     `outputs` is what fn returned during the capture: static tensors that
     every `replay` rewrites. The capture itself launches nothing, so the
     compositor launch counts it recorded are taken back and added once a
-    replay instead."""
+    replay instead. The capture refuses an unsafe CUDA call (a host read,
+    a synchronisation) made by this thread only ("thread_local"): other
+    threads of the process make CUDA calls while it runs (NCCL's watchdog
+    querying its collectives' events, the loop's prefetch workers copying
+    ground truth to the card), which the default global mode would turn
+    into a failed capture."""
 
     def __init__(self, key, fn: Callable):
         launches = composite_pairs.LAUNCHES
@@ -83,7 +90,7 @@ class Captured:
         self.key = key
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 self.outputs = fn()
             self.per_replay = {k: launches[k] - before[k] for k in launches}
         finally:

@@ -53,9 +53,10 @@ from gaussianavatars_torch import config as tconfig
 from gaussianavatars_torch.convert import flame_assets_from_numpy, train_state_from_numpy
 from gaussianavatars_torch.models.flame import flame_model as tfm
 from gaussianavatars_torch.ops.rasterize_tiled import TileConfig
+from gaussianavatars_torch.parallel import distributed as pdist
 from gaussianavatars_torch.parallel import mesh as tmesh
 from gaussianavatars_torch.parallel import sharded as tsh
-from gaussianavatars_torch.tools import sharded_steps
+from gaussianavatars_torch.tools import scaling_bench, sharded_steps
 from gaussianavatars_torch.training import trainer as ttrainer
 from torch_parity import clamped_sphere_assets, n, torch_camera
 
@@ -268,12 +269,16 @@ def port_single(c: dict) -> list:
         for i, cam in enumerate(case["cameras"]))]
 
 
-def run_mesh(mesh: str, tmp_dir, gauss_shards=(False,)) -> dict:
+def run_mesh(mesh: str, tmp_dir, gauss_shards=(False,), buffer_body=()) -> dict:
     """Every case on `mesh`: the port's ranks (one launch: a run for each
     `gauss_shard` setting) run in a thread while this process computes the
-    JAX sharded step and the port's single-device steps."""
+    JAX sharded step and the port's single-device steps. The cases named in
+    `buffer_body` also run through the captured form's body over its
+    buffers in the ranks (`sharded_steps`)."""
     d, t = (int(x) for x in mesh.split("x"))
     cases = [build_case(name, d, tmp_dir) for name in CASES]
+    for c in cases:
+        c["case"]["buffer_body"] = c["name"] in buffer_body
 
     def ranks():
         runs = [mesh + (":gauss_shard" if gs else "") for gs in gauss_shards]
@@ -354,7 +359,8 @@ def check_case(run: dict, i: int, gauss_shard: bool = False) -> None:
 
 @pytest.fixture(scope="module")
 def run_1x4(tmp_path_factory):
-    return run_mesh("1x4", tmp_path_factory.mktemp("sphere"), gauss_shards=(False, True))
+    return run_mesh("1x4", tmp_path_factory.mktemp("sphere"), gauss_shards=(False, True),
+                    buffer_body=("flame_laplacian",))
 
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=CASES)
@@ -380,3 +386,46 @@ def test_collectives_a_step(run_1x4):
     gs = run_1x4["ranks"][True][0]["results"][0]["collectives"][0]
     assert gs["reduce_scatter"]["bytes"] == cap * 9 * 4
     assert gs["all_gather"]["calls"] == 3
+
+
+@pytest.mark.parametrize("gauss_shard", [False, True])
+def test_buffer_body_in_the_1x4_ranks(run_1x4, gauss_shard):
+    """The FLAME-bound case through the captured form's body over its
+    buffers (run eagerly on the CPU) in every rank of the 1×4 launch: the
+    eager ranks' digests and metrics after every step, bit for bit."""
+    i = CASES.index("flame_laplacian")
+    for r in run_1x4["ranks"][gauss_shard]:
+        res = r["results"][i]
+        assert res["form"] == "eager (cpu)" and res["captures"] == 0
+        assert res["buffer_digests"] == res["digests"]
+        assert res["buffer_metrics"] == res["metrics"]
+    assert "buffer_digests" not in run_1x4["ranks"][gauss_shard][0]["results"][0]
+
+
+# ----------------------------------------------------------- the forms
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("use_sorted", [True, False])
+def test_step_form_rule(device, backend, use_sorted):
+    """Captured only on the card over NCCL on the sorted pipeline."""
+    want = (tsh.EAGER_CPU if device == "cpu" else tsh.EAGER_GLOO if backend == "gloo"
+            else tsh.CAPTURED if use_sorted else tsh.EAGER_TABLE)
+    assert tsh.step_form(torch.device(device), backend, use_sorted) == want
+
+
+def test_timed_collective_raises_inside_a_capture(monkeypatch):
+    coll = pdist.Collectives("nccl", timed=True)
+    monkeypatch.setattr(pdist, "_capturing", lambda x: True)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        coll.all_reduce(torch.ones(3))
+    assert coll.stats == {}
+
+
+@pytest.mark.parametrize("flags", [["--meshes", "1x2"], ["--meshes", "1x1"], ["--gauss_shard"]])
+def test_scaling_bench_unsharded_refuses_mesh_flags(flags):
+    """`--unsharded` times one process's single step: mesh flags with it
+    raise before anything starts."""
+    with pytest.raises(ValueError, match="--unsharded"):
+        scaling_bench.main(["--unsharded", *flags, "--device", "cpu"])

@@ -2,18 +2,23 @@
 bands a camera) against the JAX sharded step on 2×2 and the port's
 single-device step, in the cases and at the bounds of
 `test_torch_sharded.py`; and the 1×1 mesh of a one-rank gloo world in
-this process, whose step is the single-device step's, bit for bit."""
+this process, whose step is the single-device step's, bit for bit, and
+whose captured form's body over its buffers, run eagerly, is the eager
+step's bit for bit and within JAX's bounds of the JAX sharded step on 1×1."""
+import dataclasses
+
 import jax
 import pytest
 import torch
 import torch.distributed as dist
 
+from gaussianavatars_torch.models.densify import reset_opacity
 from gaussianavatars_torch.parallel import distributed as pdist
 from gaussianavatars_torch.parallel import mesh as tmesh
 from gaussianavatars_torch.parallel import sharded as tsh
 from gaussianavatars_torch.training import trainer as ttrainer
 from gaussianavatars_torch.training.checkpoint import flatten_state
-from test_torch_sharded import CASES, build_case, check_case, run_mesh
+from test_torch_sharded import CASES, build_case, check_case, jax_sharded, port_single, run_mesh
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -71,3 +76,73 @@ def test_1x1_step_is_the_single_device_step(one_rank_world, name, tmp_path):
     assert tsh.state_digest(a) == tsh.state_digest(b)
     stats = step.collectives.stats
     assert stats["all_gather"]["calls"] == 2 and stats["all_reduce_sum"]["calls"] == 4
+
+
+def _opacity_reset(state):
+    params, mu, nu = reset_opacity(state.params, state.adam.mu, state.adam.nu)
+    return dataclasses.replace(state, params=params, adam=state.adam._replace(mu=mu, nu=nu))
+
+
+@pytest.mark.parametrize("name", ["unbound", "flame_laplacian", "innovations"])
+def test_1x1_buffer_body_is_the_eager_step(one_rank_world, name, tmp_path):
+    """Three steps through the captured form's body over its buffers (run
+    eagerly: the CPU has no graphs), an opacity reset between the second
+    and the third, against three eager sharded steps: bit for bit, the
+    metrics and every leaf; the first step within JAX's bounds of the JAX
+    sharded step on a 1×1 mesh, at timestep 1 (the buffers' device
+    timestep selects the FLAME row)."""
+    c = build_case(name, 1, tmp_path)
+    case = c["case"]
+    c["jcams"] = [dataclasses.replace(x, timestep=1) for x in c["jcams"]]
+    case["cameras"] = [dataclasses.replace(x, timestep=1) for x in case["cameras"]]
+    cam, tile = case["cameras"][0], case["tile"]
+    step = tsh.make_sharded_train_step(case["model"], case["cfg"], tile, one_rank_world, cam,
+                                       collectives=pdist.Collectives("gloo"))
+    assert step.form == tsh.EAGER_CPU
+    cams, gt = pdist.make_local_batch(one_rank_world, tsh.camera_batch([cam]),
+                                      tsh.pad_gt_for_mesh(case["gt"], cam.height))
+    a = b = case["state"]
+    res = {"digests": [], "metrics": []}
+    with torch.no_grad():
+        for i in range(3):
+            if i == 2:
+                a, b = _opacity_reset(a), _opacity_reset(b)
+            a, ma = step.eager(a, cams, gt, case["bg"], 0)
+            b, mb = step.through_buffers(b, cams, gt, case["bg"], 0)
+            assert list(mb) == list(ma)
+            for k in ma:
+                assert mb[k].dtype == ma[k].dtype and torch.equal(mb[k], ma[k]), (i, k)
+            fa, fb = flatten_state(a), flatten_state(b)
+            assert list(fa) == list(fb)
+            for k in fa:
+                assert torch.equal(fb[k], fa[k]), (i, k)
+            res["digests"].append(tsh.state_digest(b))
+            res["metrics"].append({k: float(v) for k, v in mb.items()})
+            if i == 0:
+                res["state_first"] = {k: v.numpy().copy() for k, v in fb.items()}
+    # The buffers hold the state: handed back, nothing is copied in.
+    assert all(x is y for x, y in zip(flatten_state(b).values(), step.buffers.leaves.values()))
+    with torch.no_grad():
+        singles = port_single(c)
+    case["steps"] = 3
+    check_case({"cases": [c], "ranks": {False: [{"results": [res]}]},
+                "jax": [jax_sharded(c, 1, 1, {})], "singles": [singles]}, 0)
+
+
+def test_collective_counts_of_a_captured_step(one_rank_world):
+    """A captured step's collectives leave `stats` (`since`) and come back
+    once a replay (`add`): `stats` counts steps, eager or replayed."""
+    coll = pdist.Collectives("gloo")
+    x = torch.ones(5)
+    coll.all_reduce(x)
+    before = coll.snapshot()
+    coll.all_reduce(x)
+    coll.all_gather(x, one_rank_world.tile_group)
+    per = coll.since(before)
+    assert coll.stats == before and coll.stats["all_reduce_sum"]["calls"] == 1
+    assert per == {"all_reduce_sum": {"calls": 1, "bytes": 20},
+                   "all_gather": {"calls": 1, "bytes": 20}}
+    coll.add(per)
+    coll.add(per)
+    assert coll.stats["all_reduce_sum"]["calls"] == 3
+    assert coll.stats["all_gather"] == {"calls": 2, "bytes": 40, "ms": 0.0}
