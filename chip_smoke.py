@@ -121,7 +121,11 @@ non-zero):
  16. cli      — the training CLI, `tools.train.main` in-process: FLAME-bound
                 on phase 12's dataset (802×550, 300 iterations: an opacity
                 reset at 200, a densify event at 250, evals and checkpoints
-                at 150 and 300) with the viewer server on a free port and a
+                at 150 and 300) with `--flame_assets` the npz that the
+                port's `convert_flame_pickle` made from FLAME-2023-shaped
+                files written from the synthetic assets the CLI would fall
+                back to (phase 21's files: no fallback warning, the part
+                masks loaded) and the viewer server on a free port and a
                 `RemoteClient` thread that holds the loop (its splat frame
                 equal byte for byte to `make_render_fn` on the held state,
                 its mesh frame different, `num_points` the live count, the
@@ -256,6 +260,24 @@ non-zero):
                 the same events, one capacity doubling, the losses at rtol
                 1e-4, steps/s of both. `--frames_only` runs phases 1, 2, 12
                 and 20 alone.
+ 21. flame_import — the real-FLAME import (written before phase 16, which
+                trains on it): a FLAME-2023-shaped model pickle (float64,
+                shapedirs [5023, 3, 400], posedirs [5023, 3, 36], a
+                scipy-sparse J_regressor, a kintree_table) made from
+                `synthetic_assets(300, 100, seed=0)`, its template OBJ, a
+                masks pickle with FLAME_masks.pkl's part names and a 68-point
+                landmark embedding, converted by `convert_flame_pickle`;
+                every array loaded back equal to the one written. Then on
+                that npz: the FLAME forward with teeth, landmarks, the
+                shaped canonical vertices and root centring over 8
+                timesteps, on the card against the CPU (1e-5 of each
+                output's largest magnitude), timed with and without the
+                flags; `project_gaussians` on the benchmark avatar (90,090
+                Gaussians, 802×550) against the sorted path's
+                `project_from_params` (the same bits) and against the CPU
+                (1e-5 relative), both timed. `--flame_only` runs phases 1,
+                2, 16's FLAME-bound run (on phase 12's dataset, written and
+                not fitted) and 21 alone.
 
 The last two lines are the kernels' JSON record (every C entry point of the
 compositor, the `amp` ones marked) and
@@ -266,6 +288,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -2535,11 +2558,27 @@ def recorded_events(events) -> set:
             if e["kind"] in ("densify", "opacity_reset", "eval", "save", "checkpoint")}
 
 
-def cli_flame(card) -> dict:
+class Tee(io.TextIOBase):
+    """Standard output that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.seen = out, []
+
+    def write(self, text: str) -> int:
+        self.seen.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def cli_flame(card, flame_npz: str, parts: dict) -> dict:
     """Phase 16, FLAME-bound: `tools.train.main` on phase 12's dataset at
-    802×550 with the GUI on a free port and a viewer holding the loop,
-    finite checks from `--debug_from` on, then a short `--detect_anomaly`
-    run, then `tools.render` and `tools.metrics` on the model directory."""
+    802×550 with `--flame_assets flame_npz` (phase 21's converted pickle),
+    the GUI on a free port and a viewer holding the loop, finite checks
+    from `--debug_from` on, then a short `--detect_anomaly` run, then
+    `tools.render` and `tools.metrics` on the model directory."""
+    import contextlib
     import threading
 
     from gaussianavatars_torch.ops import composite_pairs as cp
@@ -2551,8 +2590,9 @@ def cli_flame(card) -> dict:
 
     model_dir = os.path.join(CLI_DIR, "flame")
     argv = ["-s", LOOP_WORKDIR, "-m", model_dir, *CLI_FLAME_FLAGS, "--port", str(free_port()),
-            "--device", CLI_DEVICE]
+            "--device", CLI_DEVICE, "--flame_assets", flame_npz]
     a = ttrain.parse_args(argv)
+    out = Tee(sys.stdout)
     captured, box, served, checks_run = {}, {}, [], []
     build, service, check = ttrain.build_harness, gui.TrainingGuiServer.service, loop.assert_finite
 
@@ -2579,7 +2619,8 @@ def cli_flame(card) -> dict:
     client.start()
     t0 = time.perf_counter()
     try:
-        h, logs = ttrain.main(argv)
+        with contextlib.redirect_stdout(out):
+            h, logs = ttrain.main(argv)
     finally:
         ttrain.build_harness, gui.TrainingGuiServer.service, loop.assert_finite = (
             build, service, check)
@@ -2590,6 +2631,17 @@ def cli_flame(card) -> dict:
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     if client.is_alive() or "error" in box:
         raise AssertionError(f"cli/flame: the viewer failed: {box.get('error', 'hung')}")
+    # The fit read the converted npz: no fallback warning, and the model
+    # holds the regions that only the masks pickle gives.
+    fallback = any("no FLAME assets npz" in line for line in "".join(out.seen).splitlines())
+    masks = h.model.assets.vertex_masks
+    read = dict(flame_assets=flame_npz, fallback_warning=fallback,
+                parts_loaded=all(np.array_equal(masks[k], v) for k, v in parts.items()),
+                regions_from_parts=sorted(set(masks) & {"ears", "eyeballs", "hair", "skin"}),
+                verts=h.model.num_verts, faces=h.model.num_faces)
+    log("cli/flame_assets", **read)
+    if fallback or not read["parts_loaded"] or len(read["regions_from_parts"]) != 4:
+        raise AssertionError(f"cli/flame did not train on the converted assets: {read}")
     events = h.events
     eval_views = sum(e.get("n", 0) for e in events if e["kind"] == "eval")
     expect = {"composite_pairs_fwd": a.iterations + eval_views + box["fwd_launches"],
@@ -2819,7 +2871,7 @@ def phase_cli(card, fitted) -> dict:
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     os.makedirs(CLI_DIR)
-    got = cli_flame(card)
+    got = cli_flame(card, *flame_files(card))
 
     # --- unbound, Blender layout --------------------------------------------------
     t0 = time.perf_counter()
@@ -2857,6 +2909,177 @@ def phase_cli(card, fitted) -> dict:
     for k in got:
         got[k] += b_got[k] + c_got[k]
     return got
+
+
+# --- 21. the real-FLAME import -------------------------------------------------
+
+FLAME_DIR = os.path.join("build", "chip_smoke", "flame_import")
+FLAME_NPZ = os.path.join(FLAME_DIR, "flame2023.npz")
+# The part names of the licensed FLAME_masks.pkl.
+FLAME_PARTS = ("eye_region", "neck", "left_eyeball", "right_eyeball", "right_ear",
+               "left_ear", "forehead", "lips", "nose", "scalp", "boundary", "face",
+               "left_eye_region", "right_eye_region")
+N_LANDMARK_STEPS = 8      # timesteps of the landmark forward
+N_FLAME_REPS = 20         # forwards a timing
+
+
+def write_obj(path: str, verts, uvs, faces, faces_uv) -> None:
+    """An OBJ with positions, UVs and `f v/vt` triangles (float32 exact)."""
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in verts)
+        f.writelines(f"vt {u:.9g} {v:.9g}\n" for u, v in uvs)
+        f.writelines(f"f {a + 1}/{ta + 1} {b + 1}/{tb + 1} {c + 1}/{tc + 1}\n"
+                     for (a, b, c), (ta, tb, tc) in zip(faces, faces_uv))
+
+
+def flame_files(card) -> tuple:
+    """FLAME-2023-shaped files made from `synthetic_assets(300, 100, seed=0)`
+    (what `tools.train` falls back to without `--flame_assets`), as the
+    licensed ones are laid out: the model pickle (float64, shapedirs
+    [V, 3, 400], posedirs [V, 3, 36], a scipy-sparse J_regressor, a
+    kintree_table), the template OBJ, a masks pickle (FLAME_PARTS' names,
+    vertex sets drawn from a seed) and a 68-point landmark embedding.
+    Converted by the port's `convert_flame_pickle`; every array loaded back
+    must equal the one written. Returns (npz path, the part masks)."""
+    import pickle
+
+    import scipy.sparse
+
+    from gaussianavatars_torch.models.flame.assets import (
+        convert_flame_pickle, load_assets, synthetic_assets,
+    )
+
+    shutil.rmtree(FLAME_DIR, ignore_errors=True)
+    os.makedirs(FLAME_DIR)
+    t0 = time.perf_counter()
+    a = synthetic_assets(n_shape=300, n_expr=100, seed=0)
+    v, f64 = a.num_verts, np.float64
+    obj = os.path.join(FLAME_DIR, "head_template_mesh.obj")
+    write_obj(obj, a.v_template, a.verts_uvs, a.faces, a.faces_uv)
+    model = {
+        "v_template": a.v_template.astype(f64),
+        "shapedirs": a.shapedirs.astype(f64),
+        "posedirs": a.posedirs.T.reshape(v, 3, -1).astype(f64),
+        "J_regressor": scipy.sparse.csc_matrix(a.j_regressor.astype(f64)),
+        "kintree_table": np.stack([np.where(a.parents < 0, 2**32 - 1, a.parents),
+                                   np.arange(len(a.parents))]).astype(np.int64),
+        "weights": a.lbs_weights.astype(f64),
+        "f": a.faces.astype(np.uint32),
+    }
+    pkl = os.path.join(FLAME_DIR, "flame2023.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(model, f, protocol=2)
+    rng = np.random.RandomState(21)
+    parts = {k: np.sort(rng.choice(v, 300, replace=False)) for k in FLAME_PARTS}
+    masks_pkl = os.path.join(FLAME_DIR, "FLAME_masks.pkl")
+    with open(masks_pkl, "wb") as f:
+        pickle.dump(parts, f, protocol=2)
+    lmk = os.path.join(FLAME_DIR, "landmark_embedding.npy")
+    np.save(lmk, {"full_lmk_faces_idx": a.lmk_faces_idx[None].astype(np.int64),
+                  "full_lmk_bary_coords": a.lmk_bary_coords[None].astype(f64)},
+            allow_pickle=True)
+    written_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npz = convert_flame_pickle(pkl, obj, FLAME_NPZ, masks_pkl=masks_pkl, lmk_embedding_npy=lmk)
+    convert_s = time.perf_counter() - t0
+    b = load_assets(npz)
+    differ = [k for k in a._fields if k not in ("vertex_masks", "n_shape")
+              and not np.array_equal(getattr(a, k), getattr(b, k))]
+    differ += [] if a.n_shape == b.n_shape else ["n_shape"]
+    want = {**a.vertex_masks, **{k: p.astype(np.int32) for k, p in parts.items()}}
+    differ += [f"mask_{k}" for k, m in want.items()
+               if k not in b.vertex_masks or not np.array_equal(b.vertex_masks[k], m)]
+    res = dict(npz=npz, npz_mib=os.path.getsize(npz) / 2**20, pickle_mib=os.path.getsize(pkl)
+               / 2**20, verts=b.num_verts, faces=b.num_faces, shapedirs=list(b.shapedirs.shape),
+               posedirs=list(b.posedirs.shape), landmarks=len(b.lmk_faces_idx),
+               masks=len(b.vertex_masks), keys_compared=len(a._fields) - 1 + len(want),
+               keys_differ=differ, write_s=written_s, convert_s=convert_s,
+               card=card["nvidia_smi"])
+    log("flame_import/files", **res)
+    if differ or b.num_verts != 5023 or b.shapedirs.shape[-1] != 400 or len(b.lmk_faces_idx) != 68:
+        raise AssertionError(f"flame_import/files: {res}")
+    return npz, parts
+
+
+def phase_flame_import(card, npz: str, scene) -> dict:
+    """Phase 21 on the converted npz: the FLAME forward with landmarks and
+    root centring over N_LANDMARK_STEPS timesteps, teeth added, on the card
+    against the CPU (1e-5 of each output's largest magnitude); then
+    `project_gaussians` on the benchmark avatar (`scene`: `render.build_scene`)
+    against the sorted path's `project_from_params` (the same bits), and on
+    the card against the CPU (1e-5 relative)."""
+    from gaussianavatars_torch.models.binding import face_frames
+    from gaussianavatars_torch.models.flame.assets import load_assets
+    from gaussianavatars_torch.models.flame.flame_model import (
+        FlameConfig, FlameModel, FlameParams,
+    )
+    from gaussianavatars_torch.models.gaussians import world_gaussians
+    from gaussianavatars_torch.ops.projection import project_from_params, project_gaussians
+    from gaussianavatars_torch.ops.quaternion import covariance_from_scaling_rotation
+
+    t0 = time.perf_counter()
+    assets = load_assets(npz)
+    cfg = FlameConfig(n_shape=300, n_expr=100, add_teeth=True)
+    card_model = FlameModel(assets, cfg, device="cuda")
+    cpu_model = FlameModel(assets, cfg, device="cpu")
+    rng = np.random.RandomState(31)
+    b = N_LANDMARK_STEPS
+
+    def r(*shape, scale=0.2):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(np.float32))
+
+    host = FlameParams(shape=r(300, scale=1.0), expr=r(b, 100, scale=1.0), rotation=r(b, 3),
+                       neck=r(b, 3), jaw=r(b, 3), eyes=r(b, 6),
+                       translation=r(b, 3, scale=0.05))
+    dev = FlameParams(*(x.cuda() if x is not None else None for x in host))
+    flags = dict(return_verts_cano=True, return_landmarks=True, zero_centered_at_root_node=True)
+    with torch.no_grad():
+        got = card_model(dev, **flags)
+        want = cpu_model(host, **flags)
+        plain = card_model(dev)
+        landmark_ms = cuda_ms(lambda: card_model(dev, **flags), N_FLAME_REPS)
+        plain_ms = cuda_ms(lambda: card_model(dev), N_FLAME_REPS)
+    errs = {k: rel_err(g, w) for k, g, w in zip(("verts", "verts_cano", "landmarks"), got, want)}
+    # Root centring moves every vertex of a timestep by the same vector.
+    shift = plain - got[0]
+    spread = float((shift - shift[:, :1]).abs().max())
+    flame = dict(timesteps=b, verts=card_model.num_verts, landmarks=list(got[2].shape),
+                 max_rel_err=errs, root_shift_spread=spread, finite=all(
+                     bool(torch.isfinite(x).all()) for x in got),
+                 ms_with_landmarks=landmark_ms, ms_plain=plain_ms, card=card["nvidia_smi"])
+    log("flame_import/forward", **flame)
+    if not (max(errs.values()) <= 1e-5 and flame["finite"] and spread <= 1e-6
+            and flame["landmarks"] == [b, 68, 3]):
+        raise AssertionError(f"flame_import/forward: {flame}")
+
+    model, params, aux, fl, cam, n_g = scene
+    with torch.no_grad():
+        wg = world_gaussians(params, aux, face_frames(model(fl)[0], model.faces))
+        cov = covariance_from_scaling_rotation(wg.scales, wg.quats)
+        pg = project_gaussians(wg.means, cov, cam, alive=wg.alive)
+        pf = project_from_params(wg.means, wg.scales, wg.quats, cam, alive=wg.alive)
+        pg_ms = cuda_ms(lambda: project_gaussians(
+            wg.means, covariance_from_scaling_rotation(wg.scales, wg.quats), cam,
+            alive=wg.alive), N_FLAME_REPS)
+        pf_ms = cuda_ms(lambda: project_from_params(wg.means, wg.scales, wg.quats, cam,
+                                                    alive=wg.alive), N_FLAME_REPS)
+        cpu_cam = cpu_camera(cam)
+        pc = project_gaussians(wg.means.cpu(), cov.cpu(), cpu_cam, alive=wg.alive.cpu())
+    same = {k: bool(torch.equal(getattr(pg, k), getattr(pf, k))) for k in pg._fields}
+    m = pg.mask.cpu() & pc.mask
+    cpu_err = {k: rel_err(getattr(pg, k)[m.cuda()], getattr(pc, k)[m])
+               for k in ("mean2d", "depth", "conic", "cov2d")}
+    proj = dict(gaussians=n_g, resolution=f"{cam.width}x{cam.height}",
+                visible=int(pg.mask.sum()), equal_to_sorted_path=same,
+                card_vs_cpu_max_rel_err=cpu_err,
+                card_vs_cpu_mask_mismatches=int((pg.mask.cpu() != pc.mask).sum()),
+                card_vs_cpu_radius_mismatches=int((pg.radius.cpu() != pc.radius).sum()),
+                ms=pg_ms, sorted_path_ms=pf_ms, card=card["nvidia_smi"])
+    log("flame_import/project_gaussians", **proj)
+    if not (all(same.values()) and max(cpu_err.values()) <= 1e-5 and proj["visible"] > 0):
+        raise AssertionError(f"flame_import/project_gaussians: {proj}")
+    log("flame_import/seconds", seconds=time.perf_counter() - t0)
+    return dict(forward=flame, projection=proj)
 
 
 # --- phase 17: the table pipeline, the stage timings, the roofline, the
@@ -4594,6 +4817,9 @@ def parse_args(argv=None):
     ap.add_argument("--frames_only", action="store_true",
                     help="phases 1, 2, 12 and 20 alone: the frames as CUDA graphs and the "
                          "table pipeline's graphs")
+    ap.add_argument("--flame_only", action="store_true",
+                    help="phases 1, 2, 16's FLAME-bound run (on phase 12's dataset, written "
+                         "and not fitted) and 21: the real-FLAME import")
     return ap.parse_args(argv)
 
 
@@ -4656,6 +4882,29 @@ def frames_only(card) -> int:
     return 0
 
 
+def flame_only(card) -> int:
+    """`--flame_only`: phase 12's dataset (written, not fitted), phase 16's
+    FLAME-bound run on the converted FLAME files and phase 21, then the
+    last line."""
+    from gaussianavatars_torch.render import build_scene
+    from gaussianavatars_torch.tools import train_synthetic as ts
+
+    shutil.rmtree(LOOP_WORKDIR, ignore_errors=True)
+    a = ts.parse_args([*LOOP_FLAGS, "--workdir", LOOP_WORKDIR])
+    ts.write_dataset(a, *ts.build_reference_avatar(a, "cuda"))
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    t0 = time.perf_counter()
+    launches = cli_flame(card, *flame_files(card))
+    log("cli/seconds", seconds=time.perf_counter() - t0,
+        launches={k: v for k, v in launches.items() if v})
+    phase_flame_import(card, FLAME_NPZ, build_scene(device=torch.device("cuda")))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     args = parse_args(argv)
@@ -4686,6 +4935,8 @@ def main(argv=None) -> int:
         return chunks_only(card)
     if args.frames_only:
         return frames_only(card)
+    if args.flame_only:
+        return flame_only(card)
     against = build_against(args.against) if args.against else []
     torch.set_grad_enabled(False)
 
@@ -4912,6 +5163,9 @@ def main(argv=None) -> int:
     # --- 20. frames as CUDA graphs, the table pipeline's graphs -----------------
     frame_launches = phase_frames(card, model, params, aux, fl, cam, cfg, setup, harness)
     del harness
+
+    # --- 21. the real-FLAME import: landmarks, root centring, project_gaussians --
+    phase_flame_import(card, FLAME_NPZ, (model, params, aux, fl, cam, n_g))
 
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training, the loop, the replay, the

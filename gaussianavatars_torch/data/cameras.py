@@ -107,3 +107,22 @@ def look_at_camera(
     T = -R.T @ eye
     fovx = 2 * math.atan(math.tan(fovy / 2) * (width / height))
     return make_camera(R, T, fovx, fovy, width, height, device=device, **kw)
+
+
+def resolution_scaled(cam: Camera, scale: float) -> Camera:
+    """The same view at 1/`scale` of its resolution (progressive training)."""
+    if scale == 1.0:
+        return cam
+    return dataclasses.replace(
+        cam,
+        width=max(1, round(cam.width / scale)),
+        height=max(1, round(cam.height / scale)),
+    )
+
+
+def jit_static_key(cam: Camera) -> Camera:
+    """The view without its per-view metadata (timestep, camera_id,
+    image_name): the part of a Camera that keys a cached or captured
+    function (`trainer.CAMERA_TENSORS` are copied in at each call); the
+    timestep is passed as an argument instead."""
+    return dataclasses.replace(cam, timestep=0, camera_id=0, image_name="")

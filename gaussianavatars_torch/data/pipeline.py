@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,7 +88,8 @@ class EpochSampler:
 
 class Prefetcher:
     """Background decode in threads. `next()` returns (view indices,
-    float32 tensor [batch, H, W, 3] on `device`), in sampler order."""
+    float32 tensor [batch, H, W, 3] on `device`), in sampler order.
+    `indices` restricts the sampling to those views (default: all)."""
 
     def __init__(
         self,
@@ -100,12 +101,15 @@ class Prefetcher:
         workers: int = 4,
         batch: int = 1,
         shuffle: bool = True,
+        indices: Optional[Sequence[int]] = None,
     ):
         assert len(records) == len(cameras)
         self.records = list(records)
         self.cameras = list(cameras)
         self.device = torch.device(device)
-        self._sampler = iter(EpochSampler(len(records), seed, shuffle))
+        idx = list(indices) if indices is not None else list(range(len(records)))
+        self._sampler = iter(EpochSampler(len(idx), seed, shuffle))
+        self._index_map = idx
         self.batch = batch
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
@@ -122,7 +126,7 @@ class Prefetcher:
         with self._lock:
             ticket = self._seq
             self._seq += 1
-            views = [next(self._sampler) for _ in range(self.batch)]
+            views = [self._index_map[next(self._sampler)] for _ in range(self.batch)]
         return ticket, views
 
     def _worker(self):

@@ -15,7 +15,6 @@ all splits merged into train).
 from __future__ import annotations
 
 import json
-import math
 import os
 from typing import Dict, List, NamedTuple, Optional
 
@@ -30,14 +29,7 @@ from .colmap import (
     read_points3d_binary,
     read_points3d_text,
 )
-
-
-def fov_to_focal(fov: float, pixels: float) -> float:
-    return pixels / (2 * math.tan(fov / 2))
-
-
-def focal_to_fov(focal: float, pixels: float) -> float:
-    return 2 * math.atan(pixels / (2 * focal))
+from ..ops.transforms import focal_to_fov, fov_to_focal
 
 
 class CameraRecord(NamedTuple):

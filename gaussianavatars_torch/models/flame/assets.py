@@ -1,10 +1,14 @@
-"""FLAME asset data: loading and synthesis (numpy).
+"""FLAME asset data: import, loading and synthesis (numpy).
 
-`synthetic_assets` builds a statistically fake but topologically real model
-(template OBJ geometry, or a UV sphere with FLAME's vertex count when no
-template is present, plus small random blendshapes), so the whole render
-path runs without the licensed FLAME files. For the same seed it produces
-the same arrays as the JAX package's `synthetic_assets`.
+`convert_flame_pickle` imports the licensed FLAME 2023 files (the model
+pickle, the part masks and the landmark embedding, which the user obtains
+from MPI) once into the single `.npz` that `load_assets` reads; it needs
+numpy and pickle only. `synthetic_assets` builds a statistically fake but
+topologically real model (template OBJ geometry, or a UV sphere with
+FLAME's vertex count when no template is present, plus small random
+blendshapes), so the whole render path runs without the licensed FLAME
+files. For the same seed it produces the same arrays as the JAX package's
+`synthetic_assets`.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 
 from .obj_io import load_obj
+from .regions import combine_with_parts
 from .topology import NUM_VERTS, builtin_vertex_masks
 
 NUM_JOINTS = 5  # global, neck, jaw, eye_l, eye_r
@@ -46,6 +51,23 @@ class FlameAssets(NamedTuple):
         return self.faces.shape[0]
 
 
+# Where a checkout of the reference GaussianAvatars repository keeps the real
+# FLAME head template, relative to the root of this repository.
+REFERENCE_TEMPLATE = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir, os.pardir,
+    "reference", "flame_model", "assets", "flame", "head_template_mesh.obj"))
+
+
+def bootstrap_template_env() -> None:
+    """Point $GSAVATARS_FLAME_TEMPLATE at the real FLAME template of a
+    reference checkout unpacked as `reference/` in the repository root, when
+    there is one and the variable is unset. The tools call it at import, so
+    they all fit the same topology; without it the UV sphere is used (still
+    valid, a different vertex count)."""
+    if os.path.exists(REFERENCE_TEMPLATE):
+        os.environ.setdefault("GSAVATARS_FLAME_TEMPLATE", REFERENCE_TEMPLATE)
+
+
 def default_template_path() -> str:
     """Search order: $GSAVATARS_FLAME_TEMPLATE → package assets dir → cwd
     assets dir (the first that exists, else the package path)."""
@@ -60,8 +82,87 @@ def default_template_path() -> str:
     return candidates[1]
 
 
+def convert_flame_pickle(
+    flame_pkl: str,
+    template_obj: str,
+    out_npz: str,
+    masks_pkl: Optional[str] = None,
+    lmk_embedding_npy: Optional[str] = None,
+    n_shape: int = 300,
+    n_expr: int = 100,
+) -> str:
+    """Import the licensed FLAME pickle into the npz that `load_assets` reads.
+
+    `flame_pkl` is a dict or an object with attributes (`v_template`,
+    `shapedirs` [V, 3, 300 + 100], `posedirs` [V, 3, 36], `J_regressor`
+    dense or scipy-sparse, `kintree_table`, `weights`), each an array or a
+    chumpy-style object holding one in `.r`. Topology and UVs come from
+    `template_obj`. The first `n_shape` shape and `n_expr` expression
+    columns are kept. `masks_pkl` (FLAME_masks.pkl) adds its part masks and
+    the regions built from them (`regions.combine_with_parts`);
+    `lmk_embedding_npy` gives the landmarks' faces and barycentric weights.
+    Returns `out_npz`."""
+    import pickle
+
+    with open(flame_pkl, "rb") as f:
+        m = pickle.load(f, encoding="latin1")
+
+    def arr(x):
+        return np.asarray(x.r if hasattr(x, "r") else x, np.float32)
+
+    get = (lambda k: m[k]) if isinstance(m, dict) else (lambda k: getattr(m, k))
+    shapedirs = arr(get("shapedirs"))
+    shapedirs = np.concatenate(
+        [shapedirs[:, :, :n_shape], shapedirs[:, :, 300:300 + n_expr]], axis=2
+    )
+    posedirs = arr(get("posedirs"))
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # [(J-1)*9, V*3]
+    j_regressor = get("J_regressor")
+    if hasattr(j_regressor, "todense"):
+        j_regressor = j_regressor.todense()
+
+    verts, uvs, faces, faces_uv = load_obj(template_obj)
+    masks = dict(builtin_vertex_masks())
+    if masks_pkl is not None:
+        parts = np.load(masks_pkl, allow_pickle=True, encoding="latin1")
+        if hasattr(parts, "item"):
+            parts = parts.item()
+        for k, v in dict(parts).items():
+            masks[k] = np.asarray(v, np.int32)
+        # The regions that need the part masks (hair, ears, eyeballs,
+        # sclerae, skin, left/right_eye — `flame_model/flame.py:784-815`).
+        masks.update(combine_with_parts(masks, num_verts=verts.shape[0]))
+
+    if lmk_embedding_npy is not None:
+        emb = np.load(lmk_embedding_npy, allow_pickle=True, encoding="latin1")[()]
+        lmk_f = np.asarray(emb["full_lmk_faces_idx"], np.int32).reshape(-1)
+        lmk_b = np.asarray(emb["full_lmk_bary_coords"], np.float32).reshape(-1, 3)
+    else:
+        lmk_f = np.zeros((0,), np.int32)
+        lmk_b = np.zeros((0, 3), np.float32)
+
+    np.savez_compressed(
+        out_npz,
+        v_template=arr(get("v_template")),
+        shapedirs=shapedirs,
+        n_shape=n_shape,
+        posedirs=posedirs,
+        j_regressor=np.asarray(j_regressor, np.float32),
+        parents=np.asarray(get("kintree_table"))[0].astype(np.int32),
+        lbs_weights=arr(get("weights")),
+        faces=faces,
+        verts_uvs=uvs,
+        faces_uv=faces_uv,
+        lmk_faces_idx=lmk_f,
+        lmk_bary_coords=lmk_b,
+        **{f"mask_{k}": v for k, v in masks.items()},
+    )
+    return out_npz
+
+
 def load_assets(npz_path: str) -> FlameAssets:
-    """Load assets from the npz format the JAX package's converter writes."""
+    """Load assets from the npz that `convert_flame_pickle` and
+    `save_assets` write (the JAX package's layout)."""
     z = np.load(npz_path, allow_pickle=False)
     masks = {
         k[len("mask_"):]: z[k].astype(np.int32) for k in z.files if k.startswith("mask_")

@@ -18,7 +18,7 @@ from torch import nn
 
 from ...device import resolve_device
 from .assets import FlameAssets
-from .lbs import blend_shapes, lbs
+from .lbs import blend_shapes, lbs, vertices2landmarks
 
 TEETH_ROWS = 15
 
@@ -213,6 +213,10 @@ class FlameModel(nn.Module):
         self.register_buffer(
             "faces", torch.as_tensor(assets.faces.astype(np.int64), device=dev)
         )
+        self.register_buffer("lmk_faces_idx", torch.as_tensor(
+            assets.lmk_faces_idx.astype(np.int64), device=dev), persistent=False)
+        self.register_buffer("lmk_bary_coords", torch.as_tensor(
+            assets.lmk_bary_coords, dtype=torch.float32, device=dev), persistent=False)
         lap_edges, lap_deg = _uniform_laplacian(assets.faces, assets.num_verts)
         self.register_buffer("lap_edges", torch.as_tensor(lap_edges, device=dev))
         self.register_buffer("lap_deg", torch.as_tensor(np.maximum(lap_deg, 1.0), device=dev))
@@ -247,10 +251,15 @@ class FlameModel(nn.Module):
         return np.nonzero(mask)[0].astype(np.int32)
 
     # -- forward ------------------------------------------------------------
-    def forward(self, params: FlameParams, return_verts_cano: bool = False):
-        """FLAME forward for B timesteps → verts [B, V, 3], or (verts,
-        verts_cano) with the shaped canonical vertices [B, V, 3] (before
-        posing) when `return_verts_cano`."""
+    def forward(self, params: FlameParams, return_verts_cano: bool = False,
+                return_landmarks: bool = False, zero_centered_at_root_node: bool = False):
+        """FLAME forward for B timesteps (`FlameHead.forward`,
+        `flame_model/flame.py:485-558`) → verts [B, V, 3], followed by the
+        shaped canonical vertices [B, V, 3] (before posing) when
+        `return_verts_cano` and the landmarks [B, L, 3] when
+        `return_landmarks`: a tuple when more than one is asked for.
+        `zero_centered_at_root_node` moves the root joint to the origin
+        before the translation."""
         B = params.expr.shape[0]
         shape = params.shape[None, :].expand(B, params.shape.shape[0])
         betas = torch.cat([shape, params.expr], dim=1)
@@ -263,12 +272,21 @@ class FlameModel(nn.Module):
         full_pose = torch.cat(
             [params.rotation, params.neck, params.jaw, params.eyes], dim=1
         )
-        verts, _joints = lbs(
+        verts, joints = lbs(
             full_pose, v_shaped, self.posedirs, self.j_regressor,
             self.parents, self.lbs_weights,
         )
+        if zero_centered_at_root_node:
+            verts = verts - joints[:, :1]
         verts = verts + params.translation[:, None, :]
-        return (verts, v_shaped) if return_verts_cano else verts
+
+        out = [verts]
+        if return_verts_cano:
+            out.append(v_shaped)
+        if return_landmarks:
+            out.append(vertices2landmarks(verts, self.faces, self.lmk_faces_idx,
+                                          self.lmk_bary_coords))
+        return out[0] if len(out) == 1 else tuple(out)
 
     # -- regularisers -------------------------------------------------------
     def laplacian_loss(self, verts: torch.Tensor, verts_ref: torch.Tensor) -> torch.Tensor:

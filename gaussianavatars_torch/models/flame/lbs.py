@@ -96,3 +96,15 @@ def lbs(
     T = torch.einsum("vj,bjrc->bvrc", lbs_weights, A)
     verts = torch.einsum("bvrc,bvc->bvr", T[:, :, :3, :3], v_posed) + T[:, :, :3, 3]
     return verts, posed_joints
+
+
+def vertices2landmarks(
+    vertices: torch.Tensor,       # [B, V, 3]
+    faces: torch.Tensor,          # [F, 3]
+    lmk_faces_idx: torch.Tensor,  # [L]
+    lmk_bary: torch.Tensor,       # [L, 3]
+) -> torch.Tensor:
+    """Barycentric landmark interpolation → [B, L, 3]."""
+    tri = faces[lmk_faces_idx]               # [L, 3]
+    pts = vertices[:, tri]                   # [B, L, 3, 3]
+    return torch.einsum("blfc,lf->blc", pts, lmk_bary)

@@ -99,6 +99,11 @@ def world_gaussians(
     )
 
 
+def local_scales(params: GaussianParams) -> torch.Tensor:
+    """Activated scales in the local frame (before the face scaling)."""
+    return torch.exp(params.log_scales)
+
+
 def inverse_sigmoid(x):
     """logit; accepts a Python float or a tensor."""
     if isinstance(x, torch.Tensor):
@@ -149,18 +154,24 @@ def init_from_points(
     points: np.ndarray,
     colors: np.ndarray,
     capacity: int,
+    init_scale: Optional[np.ndarray] = None,
     device="cuda",
 ) -> tuple[GaussianParams, GaussianAux]:
     """Unbound init from a point cloud (`create_from_pcd`, unbound branch):
-    log-scale from the 3-NN mean distance (`ops/knn.py`, on `device`),
-    opacity 0.1, colour → SH DC, binding 0, padded to `capacity`."""
+    log-scale from the 3-NN mean distance (`ops/knn.py`, on `device`) or,
+    when given, from `init_scale` [n] (no 3-NN search), opacity 0.1,
+    colour → SH DC, binding 0, padded to `capacity`."""
     dev = resolve_device(device)
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"capacity {capacity} < point count {n}")
     f32 = torch.float32
     pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
-    scale = torch.sqrt(torch.clamp_min(mean_sq_dist_3nn(pts), 1e-7))
+    if init_scale is None:
+        log_s = torch.log(torch.sqrt(torch.clamp_min(mean_sq_dist_3nn(pts), 1e-7)))
+    else:
+        # The log in the scales' own precision, then float32 (JAX: numpy).
+        log_s = torch.as_tensor(np.log(np.asarray(init_scale)).astype(np.float32), device=dev)
 
     def pad(x: torch.Tensor) -> torch.Tensor:
         out = torch.zeros((capacity,) + tuple(x.shape[1:]), dtype=f32, device=dev)
@@ -176,7 +187,7 @@ def init_from_points(
     logit = torch.log(torch.tensor(0.1 / (1.0 - 0.1), dtype=f32))
     params = GaussianParams(
         means=pad(pts),
-        log_scales=pad(torch.log(scale)[:, None].repeat(1, 3)),
+        log_scales=pad(log_s[:, None].repeat(1, 3)),
         quats=pad(quats),
         sh_dc=pad(sh_dc[:, None, :]),
         sh_rest=torch.zeros((capacity, SH_REST, 3), dtype=f32, device=dev),
@@ -196,3 +207,9 @@ def init_from_points(
 def num_alive(aux: GaussianAux) -> torch.Tensor:
     """Live Gaussians, a 0-dim int32 tensor on the state's device."""
     return aux.alive.sum().to(torch.int32)
+
+
+def binding_counter(aux: GaussianAux, num_faces: int) -> torch.Tensor:
+    """Live Gaussians per face [F], int32."""
+    return torch.zeros((num_faces,), dtype=torch.int32, device=aux.binding.device).index_add_(
+        0, aux.binding, aux.alive.to(torch.int32))

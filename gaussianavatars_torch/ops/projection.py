@@ -32,6 +32,26 @@ class Projected(NamedTuple):
     cov2d: torch.Tensor    # [N, 3] the 2D covariance itself (a, b, c)
 
 
+def ndc_to_pixel(ndc: torch.Tensor, size) -> torch.Tensor:
+    """NDC [-1, 1] → pixel centre coordinates, 3DGS convention."""
+    return ((ndc + 1.0) * size - 1.0) * 0.5
+
+
+def project_gaussians(
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    camera: Camera,
+    alive: torch.Tensor | None = None,
+) -> Projected:
+    """Project N Gaussians with world-space covariances [N, 3, 3] (from
+    `covariance_from_scaling_rotation`, already scale-modified) into one
+    camera; `alive`: optional [N] bool mask of the padding."""
+    cv = cov3d.to(torch.float32)
+    parts = (cv[..., 0, 0], cv[..., 0, 1], cv[..., 0, 2],
+             cv[..., 1, 1], cv[..., 1, 2], cv[..., 2, 2])
+    return _project_core(means3d, parts, camera, alive)
+
+
 def _affine_rows(means3d: torch.Tensor, m: torch.Tensor):
     """Rows of m[:3, :3] @ p + m[:3, 3] as three [N] tensors (elementwise)."""
     x, y, z = means3d.unbind(-1)
@@ -60,10 +80,7 @@ def _project_core(
     ndc_x = h0 * inv_w
     ndc_y = h1 * inv_w
     mean2d = torch.stack(
-        [((ndc_x + 1.0) * camera.width - 1.0) * 0.5,
-         ((ndc_y + 1.0) * camera.height - 1.0) * 0.5],
-        dim=-1,
-    )
+        [ndc_to_pixel(ndc_x, camera.width), ndc_to_pixel(ndc_y, camera.height)], dim=-1)
 
     # EWA: cov2D = J W Σ Wᵀ Jᵀ with J at a frustum-clamped camera point.
     fx = float(camera.focal_x)

@@ -91,6 +91,37 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (w * uv + uuv)
 
 
+def build_scaling_rotation(scale: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R(q) @ diag(scale): [..., 3] x [..., 4] → [..., 3, 3], the
+    covariance factor of the reference (`utils/general_utils.py:85-110`):
+    Σ = L Lᵀ."""
+    return quat_to_rotmat(q) * scale[..., None, :]
+
+
+def covariance_from_scaling_rotation(scale: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Full 3D covariance Σ = R S Sᵀ Rᵀ : [..., 3, 3], from the six
+    elementwise sums of `covariance_symm6_parts` (no matrix unit)."""
+    return symm6_to_covariance(torch.stack(covariance_symm6_parts(scale, q), dim=-1))
+
+
+def covariance_to_symm6(cov: torch.Tensor) -> torch.Tensor:
+    """Pack symmetric [..., 3, 3] → [..., 6] (upper triangle, 3DGS order)."""
+    return torch.stack(
+        [cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+         cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+        dim=-1,
+    )
+
+
+def symm6_to_covariance(s: torch.Tensor) -> torch.Tensor:
+    """Unpack [..., 6] → symmetric [..., 3, 3]."""
+    c00, c01, c02, c11, c12, c22 = s.unbind(-1)
+    row0 = torch.stack([c00, c01, c02], -1)
+    row1 = torch.stack([c01, c11, c12], -1)
+    row2 = torch.stack([c02, c12, c22], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
 def covariance_symm6_parts(scale: torch.Tensor, q: torch.Tensor):
     """Σ = R S² Rᵀ as six scalar tensors (c00, c01, c02, c11, c12, c22).
 

@@ -33,6 +33,13 @@ class RenderOutput(NamedTuple):
     visibility: torch.Tensor   # [N] bool (radius > 0)
 
 
+def composite_order(depth: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Front-to-back order: indices sorted by depth (stable, as
+    `jnp.argsort`), the culled ones pushed to the back."""
+    key = torch.where(mask, depth, torch.full_like(depth, float("inf")))
+    return torch.argsort(key, stable=True)
+
+
 def pixel_alphas(
     mean2d: torch.Tensor,
     conic: torch.Tensor,
@@ -126,9 +133,7 @@ def render_dense(
         colors = eval_sh_color_kc(sh, dirs, sh_degree)
 
     H, W = camera.height, camera.width
-    key = torch.where(projected.mask, projected.depth,
-                      torch.full_like(projected.depth, float("inf")))
-    order = torch.argsort(key, stable=True)
+    order = composite_order(projected.depth, projected.mask)
     mean2d_s = projected.mean2d[order]
     conic_s = projected.conic[order]
     op_s = torch.where(projected.mask, opacity, torch.zeros_like(opacity))[order]

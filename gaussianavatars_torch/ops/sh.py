@@ -70,6 +70,30 @@ def basis_columns(dirs: torch.Tensor, degree: int) -> list:
     return cols
 
 
+def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """[..., (degree+1)**2] stacked basis matrix."""
+    return torch.stack(basis_columns(dirs, degree), dim=-1)
+
+
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """SH coefficients [..., C, K_total] (K_total >= (degree+1)**2) → values
+    [..., C] along unit directions [..., 3] (no +0.5 shift; see
+    `eval_sh_color`)."""
+    cols = basis_columns(dirs, degree)
+    out = cols[0][..., None] * sh[..., 0]
+    for i in range(1, len(cols)):
+        out = out + cols[i][..., None] * sh[..., i]
+    return out
+
+
+def eval_sh_color(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """SH coefficients stored [..., C, K] (the reference's layout) → RGB with
+    the 3DGS +0.5 shift and clamp from below at 0
+    (`gaussian_renderer/__init__.py:69-83`); `eval_sh_color_kc` takes the
+    port's [..., K, C] storage."""
+    return torch.clamp_min(eval_sh(sh, dirs, degree) + 0.5, 0.0)
+
+
 def eval_sh_color_kc(sh_kc: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """SH coefficients stored [..., K, C] → RGB with the 3DGS +0.5 shift and
     clamp from below at 0."""
@@ -83,3 +107,8 @@ def eval_sh_color_kc(sh_kc: torch.Tensor, dirs: torch.Tensor, degree: int) -> to
 def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
     """Inverse of the DC term: colour → degree-0 coefficient."""
     return (rgb - 0.5) / C0
+
+
+def sh0_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """The DC term → colour (inverse of `rgb_to_sh0`)."""
+    return sh * C0 + 0.5

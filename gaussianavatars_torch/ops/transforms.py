@@ -51,6 +51,17 @@ def fov_to_focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
 
 
+def focal_to_fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
+def transform_points(mat: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 transform to [..., 3] points (homogeneous, w-divide)."""
+    p = pts @ mat[:3, :3].T + mat[:3, 3]
+    w = pts @ mat[3:4, :3].T + mat[3, 3]
+    return p / (w + 1e-7)
+
+
 def _safe_normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     n2 = torch.sum(v * v, dim=-1, keepdim=True)
     return v / torch.sqrt(torch.clamp_min(n2, eps))
@@ -89,3 +100,17 @@ def compute_face_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tens
     v1 = verts[..., faces[:, 1], :]
     v2 = verts[..., faces[:, 2], :]
     return torch.linalg.cross(v1 - v0, v2 - v0)
+
+
+def compute_vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted unit vertex normals [..., V, 3]: each face's
+    unnormalised normal added to its three vertices; a vertex with no area
+    around it gets +z."""
+    fn = compute_face_normals(verts, faces)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn = vn.index_add(-2, faces[:, k], fn)
+    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=verts.dtype, device=verts.device)
+    n2 = torch.sum(vn * vn, dim=-1, keepdim=True)
+    vn = torch.where(n2 > 1e-20, vn, fallback)
+    return _safe_normalize(vn)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.binding import face_frames
+from ..models.flame.assets import bootstrap_template_env
 from ..models.gaussians import world_gaussians
 from ..ops import composite_pairs as cp
 from ..ops.projection import project_from_params
@@ -29,6 +30,9 @@ from ..ops.rasterize_sorted import depth_key, sort_gather
 from ..ops.rasterize_tiled import render_tiled, view_colors
 from ..ops.sort_binning import bbox_tiles
 from ..render import HEIGHT, WIDTH, build_scene, probe_tile_config
+
+# The real FLAME template of a reference checkout, when there is one.
+bootstrap_template_env()
 
 
 def _best_ms(fn, iters: int) -> float:

@@ -76,7 +76,8 @@ def worker(a) -> None:
         rng = np.random.RandomState(0)
         pts = rng.randn(48, 3).astype(np.float32) * 0.3
         cols = rng.rand(48, 3).astype(np.float32)
-        params, aux = init_from_points(pts, cols, capacity=64, device=dev)
+        params, aux = init_from_points(pts, cols, capacity=64,
+                                       init_scale=np.full(48, 0.08, np.float32), device=dev)
         cams = [look_at_camera(eye=(0, 0, -2.5), fovy=0.8, width=32, height=32, device=dev),
                 look_at_camera(eye=(0.3, 0.1, -2.4), fovy=0.8, width=32, height=32,
                                device=dev)]

@@ -80,8 +80,8 @@ def load_flame_model(cfg: Config, flame_assets: str, device="cuda",
     else:
         if verbose:
             print("[warn] no FLAME assets npz — using synthetic statistical model "
-                  "(real training needs the licensed FLAME 2023 files; see "
-                  "gaussianavatars_torch/models/flame/assets.py)")
+                  "(real training needs the licensed FLAME 2023 files, imported once "
+                  "with gaussianavatars_torch.models.flame.assets.convert_flame_pickle)")
         assets = synthetic_assets(n_shape=fc.n_shape, n_expr=fc.n_expr, seed=0)
     return FlameModel(assets, fc, device=device)
 

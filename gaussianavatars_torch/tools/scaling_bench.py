@@ -40,6 +40,11 @@ import time
 
 import torch
 
+from ..models.flame.assets import bootstrap_template_env
+
+# The real FLAME template of a reference checkout, when there is one.
+bootstrap_template_env()
+
 MODULE = "gaussianavatars_torch.tools.scaling_bench"
 
 

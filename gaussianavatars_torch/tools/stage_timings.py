@@ -35,6 +35,7 @@ import torch
 from ..config import Config, ModelConfig, OptimizationConfig, PipelineConfig
 from ..device import resolve_device
 from ..models.binding import face_frames
+from ..models.flame.assets import bootstrap_template_env
 from ..models.gaussians import world_gaussians
 from ..ops.composite_pairs import bwd_call_pairs, fwd_call_pairs
 from ..ops.projection import project_from_params
@@ -48,6 +49,9 @@ from ..training.loss import ssim
 from ..training.trainer import (
     init_train_state, make_train_chunk, make_train_step, stack_cameras,
 )
+
+# The real FLAME template of a reference checkout, when there is one.
+bootstrap_template_env()
 
 
 def parse_args(argv=None):

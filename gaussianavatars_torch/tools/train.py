@@ -71,8 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--capacity", type=int, default=131072)
     # FLAME assets
     p.add_argument("--flame_assets", type=str, default=os.environ.get("GSAVATARS_FLAME_ASSETS", ""),
-                   help="converted flame2023 npz (see assets.convert_flame_pickle); "
-                        "synthetic topology is used if absent")
+                   help="flame2023 npz made by gaussianavatars_torch.models.flame.assets."
+                        "convert_flame_pickle; synthetic topology is used if absent")
     p.add_argument("--disable_teeth", action="store_true")
     # OptimizationParams (subset; the rest come from config defaults)
     p.add_argument("--iterations", type=int, default=600_000)

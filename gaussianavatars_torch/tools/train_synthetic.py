@@ -42,7 +42,7 @@ from ..config import Config, ModelConfig, OptimizationConfig, PipelineConfig
 from ..data.cameras import look_at_camera
 from ..device import resolve_device
 from ..models.binding import face_frames
-from ..models.flame.assets import synthetic_assets
+from ..models.flame.assets import bootstrap_template_env, synthetic_assets
 from ..models.flame.flame_model import FlameConfig, FlameModel, zero_params
 from ..models.gaussians import init_bound, inverse_sigmoid, world_gaussians
 from ..ops.rasterize_tiled import render_tiled
@@ -51,6 +51,9 @@ from ..training.loop import (
     build_harness, evaluate_split, make_render_fn, probe_tier_budgets, tile_config, train,
 )
 from ..training.trainer import active_sh_degree
+
+# The real FLAME template of a reference checkout, when there is one.
+bootstrap_template_env()
 
 
 def parse_args(argv=None):

@@ -468,14 +468,16 @@ def opacity_reset_event(harness: TrainerHarness) -> None:
 
 class DeviceGtCache:
     """All ground-truth views resident on the device as uint8, uploaded once
-    (4× smaller than float32; `get` converts). At 802×550 a view is 1.3 MB,
-    so 96 views are 127 MB of device memory."""
+    (4× smaller than float32; `get` converts), decoded `batch_decode` views
+    at a time. At 802×550 a view is 1.3 MB, so 96 views are 127 MB of device
+    memory."""
 
-    def __init__(self, records, cameras, device, max_bytes: int = 4 << 30):
+    def __init__(self, records, cameras, device, max_bytes: int = 4 << 30,
+                 batch_decode: int = 64):
         h, w = cameras[0].height, cameras[0].width
         if len(records) * h * w * 3 > max_bytes:
             raise MemoryError("dataset too large for the device GT cache")
-        self.data = torch.from_numpy(view_stack(records, cameras)).to(device)
+        self.data = torch.from_numpy(view_stack(records, cameras, batch_decode)).to(device)
 
     def get(self, view: int) -> torch.Tensor:
         return gt_to_float(self.data[view])

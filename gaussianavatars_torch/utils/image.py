@@ -1,12 +1,20 @@
-"""The TensorBoard error image (`utils/image_utils.py:20-26` parity).
+"""Image helpers (`utils/image_utils.py` parity: mse/psnr/error_map).
 
-The port's own copy of `error_map` from the JAX package's
-`utils/image.py` (numpy only); its `mse` and `psnr` are
-`training/loss.py`'s here.
+The port's own copy of the JAX package's `utils/image.py` (numpy only);
+the train step's tensor PSNR is `training/loss.psnr`.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def mse(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.mean((np.asarray(a) - np.asarray(b)) ** 2))
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    m = mse(a, b)
+    return float("inf") if m == 0 else float(-10.0 * np.log10(m))
 
 
 def error_map(img1: np.ndarray, img2: np.ndarray) -> np.ndarray:

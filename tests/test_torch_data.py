@@ -188,6 +188,34 @@ def test_epoch_sampler_and_prefetcher(dataset):
         pf.close()
 
 
+@pytest.mark.parametrize("indices,batch_decode", [([2, 0], 1), ([1, 3, 2], 3)])
+def test_prefetcher_indices_and_gt_cache_batch_decode_match_jax(dataset, indices, batch_decode):
+    """`Prefetcher(indices=)` samples only those views, in the JAX
+    Prefetcher's order (host arrays there, `device_put=False`);
+    `DeviceGtCache(batch_decode=)` holds JAX's uint8 views."""
+    from gaussianavatars_tpu.training.loop import DeviceGtCache as JCache
+    from gaussianavatars_torch.training.loop import DeviceGtCache as TCache
+
+    root = dataset[0]
+    t_scene, j_scene = TScene(root, device="cpu"), JScene(root)
+    recs = t_scene.records("train")
+    t_cams, j_cams = t_scene.cameras("train"), j_scene.cameras("train")
+    tp = tpipe.Prefetcher(recs, t_cams, "cpu", seed=9, workers=2, batch=2, indices=indices)
+    jp = jpipe.Prefetcher(j_scene.records("train"), j_cams, seed=9, workers=2, batch=2,
+                          device_put=False, indices=indices)
+    try:
+        for _ in range(4):
+            (tv, tgt), (jv, jgt) = tp.next(), jp.next()
+            assert tv == jv and set(tv) <= set(indices)
+            np.testing.assert_array_equal(tgt.numpy(), jgt)
+    finally:
+        tp.close()
+        jp.close()
+    got = TCache(recs, t_cams, "cpu", batch_decode=batch_decode)
+    want = JCache(j_scene.records("train"), j_cams, batch_decode=batch_decode)
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+
+
 def test_ply_scene_save_and_assets_byte_identical(dataset, tmp_path):
     root, model, params, aux = dataset
     rng = np.random.RandomState(0)
