@@ -1,0 +1,9 @@
+"""Mean device milliseconds a training step spends in its geometry forward:
+the program's span `train/geometry_fwd` (FLAME, binding, projection and
+SH, the regularisers) on the stage clock, over the stamped stretch of
+`avatar_bench/stages.py`."""
+from avatar_bench import stages
+
+
+def read(run):
+    return stages.span_ms(run, "train/step", "train/geometry_fwd")

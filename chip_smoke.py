@@ -167,8 +167,7 @@ non-zero):
                 rooflines at the benchmark frame against the measured
                 frames/s and steps/s, every share of speed of light at most
                 1.05; (f) `utils.profiling.trace` around 3 steps (every
-                `train/*` range and both kernels' names in the trace) and
-                `StepTimer`; (g) `tools.local_viewer --headless` on phase
+                `train/*` range and both kernels' names in the trace); (g) `tools.local_viewer --headless` on phase
                 12's model directory (equal byte for byte to
                 `AvatarViewerCore`, the `--no_pallas` frame within 1/255)
                 and `tools.remote_viewer --headless` taking 2 frames from a
@@ -356,7 +355,8 @@ TRAIN_RANGES = ("train/geometry_fwd", "sort_gather/fwd", "train/image_fwd",
                 # The innovations' (phase 15): the region map and the colour
                 # net's forward inside train/image_fwd, the contrastive loss
                 # there and the cache update after the step.
-                "train/region_map", "train/color_net", "train/contrastive")
+                "train/region_map", "train/color_net", "train/contrastive",
+                "train/contrastive_update")
 
 
 def log(phase: str, **fields) -> None:
@@ -921,7 +921,7 @@ def profile_train(step, state, gt, cam, bg, steps_per_s: float) -> dict:
         "adam": rng["train/adam"],
         "region_map": rng["train/region_map"],
         "color_net_fwd": rng["train/color_net"],
-        "contrastive": rng["train/contrastive"],
+        "contrastive": rng["train/contrastive"] + rng["train/contrastive_update"],
     }
     return dict(
         stage_device_ms=stages,
@@ -3492,9 +3492,9 @@ def table_phase_roofline(card, scene, serving_fps, train_steps_s, render_res, st
 
 
 def table_phase_profiler(card, scene, setup) -> dict:
-    """17f: `utils.profiling.trace` around 3 sorted steps, and `StepTimer`."""
+    """17f: `utils.profiling.trace` around 3 sorted steps."""
     from gaussianavatars_torch.training.trainer import make_train_step
-    from gaussianavatars_torch.utils.profiling import StepTimer, annotate, trace
+    from gaussianavatars_torch.utils.profiling import annotate, trace
 
     cfg0, gt, bg, state0 = setup
     cam = scene["cam"]
@@ -3511,21 +3511,14 @@ def table_phase_profiler(card, scene, setup) -> dict:
     path = os.path.join(log_dir, "trace.json")
     with open(path) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    timer = StepTimer(sync_every=2)
-    samples = []
-    for i in range(5):
-        st = step(st, gt, cam, i % TRAIN_TIMESTEPS, bg, 3).state
-        samples.append(timer.step(sync_on=st.params.means))
     launches = cp_launches()
     res = dict(trace_mib=os.path.getsize(path) / 2**20, events=len(names),
                ranges={r: r in names for r in TRACE_RANGES + ("smoke/step",)},
                kernels={k: any(k in n for n in names)
                         for k in ("composite_pairs_fwd_kernel", "composite_pairs_bwd_kernel")},
-               step_timer_samples=samples, launches=launches)
+               launches=launches)
     log("table/profiler", **res, card=card["nvidia_smi"])
-    pattern = [s is not None for s in samples] == [False, True, False, True, False]
-    if not (all(res["ranges"].values()) and all(res["kernels"].values()) and pattern
-            and all(s > 0 for s in samples if s is not None)):
+    if not (all(res["ranges"].values()) and all(res["kernels"].values())):
         raise AssertionError(f"table/profiler: {res}")
     return res
 

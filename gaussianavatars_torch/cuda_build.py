@@ -6,7 +6,9 @@ compiled with `nvcc` for `sm_90a` into a shared library under
 file name carries a digest of the source, the shared headers `csrc/*.cuh`
 and the flags, so an edited source or header is rebuilt and a stale library
 is never loaded. Nothing is built when the
-module is imported.
+module is imported. Building (`cuda_build/build`, with the count of
+sources compiled) and loading (`cuda_build/load`) are set-up spans
+(`utils/profiling.setup_report`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Iterable
+
+from .utils.profiling import setup_span
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -78,6 +82,13 @@ def build(names: Iterable[str] | None = None) -> dict[str, dict]:
     `ptxas_report`). Raises with the compiler output on failure.
     """
     names = kernel_names() if names is None else list(names)
+    with setup_span("cuda_build/build", sources=len(names)) as span:
+        out = _build(names)
+        span["compiled"] = sum(v["seconds"] > 0 for v in out.values())
+        return out
+
+
+def _build(names: list) -> dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out: dict[str, dict] = {}
@@ -210,6 +221,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with setup_span("cuda_build/load", library=name):
+                lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
+from ...utils.profiling import setup_span
 from .assets import FlameAssets
 from .lbs import blend_shapes, lbs, vertices2landmarks
 
@@ -199,7 +200,12 @@ class FlameModel(nn.Module):
     def __init__(self, assets: FlameAssets, cfg: FlameConfig = FlameConfig(),
                  device="cuda"):
         super().__init__()
-        dev = resolve_device(device)
+        with setup_span("flame_model/init"):
+            self._setup(assets, cfg, resolve_device(device))
+
+    def _setup(self, assets: FlameAssets, cfg: FlameConfig, dev: torch.device) -> None:
+        """The teeth, the buffers on `dev` and the uniform laplacian (a
+        set-up span of the host's side of the model)."""
         self.cfg = cfg
         if cfg.add_teeth:
             assets, _masks = _build_teeth(assets)

@@ -20,15 +20,16 @@ Both are `torch.autograd.Function`s, as the JAX package's are custom VJPs:
 
 Semantics are those of the JAX package's `ops/rasterize_sorted.py`: exact
 (tile, depth)-keyed front-to-back order, 1/255 cutoff, 0.99 clamp,
-T < 1e-4 early stop. The binning's forward and backward are
-`torch.profiler` ranges (`sort_gather/fwd`, `sort_gather/bwd`).
+T < 1e-4 early stop. The binning's forward and backward are spans
+(`utils/profiling.annotate`: `sort_gather/fwd`, `sort_gather/bwd`), and
+so is the compositor's forward (`frame/composite`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from ..utils.profiling import annotate
 from .composite_pairs import bwd_call_pairs, fwd_call_pairs
 from .sort_binning import (
     ALIGN,
@@ -88,7 +89,7 @@ def _sort_gather_forward(geom, mean2d, conic, colors, opacity, ints):
 class _SortGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, geom, mean2d, conic, colors, opacity, *ints):
-        with record_function("sort_gather/fwd"):
+        with annotate("sort_gather/fwd"):
             dataT, plan = _sort_gather_forward(geom, mean2d, conic, colors, opacity, ints)
         ctx.spec = geom[2]
         ctx.n_out = mean2d.shape[0]
@@ -100,7 +101,7 @@ class _SortGather(torch.autograd.Function):
     def backward(ctx, d_dataT, *_d_plan):
         pos, gidx_fp = ctx.saved_tensors
         m = pos.shape[0]
-        with record_function("sort_gather/bwd"):
+        with annotate("sort_gather/bwd"):
             d_cols = d_dataT[:9, :m]
             # 1. un-permute the pair sort to the column-major expansion layout.
             r = torch.empty_like(d_cols).index_copy_(1, pos.long(), d_cols)
@@ -128,7 +129,8 @@ def sort_gather(geom, mean2d, conic, colors, opacity, ints):
 class _CompositeSorted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dataT, starts, counts, th, tw, ntx, amp):
-        acc, t_final, stop = fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
+        with annotate("frame/composite"):
+            acc, t_final, stop = fwd_call_pairs(dataT, starts, counts, th, tw, ntx)
         ctx.geom = (th, tw, ntx)
         ctx.amp = amp
         ctx.save_for_backward(dataT, starts, counts, acc, t_final, stop)

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from .projection import Projected, project_from_params
 from .rasterize_dense import ALPHA_CUTOFF, ALPHA_MAX, T_EPS, RenderOutput
 from .rasterize_sorted import rasterize_sorted
@@ -530,12 +531,14 @@ def render_tiled(
     the effective opacity, composited by `compositor` (default
     `composite_tiles`). `amp` selects the bf16 contraction of the sorted
     compositor's backward (the `use_amp` policy); the table path has none.
+    Projection and the view's SH colours are the span `frame/project_sh`.
     """
-    proj = project_from_params(means3d, scales, quats, camera, scale_modifier, alive=alive)
-    if colors is None:
-        if sh is None:
-            raise ValueError("provide sh or colors")
-        colors = view_colors(means3d, sh, camera, sh_degree)
+    if colors is None and sh is None:
+        raise ValueError("provide sh or colors")
+    with annotate("frame/project_sh"):
+        proj = project_from_params(means3d, scales, quats, camera, scale_modifier, alive=alive)
+        if colors is None:
+            colors = view_colors(means3d, sh, camera, sh_degree)
     opac_eff = torch.where(proj.mask, opacity, torch.zeros_like(opacity))
     if sorted_data is None:
         sorted_data = use_pallas and compositor is None

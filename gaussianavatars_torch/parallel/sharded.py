@@ -83,7 +83,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..config import Config
 from ..data.cameras import Camera
@@ -102,7 +101,8 @@ from ..training.trainer import (
     CAMERA_TENSORS, CHUNK_WARMUP, ImageLoss, TrainState, _grads, _leaves, apply_updates,
     binding_regularisers, flame_forward, geometry, screen_space,
 )
-from ..utils.graphs import GraphSlot, copy_in, warm_up
+from ..utils.graphs import GraphSlot, copy_in, graph_key, warm_up
+from ..utils.profiling import annotate
 from .distributed import Collectives
 from .mesh import RankMesh
 
@@ -276,7 +276,9 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
              sh_degree: int):
         """The step of one camera row: (new state, metrics). `ts` is an int
         or a 0-dim int64 tensor on the device (the same bits); `gt` is the
-        row's [H_pad, W, 3]. It reads nothing on the host."""
+        row's [H_pad, W, 3]. It reads nothing on the host. Its `sharded/*`
+        spans are ranges of a profile only: the step is no row of the
+        stage clock, so they stamp nothing in its replays."""
         gt_full = gt_to_float(gt[:H])
         dev = gt_full.device
         params = _leaves(state.params)
@@ -285,7 +287,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
         color_leaves = [] if color is None else tree_leaves(color)
 
         with torch.enable_grad():
-            with record_function("sharded/geometry_fwd"):
+            with annotate("sharded/geometry_fwd"):
                 if gauss_shard:
                     screen, screen_full, reg_total, proj, reg_terms, verts = sharded_geometry(
                         state, params, flame, ts, cam, sh_degree)
@@ -298,7 +300,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
             n_g = screen_in[0].shape[0]
 
             # ---- this rank's band
-            with record_function("sharded/band"):
+            with annotate("sharded/band"):
                 mean2d_band = screen_in[0] - band_shift
                 if use_sorted:
                     img_band, _alpha, plan = rasterize_sorted(
@@ -317,7 +319,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
                     flags = [binned.overflow, binned.budget_overflow, torch.zeros((), device=dev)]
 
             # ---- the full image and its loss
-            with record_function("sharded/image"):
+            with annotate("sharded/image"):
                 img_pad = coll.all_gather(img_band.detach(), mesh.tile_group)   # [H_pad, W, 3]
                 img_leaf = img_pad[:H].detach().requires_grad_()
                 img_total, loss_terms, img = image_loss(
@@ -329,7 +331,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
                 g_part = torch.autograd.grad(img_band, screen_in, g_band)
 
             # ---- the camera's screen cotangents
-            with record_function("sharded/screen_reduce"):
+            with annotate("sharded/screen_reduce"):
                 g_flat = torch.cat([g.reshape(n_g, -1) for g in g_part], 1)        # [N, 9]
                 if gauss_shard:
                     g_own = coll.reduce_scatter(g_flat, mesh.tile_group)
@@ -341,7 +343,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
 
             # ---- one geometry backward, the regularisers counted once
             if gauss_shard or lead:
-                with record_function("sharded/geometry_bwd"):
+                with annotate("sharded/geometry_bwd"):
                     outs, cots = [*screen], [*g_screen]
                     if reg_total.requires_grad and lead:
                         outs.append(reg_total)
@@ -349,7 +351,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
                     torch.autograd.backward(outs, cots)
 
         # ---- the world sum: gradients, statistics, metrics, thumbnail
-        with record_function("sharded/reduce"):
+        with annotate("sharded/reduce"):
             img = img.detach()
             zero_aux = dataclasses.replace(
                 state.aux, grad_accum=torch.zeros_like(state.aux.grad_accum),
@@ -396,7 +398,7 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
             denom=state.aux.denom + d_denom,
             max_radii2d=torch.maximum(state.aux.max_radii2d, maxed[:n_g_all]))
 
-        with record_function("sharded/adam"):
+        with annotate("sharded/adam"):
             it = iter(mean)
             new = apply_updates(
                 cfg, spatial_lr_scale, state, tree_map(lambda _: next(it), state.params),
@@ -483,7 +485,9 @@ class ShardedStep:
         buffers, which the next call overwrites; handed back, they copy
         nothing, and a leaf an event replaced is copied in. The key is (the
         ground truth's shape and dtype, the row's fovs, sh_degree, the
-        state's leaf shapes and dtypes); another key, or `drop`, releases
+        state's leaf shapes and dtypes; the graph's, also the stage clock's
+        state: switching the clock re-captures without eager calls); another
+        key, or `drop`, releases
         the graph and its memory pool (a rig whose cameras have their own
         intrinsics changes the key from view to view, so its steps are
         mostly eager warm-up calls). A capture or replay that fails
@@ -504,7 +508,7 @@ class ShardedStep:
     def __init__(self, body, form: str, collectives: Collectives, size: tuple):
         self.body, self.form, self.collectives = body, form, collectives
         self.height, self.width = size
-        self.slot = GraphSlot()
+        self.slot = GraphSlot("sharded_step")
         self.buffers: Optional[_StepBuffers] = None
         self.names: list = []
         self._per_replay: dict = {}
@@ -573,7 +577,7 @@ class ShardedStep:
             return self.eager(state, cams, gt, bg, sh_degree)
         _check_row(cams, gt)
         key = self._key(state, cams, gt, sh_degree)
-        g = self.slot.get(key)
+        g = self.slot.get(graph_key(step=key))
         if g is None:
             n = self._warm[1] + 1 if self._warm[0] == key else 1
             self._warm = (key, n)
@@ -581,7 +585,7 @@ class ShardedStep:
                 return warm_up(gt.device, lambda: self.eager(state, cams, gt, bg, sh_degree))
             self._fill(key, state, cams, gt, bg)
             before = self.collectives.snapshot()
-            g = self.slot.capture(key, lambda: self._buffer_body(sh_degree))
+            g = self.slot.capture(graph_key(step=key), lambda: self._buffer_body(sh_degree))
             self._per_replay = self.collectives.since(before)
         else:
             self._fill(key, state, cams, gt, bg)

@@ -27,6 +27,7 @@ from .ops.rasterize_dense import RenderOutput
 from .ops.rasterize_tiled import TileConfig, bin_gaussians, render_tiled
 from .ops.sort_binning import bbox_tiles, probe_tiers
 from .utils.graphs import FrameGraph
+from .utils.profiling import annotate, setup_span
 
 WIDTH, HEIGHT = 802, 550
 CAPACITY_ALIGN = 8192  # padded Gaussian capacity multiple of the bench scene
@@ -92,7 +93,14 @@ def probe_tile_config(model: Optional[FlameModel], params: GaussianParams, aux: 
     probes an unbound avatar (no FLAME). With `table`, the table
     pipeline's budgets too: the powers of two at or above the frame's
     largest bbox (`max_tiles_per_gaussian`) and its fullest tile
-    (`capacity`), so that the table cuts nothing on this frame."""
+    (`capacity`), so that the table cuts nothing on this frame. A set-up
+    span (`render/probe_tile_config`)."""
+    with setup_span("render/probe_tile_config"):
+        return _probe_tile_config(model, params, aux, flame_params, camera, tile_h, tile_w,
+                                  table)
+
+
+def _probe_tile_config(model, params, aux, flame_params, camera, tile_h, tile_w, table):
     frames = None
     if model is not None:
         frames = face_frames(model(flame_params)[0], model.faces)
@@ -125,7 +133,11 @@ class AvatarRenderer:
     into its buffers (a device copy, or a pinned copy from the host), the
     graph replays, and the call returns fresh `RenderOutput` tensors. The
     first call with a key is its eager warm-up and the second captures.
-    `render_eager` is the plain frame, op by op, which the CPU runs.
+    `render_eager` is the plain frame, op by op, which the CPU runs. The
+    frame's stages are spans of the stage clock (`utils/profiling`):
+    `frame/flame_bind` (FLAME, the binding frames, the world Gaussians),
+    then inside `render_tiled` `frame/project_sh`, `sort_gather/fwd` (the
+    binning) and `frame/composite`.
     """
 
     def __init__(self, model: FlameModel, params: GaussianParams, aux: GaussianAux,
@@ -150,8 +162,9 @@ class AvatarRenderer:
     @torch.inference_mode()
     def render_eager(self, flame_params: FlameParams) -> RenderOutput:
         fp = FlameParams(*(None if x is None else x.to(self.device) for x in flame_params))
-        verts = self.model(fp)
-        wg = world_gaussians(self.params, self.aux, face_frames(verts[0], self.model.faces))
+        with annotate("frame/flame_bind"):
+            verts = self.model(fp)
+            wg = world_gaussians(self.params, self.aux, face_frames(verts[0], self.model.faces))
         return render_tiled(
             wg.means, wg.scales, wg.quats, wg.opacity, self.camera, self.bg_color,
             sh=wg.sh, sh_degree=self.sh_degree, alive=wg.alive, cfg=self.tile_cfg,

@@ -34,10 +34,13 @@ JAX step's `use_flame=False` branches do. Off the sorted pipeline
 the image stage bins once from the detached projection with the screen
 opacity and composites the padded table (`rasterize_tiled.rasterize_binned`),
 as the JAX step's table branch does; its `overflow` and `budget_overflow`
-come from the table. Each stage is a
-`torch.profiler` range (`train/*`; the innovations' `train/region_map`,
-`train/color_net` and `train/contrastive` inside `train/image_fwd`), so
-a profile splits the step's device time by stage.
+come from the table. The step is the span `train/step`, a row of the
+stage clock (`utils/profiling.annotate`), and each stage a span inside it
+(`train/*`; the innovations' `train/region_map`, `train/color_net` and
+`train/contrastive` inside `train/image_fwd`, the thumbnail cache's
+`train/contrastive_update` after Adam). An eager profile names the
+stages' ranges; a captured step replays without them, and the stage
+clock's stamps, captured with the step, split its device time by stage.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..config import Config
 from ..data.cameras import Camera
@@ -58,7 +60,8 @@ from ..ops.rasterize_sorted import rasterize_sorted
 from ..ops.rasterize_tiled import (
     TileConfig, bin_gaussians, composite_tiles, rasterize_binned, view_colors,
 )
-from ..utils.graphs import GraphSlot, copy_in, warm_up
+from ..utils.graphs import GraphSlot, copy_in, graph_key, warm_up
+from ..utils.profiling import annotate
 from . import innovations as inn
 from .loss import l1_loss, psnr, safe_norm, ssim, weighted_l1_loss
 from .optim import AdamState, adam_init, adam_update, expon_lr, tree_leaves, tree_map
@@ -325,10 +328,10 @@ class ImageLoss:
         o = self.o
         h, w = camera.height, camera.width
         if color_net is not None:
-            with record_function("train/color_net"):
+            with annotate("train/color_net"):
                 img = inn.color_net_apply(color_net, img)
         if self.region_idx is not None:
-            with record_function("train/region_map"):
+            with annotate("train/region_map"):
                 wmap = inn.flame_region_weight_map(
                     verts_sg, self.region_idx, camera, h, w, o.region_weight_eyes,
                     o.region_weight_mouth, o.region_weight_nose)
@@ -346,7 +349,7 @@ class ImageLoss:
         if color_net is not None and o.lambda_color_reg > 0:
             losses["color_reg"] = inn.color_net_reg(color_net) * o.lambda_color_reg
         if contrastive is not None and o.lambda_contrastive > 0:
-            with record_function("train/contrastive"):
+            with annotate("train/contrastive"):
                 losses["contrastive"] = (inn.contrastive_loss(contrastive, img,
                                                               o.contrastive_downsample)
                                          * o.lambda_contrastive)
@@ -408,6 +411,10 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
 
     def train_step(state: TrainState, gt_image: torch.Tensor, camera: Camera, timestep,
                    bg_color: torch.Tensor, sh_degree: int) -> StepOutput:
+        with annotate("train/step", row=True):
+            return step_body(state, gt_image, camera, timestep, bg_color, sh_degree)
+
+    def step_body(state, gt_image, camera, timestep, bg_color, sh_degree) -> StepOutput:
         ts = timestep if isinstance(timestep, torch.Tensor) else int(timestep)
         params = _leaves(state.params)
         flame = _leaves(state.flame)
@@ -416,7 +423,7 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
 
         # ---- stage 1: geometry and regularisers, under autograd
         with torch.enable_grad():
-            with record_function("train/geometry_fwd"):
+            with annotate("train/geometry_fwd"):
                 screen, reg_total, proj, reg_terms, verts = geometry(
                     model, cfg, state, params, flame, ts, camera, sh_degree)
             proj_sg = proj._replace(**{k: v.detach() for k, v in proj._asdict().items()})
@@ -424,22 +431,22 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
             if not use_sorted:
                 # The table path bins once, from the detached projection
                 # with the screen opacity.
-                with record_function("train/binning"):
+                with annotate("train/binning"):
                     binned = bin_gaussians(proj_sg, camera.height, camera.width, tile_cfg,
                                            opacity=screen[3].detach())
 
             # ---- stage 2: the image loss from detached screen-space leaves
             screen_in = [x.detach().requires_grad_() for x in screen]
-            with record_function("train/image_fwd"):
+            with annotate("train/image_fwd"):
                 img, plan = rasterize(screen_in, proj_sg, camera, bg_color, binned)
                 img_total, loss_terms, img = image_loss(
                     img, gt_image, camera, color,
                     None if verts is None else verts.detach(), state.contrastive)
-            with record_function("train/image_bwd"):
+            with annotate("train/image_bwd"):
                 g_all = torch.autograd.grad(img_total, screen_in + color_leaves)
             g_screen, g_color = g_all[:4], iter(g_all[4:])
             # ∂loss/∂mean2d → densification statistics.
-            with record_function("train/densify_stats"):
+            with annotate("train/densify_stats"):
                 aux_new = add_densification_stats(state.aux, g_screen[0], proj_sg.radius,
                                                   camera.width, camera.height)
             # One backward: screen cotangents and a unit cotangent on the
@@ -449,10 +456,10 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
             if reg_total.requires_grad:
                 outs.append(reg_total)
                 cots.append(torch.ones_like(reg_total))
-            with record_function("train/geometry_bwd"):
+            with annotate("train/geometry_bwd"):
                 torch.autograd.backward(outs, cots)
 
-        with record_function("train/adam"):
+        with annotate("train/adam"):
             new = apply_updates(cfg, spatial_lr_scale, state, _grads(params),
                                 None if flame is None else _grads(flame),
                                 None if color is None else tree_map(lambda _: next(g_color),
@@ -460,7 +467,7 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
         img = img.detach()
         new_contrastive = state.contrastive
         if state.contrastive is not None:
-            with record_function("train/contrastive"):
+            with annotate("train/contrastive_update"):
                 new_contrastive = inn.contrastive_update(state.contrastive, img,
                                                          o.contrastive_downsample)
         if use_sorted:   # no tile capacity to overflow
@@ -611,17 +618,18 @@ class TrainChunk:
     fixed_walk`: every slot of the table's capacity, a pass over every
     tile), the same bits as the planned walk of eager steps. The graph is
     kept for one key, (image size, fovs, sh_degree, the state's leaf
-    shapes, the ground truth cache), so one private memory pool is alive
-    at a time; a chunk with another key drops it and captures anew, as
-    does `drop()`. A capture that fails raises: a chunk never falls back
+    shapes, the ground truth cache, the stage clock's state), so one
+    private memory pool is alive at a time; a chunk with another key drops
+    it and captures anew, as does `drop()`. A capture that fails raises: a chunk never falls back
     to eager steps on the card. The compositor kernels' launch counts
     (`ops/composite_pairs.LAUNCHES`) grow by their launches a step for
-    every replay, so they count steps as eager steps do."""
+    every replay, so they count steps as eager steps do. The call's host
+    phases are the spans `chunk/fill`, `chunk/replay` and `chunk/rows`."""
 
     def __init__(self, model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,
                  spatial_lr_scale: float = 1.0):
         self.step = make_train_step(model, cfg, tile_cfg, spatial_lr_scale)
-        self.slot = GraphSlot()
+        self.slot = GraphSlot("train_chunk")
         self.buffers: Optional[_StepBuffers] = None
 
     @property
@@ -636,6 +644,17 @@ class TrainChunk:
         """Release the captured graph and its memory pool."""
         self.slot.drop()
         self.buffers = None
+
+    @staticmethod
+    def key(state: TrainState, gt_cache: torch.Tensor, cams: Camera, sh_degree: int) -> tuple:
+        """The captured step's key (`utils/graphs.graph_key`)."""
+        from .checkpoint import flatten_state
+
+        return graph_key(size=(cams.height, cams.width), fov=(cams.fovx, cams.fovy),
+                         sh_degree=int(sh_degree),
+                         gt_cache=(gt_cache.data_ptr(), tuple(gt_cache.shape), gt_cache.dtype),
+                         state=tuple((n, tuple(x.shape), x.dtype)
+                                     for n, x in flatten_state(state).items()))
 
     def eager(self, state, gt_cache, views, cams, timesteps, bg, sh_degree):
         """The plain version: the step once a row, in order."""
@@ -653,13 +672,9 @@ class TrainChunk:
                  timesteps, bg: torch.Tensor, sh_degree: int):
         if gt_cache.device.type != "cuda":
             return self.eager(state, gt_cache, views, cams, timesteps, bg, sh_degree)
-        from .checkpoint import flatten_state
-
         views, timesteps = _host_ints(views), _host_ints(timesteps)
         k = len(views)
-        key = (cams.height, cams.width, cams.fovx, cams.fovy, int(sh_degree),
-               gt_cache.data_ptr(), tuple(gt_cache.shape), gt_cache.dtype,
-               tuple((n, tuple(x.shape), x.dtype) for n, x in flatten_state(state).items()))
+        key = self.key(state, gt_cache, cams, sh_degree)
         g = self.slot.get(key)
         if g is not None and self.buffers.cap < k:
             self.drop()
@@ -675,11 +690,14 @@ class TrainChunk:
                                             cap=max(64, 1 << (k - 1).bit_length()))
             g = self.slot.capture(key, lambda: b.step(self.step, gt_cache, sh_degree))
         b = self.buffers
-        b.fill(state, views, timesteps, cams, bg, start, k)
-        g.replay(k - start)
-        rows = {name: buf[start:k].clone() for name, buf in b.metrics.items()}
-        if warm is not None:
-            rows = {n: torch.cat([warm[n], r]) for n, r in rows.items()}
+        with annotate("chunk/fill", stamp=False):
+            b.fill(state, views, timesteps, cams, bg, start, k)
+        with annotate("chunk/replay", stamp=False):
+            g.replay(k - start)
+        with annotate("chunk/rows", stamp=False):
+            rows = {name: buf[start:k].clone() for name, buf in b.metrics.items()}
+            if warm is not None:
+                rows = {n: torch.cat([warm[n], r]) for n, r in rows.items()}
         return dataclasses.replace(b.state, generator=state.generator), rows
 
 

@@ -24,7 +24,12 @@ The pieces they share:
     replay, so that they count frames and steps as eager calls do;
   * `copy_in`: static input buffers filled in place before a replay;
   * `GraphSlot`: one graph for one key, dropped on a key change, so that
-    one private memory pool is alive a user at a time.
+    one private memory pool is alive a user at a time;
+  * `graph_key`: a key's named fields and the stage clock's state
+    (`utils/profiling.clock_key`), so that switching the clock re-captures.
+
+Warm-ups and captures are set-up spans, and captures are counted by kind
+and by the key field that changed (`utils/profiling.setup_report`).
 
 A capture runs the table pipeline in its host-read-free form (its fixed
 walk: `ops/rasterize_tiled.host_read_free` sees the capture); the eager
@@ -40,18 +45,35 @@ import torch
 
 from ..ops import composite_pairs
 from ..training.optim import tree_map
+from . import profiling
 
 
 def warm_up(device, fn: Callable):
     """fn() on a side stream of `device` (the current stream waits for it);
     returns its result."""
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        out = fn()
-    main.wait_stream(side)
-    return out
+    with profiling.setup_span("graphs/warm_up"):
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = fn()
+        main.wait_stream(side)
+        return out
+
+
+def graph_key(**fields) -> tuple:
+    """A captured graph's key: its fields by name, and the stage clock's
+    state last (`stage_clock`)."""
+    return (*fields.items(), ("stage_clock", profiling.clock_key()))
+
+
+def changed_fields(old: Optional[tuple], new: tuple) -> Optional[list]:
+    """The names of the fields of `graph_key` key `new` that differ from
+    `old`'s; None without an old key."""
+    if old is None:
+        return None
+    before = dict(old)
+    return [k for k, v in new if k not in before or before[k] != v]
 
 
 def copy_in(buffers: dict, values: dict) -> None:
@@ -84,13 +106,17 @@ class Captured:
     ground truth to the card), which the default global mode would turn
     into a failed capture."""
 
-    def __init__(self, key, fn: Callable):
+    def __init__(self, key, fn: Callable, kind: str = "graph"):
         launches = composite_pairs.LAUNCHES
         before = dict(launches)
         self.key = key
+        # The stage clock's ring, which the graph's stamps write, lives as
+        # long as the graph.
+        self.clock = profiling.current_clock()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            with profiling.setup_span("graphs/capture", kind=kind), \
+                    torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 self.outputs = fn()
             self.per_replay = {k: launches[k] - before[k] for k in launches}
         finally:
@@ -104,11 +130,15 @@ class Captured:
 
 
 class GraphSlot:
-    """At most one captured graph, for one key; `captures` counts them."""
+    """At most one captured graph of `kind`, for one key (`graph_key`);
+    `captures` counts them, and each is counted in the set-up report with
+    the key fields that changed since the graph before."""
 
-    def __init__(self):
+    def __init__(self, kind: str):
+        self.kind = kind
         self.captured: Optional[Captured] = None
         self.captures = 0
+        self.last_key = None
 
     def get(self, key) -> Optional[Captured]:
         """The graph of `key`, or None (a graph of another key is dropped)."""
@@ -118,7 +148,9 @@ class GraphSlot:
 
     def capture(self, key, fn: Callable) -> Captured:
         self.drop()
-        self.captured = Captured(key, fn)
+        profiling.count_capture(self.kind, changed_fields(self.last_key, key))
+        self.captured = Captured(key, fn, self.kind)
+        self.last_key = key
         self.captures += 1
         return self.captured
 
@@ -137,18 +169,25 @@ class FrameGraph:
     The second call captures fn over the same buffers; it and every later
     call replay the graph and return a copy of its outputs, fresh tensors
     as a jitted call returns. Another key drops the graph and the buffers,
-    and starts again."""
+    and starts again; switching the stage clock keeps the buffers and
+    re-captures at the next call. fn runs in the `frame` span, a row of
+    the stage clock; the call's host phases are the spans
+    `frame/copy_in`, `frame/replay` and `frame/outputs`."""
 
     def __init__(self, fn: Callable, device):
         self.fn = fn
         self.device = torch.device(device)
-        self.slot = GraphSlot()
+        self.slot = GraphSlot("frame")
         self.key = None
         self.buffers: Optional[dict] = None
 
     @property
     def captures(self) -> int:
         return self.slot.captures
+
+    def _frame(self):
+        with profiling.annotate("frame", row=True):
+            return self.fn(self.buffers)
 
     def __call__(self, key, inputs: dict):
         if self.buffers is None or key != self.key:
@@ -157,8 +196,12 @@ class FrameGraph:
             self.buffers = {k: torch.empty_like(torch.as_tensor(x), device=self.device)
                             for k, x in inputs.items()}
             copy_in(self.buffers, inputs)
-            return warm_up(self.device, lambda: self.fn(self.buffers))
-        copy_in(self.buffers, inputs)
-        g = self.slot.get(key) or self.slot.capture(key, lambda: self.fn(self.buffers))
-        g.replay()
-        return tree_map(lambda x: x.clone(), g.outputs)
+            return warm_up(self.device, self._frame)
+        with profiling.annotate("frame/copy_in", stamp=False):
+            copy_in(self.buffers, inputs)
+        gkey = graph_key(inputs=key)
+        g = self.slot.get(gkey) or self.slot.capture(gkey, self._frame)
+        with profiling.annotate("frame/replay", stamp=False):
+            g.replay()
+        with profiling.annotate("frame/outputs", stamp=False):
+            return tree_map(lambda x: x.clone(), g.outputs)

@@ -64,6 +64,9 @@ BY_DESIGN = {
         "build_harness(generator)", "random draws come from a torch.Generator"),
     ("training/trainer.py", "init_train_state(key)"): (
         "init_train_state(generator)", "random draws come from a torch.Generator"),
+    ("utils/profiling.py", "StepTimer"): (
+        None, "an EMA of host ms a step that nothing called; the stage clock "
+              "(enable_stage_clock, annotate, stage_report) times steps on the card"),
 }
 
 # (script, flag) → the reason the port's tool has no such flag.

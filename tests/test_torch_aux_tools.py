@@ -5,9 +5,8 @@
 * The roofline models on equal `ChipSpec` fields: every number within rtol
   1e-12 (the same float64 arithmetic in the same order); the port's default
   spec is the H100's.
-* `StepTimer` as the JAX package's `tests/test_utils_aux.py:9`; `trace`
-  writes a Chrome trace holding an `annotate` range, and lets an exception
-  of its body through.
+* `trace` writes a Chrome trace holding an `annotate` range, and lets an
+  exception of its body through.
 * `stage_timings` at a test size (the 415-face sparse sphere of
   `tests/test_torch_innovations_loop.py`, 64×48, one iteration), on both
   pipelines: every stage's ms is finite and positive.
@@ -105,16 +104,6 @@ def test_measure_primitive_rates_on_the_cpu():
 
 
 # ----------------------------------------------------------------- profiling
-
-
-def test_step_timer():
-    t = tprof.StepTimer(sync_every=3)
-    x = torch.ones((8, 8))
-    samples = [t.step(sync_on=x) for _ in range(7)]
-    assert samples[0] is None and samples[1] is None
-    assert samples[2] is not None and samples[2] > 0
-    assert samples[3] is None and samples[4] is None and samples[5] is not None
-    assert t.ema_ms == samples[5]
 
 
 def test_trace_writes_annotated_ranges_and_passes_exceptions(tmp_path):

@@ -674,3 +674,106 @@ def test_frame_capture_error_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         renderer.render(fl)
     assert renderer.captures == 0 and renderer.graph.slot.captured is None
+
+
+def _stamp_kernels(prof) -> int:
+    from gaussianavatars_torch.utils import profiling
+
+    return sum(profiling.STAMP_KERNEL in e.name for e in prof.events())
+
+
+def _outer_adds_up(kind: dict, outer: str) -> None:
+    """Every row of the kind holds every span once; the outer span's direct
+    children and its self time add up to it."""
+    spans = kind["spans"]
+    assert all(s["count"] == kind["units"] for s in spans.values()), spans
+    assert all(s["self_ms"] >= 0 for s in spans.values()), spans
+    top = sum(s["mean_ms"] for s in spans.values() if s["parent"] == outer)
+    assert top + spans[outer]["self_ms"] == pytest.approx(spans[outer]["mean_ms"], rel=1e-9)
+
+
+def test_stage_clock_frames_keep_their_bits(cuda_device):
+    """`AvatarRenderer.render` with the stage clock off, on and off again:
+    the same image bits; switching re-captures. Off, a profiled replay
+    launches no stamp kernel. On, each replay writes one complete row with
+    the frame's stages, and a profiled stretch aligns with the ring (every
+    stamp kernel matched)."""
+    from gaussianavatars_torch.utils import profiling
+
+    model, _cfg, tile, state, fl, cams = _frame_case(cuda_device)
+    renderer = AvatarRenderer(model, state.params, state.aux, cams[0], tile, device=cuda_device)
+    poses = [fl._replace(jaw=torch.tensor([[j, 0.0, 0.0]], device=cuda_device))
+             for j in (0.0, 0.1, 0.2)]
+    renderer.render(poses[0])
+    off = [renderer.render(fp).color for fp in poses]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        renderer.render(poses[0])
+        torch.cuda.synchronize()
+    assert _stamp_kernels(prof) == 0 and renderer.captures == 1
+    profiling.enable_stage_clock(cuda_device, rows=64)
+    try:
+        renderer.render(poses[0])
+        assert renderer.captures == 2
+        profiling.stage_report()
+        on = [renderer.render(fp).color for fp in poses]
+        rep = profiling.stage_report()
+        with torch.profiler.profile(activities=acts) as prof:
+            for fp in poses:
+                renderer.render(fp)
+            torch.cuda.synchronize()
+        aligned = profiling.stage_report(trace_events=profiling.trace_events(prof))
+    finally:
+        profiling.disable_stage_clock()
+    again = [renderer.render(fp).color for fp in poses]
+    assert renderer.captures == 3
+    for a, b, c in zip(off, on, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    frame = rep["kinds"]["frame"]
+    assert rep["rows"] == 3 and frame["units"] == 3 and frame["gaps"] == 2
+    assert {"frame", "frame/flame_bind", "frame/project_sh", "sort_gather/fwd",
+            "frame/composite"} == set(frame["spans"])
+    _outer_adds_up(frame, "frame")
+    assert rep["resolution_ns"] is not None and rep["repeats"] == {}
+    al = aligned["align"]
+    assert "error" not in al, al
+    assert al["stamps"] == 3 * 2 * 5 and al["offset_iqr_ns"] < 1e6, al
+    assert al["gaps"]["frame"]["gaps"] == 2, al
+
+
+def test_stage_clock_chunks_keep_their_bits(cuda_device):
+    """A chunk of 8 steps then one of 8 replays, with the stage clock off
+    and on: the same state and metric bits. On, the replays write a
+    complete row a step with every stage of the step."""
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_chunk
+    from gaussianavatars_torch.utils import profiling
+
+    def run(clock: bool):
+        model, cfg, tile, state, cache, _c, stacked, views, ts = _chunk_case(cuda_device, 8)
+        bg = torch.zeros(3, device=cuda_device)
+        chunk = make_train_chunk(model, cfg, tile)
+        if clock:
+            profiling.enable_stage_clock(cuda_device, rows=64)
+        try:
+            st, _m = chunk(state, cache, views, stacked, ts, bg, 3)
+            rep = profiling.stage_report() if clock else None
+            st, m = chunk(st, cache, views, stacked, ts, bg, 3)
+            rep = profiling.stage_report() if clock else None
+        finally:
+            profiling.disable_stage_clock()
+        return {k: v.clone() for k, v in flatten_state(st).items()}, m, rep
+
+    s_off, m_off, _ = run(False)
+    s_on, m_on, rep = run(True)
+    for k, v in s_off.items():
+        assert torch.equal(v, s_on[k]), k
+    for k, v in m_off.items():
+        assert torch.equal(v, m_on[k]), k
+    step = rep["kinds"]["train/step"]
+    assert rep["rows"] == 8 and step["units"] == 8 and step["gaps"] == 7
+    assert {"train/step", "train/geometry_fwd", "train/image_fwd", "sort_gather/fwd",
+            "frame/composite", "train/image_bwd", "sort_gather/bwd", "train/densify_stats",
+            "train/geometry_bwd", "train/adam"} == set(step["spans"])
+    assert step["spans"]["sort_gather/bwd"]["parent"] == "train/image_bwd"
+    _outer_adds_up(step, "train/step")
