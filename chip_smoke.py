@@ -277,9 +277,28 @@ non-zero):
                 (1e-5 relative), both timed. `--flame_only` runs phases 1,
                 2, 16's FLAME-bound run (on phase 12's dataset, written and
                 not fitted) and 21 alone.
+ 22. binding_gather — the binding gathers' backward (`ops/binding_gather`,
+                `csrc/binding_segment_sum.cu`) at three layouts, every
+                padding slot on face 0: the benchmark's base-train and
+                innov-train avatars (98,304 and 114,688 slots) and a fit's
+                initial state (131,072 slots, 10,010 live). With random
+                gradients on every slot: the kernel bit for bit its plain
+                version; against `index_put_` with accumulate on the three
+                tables (the backward it replaces), the faces of runs of at
+                most 32 entries bit for bit; every face within the kernel's
+                own rounding of its sum in float64, (32 + S) · 2^-24 · Σ|g|
+                for a run of S slices; its ptxas report (no spills) and no
+                atomic in its SASS. Timed (device ms, a CUDA graph of 50 calls): the kernel
+                against its bound (bytes at 3.35 TB/s), the index build, the
+                two together, the parent's path as `library_ms` and the plain
+                version. `--binding_only` runs phases 1, 2 and 22 alone.
+                The training paths of phases 6, 10, 12, 15 and 19 hold the
+                kernel to one launch and one index build a step, serving
+                (phase 4) to none; the kernels line counts its launches over
+                the main paths, not phase 22's own calls.
 
 The last two lines are the kernels' JSON record (every C entry point of the
-compositor, the `amp` ones marked) and
+compositor, the `amp` ones marked, and the segment sum) and
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
 and exits non-zero.
 """
@@ -619,11 +638,38 @@ def compare_bwd_kernel(label: str, table, fwd_outputs, seed: int) -> dict:
 
 
 def reset_launches() -> None:
-    """Every launch counter of the compositor to 0."""
+    """Every engagement count (`utils/profiling.counter`: the compositor's
+    and the binding segment sum's launches, the binding index's builds)
+    to 0."""
+    from gaussianavatars_torch.utils import profiling
+
+    for counts in profiling.counters().values():
+        for k in counts:
+            counts[k] = 0
+
+
+def launch_counts() -> dict:
+    """The launches since `reset_launches` by entry point: the compositor's
+    and the binding segment sum's."""
+    from gaussianavatars_torch.ops import binding_gather as bg
     from gaussianavatars_torch.ops import composite_pairs as cp
 
-    for k in cp.LAUNCHES:
-        cp.LAUNCHES[k] = 0
+    return {**cp.LAUNCHES, **bg.LAUNCHES}
+
+
+def binding_launches(steps: int, what: str) -> int:
+    """The binding segment sum's launches since `reset_launches`, which a
+    FLAME-bound training path makes once a step (the backward of its
+    binding gathers), building the index as often; nothing built or
+    launched where no step ran."""
+    from gaussianavatars_torch.ops import binding_gather as bg
+
+    n, builds = bg.LAUNCHES["binding_segment_sum"], bg.INDEX["builds"]
+    log(f"{what}/binding_segment_sum", launches=n, index_builds=builds, steps=steps)
+    if n != steps or builds != steps:
+        raise AssertionError(f"{what}: the binding segment sum launched {n} times and its "
+                             f"index was built {builds} times in {steps} steps")
+    return n
 
 
 def with_impl(impl: str, fn):
@@ -1008,7 +1054,8 @@ def phase_train(model, params, aux, cam, tile_cfg, card, setup) -> dict:
         overflow = torch.maximum(overflow, out.metrics["budget_overflow"].to(torch.int64))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    entry_launches = dict(cp.LAUNCHES)
+    entry_launches = dict(cp.LAUNCHES, binding_segment_sum=binding_launches(N_TRAIN_STEPS,
+                                                                            "train"))
     launches = {"fwd": entry_launches["composite_pairs_fwd"],
                 "bwd": entry_launches["composite_pairs_bwd"]}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1149,6 +1196,7 @@ def phase_train_amp(model, aux, cam, tile_cfg, card, setup) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(cp.LAUNCHES)
+    binding = binding_launches(N_AMP_STEPS, "train_amp")
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     loss = torch.stack(losses).tolist()
     finite = dict(params=all_finite(state.params), flame=all_finite(state.flame),
@@ -1192,7 +1240,8 @@ def phase_train_amp(model, aux, cam, tile_cfg, card, setup) -> dict:
             "f32": [1e3 * b / N_AMP_BLOCK for b in block_s[False]],
             "amp": [1e3 * b / N_AMP_BLOCK for b in block_s[True]]},
         **prof_res)
-    return dict(res, one_step=one, entry_launches=launches, steps_per_s=N_AMP_STEPS / wall_s)
+    return dict(res, one_step=one, entry_launches=dict(launches, binding_segment_sum=binding),
+                steps_per_s=N_AMP_STEPS / wall_s)
 
 
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
@@ -1442,6 +1491,7 @@ def phase_loop(card) -> dict:
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     logs, events = result["logs"], harness.events
     iters = args.iterations
+    binding = binding_launches(iters, "loop")
 
     # Launches: the backward once per training step; the forward once per
     # step, per dataset view rendered and per eval view.
@@ -1577,7 +1627,7 @@ def phase_loop(card) -> dict:
     # Where the fit's step spends its device time (the chunked loop runs at it).
     log("loop/profile", card=card["nvidia_smi"], **profile_train(
         step, h2.state, gt0, cam, bg, sum(rates["bare"]) / len(rates["bare"])))
-    return dict(res, launches=launches, harness=harness)
+    return dict(res, launches=dict(launches, binding_segment_sum=binding), harness=harness)
 
 
 def fitted_view(harness):
@@ -2161,6 +2211,7 @@ def innovations_run(card) -> dict:
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     logs, events, o = result["logs"], harness.events, harness.cfg.opt
     iters = args.iterations
+    binding = binding_launches(iters, "innovations")
     st = harness.state
 
     # Each iteration at its scale's image size; the past scales evicted.
@@ -2272,7 +2323,7 @@ def innovations_run(card) -> dict:
             or resumed["scales"] != want_scales or want_scales[0] != 0.75
             or h2.steps_by_size != want_resumed):
         raise AssertionError(f"innovations resume: {resumed}")
-    return dict(launches=launches)
+    return dict(launches=dict(launches, binding_segment_sum=binding))
 
 
 def rel_err(a, b) -> float:
@@ -2391,6 +2442,7 @@ def innovations_step(card, model, params, aux, cam, tile_cfg, setup) -> dict:
     if {k: v for k, v in launches.items() if v} != {"composite_pairs_fwd": n,
                                                     "composite_pairs_bwd": n}:
         raise AssertionError(f"innovation blocks: launches {launches} for {n} steps")
+    launches["binding_segment_sum"] = binding_launches(n, "innovations/blocks")
     if not (all(bool(torch.isfinite(x).all()) for x in tree_leaves(states[True].color_net))
             and all_finite(states[True].params)):
         raise AssertionError("innovation blocks: non-finite state")
@@ -4189,6 +4241,7 @@ def chunk_vs_steps(card, model, cfg, tile_cfg, state0, cache, cam, bg, label: st
         st = out.state
         rows.append(out.metrics)
     torch.cuda.synchronize()
+    binding_launches(N_CHUNK, f"chunks/vs_steps/{label}/eager")
     eager = dict(launches=dict(cp.LAUNCHES), peak_mib=torch.cuda.max_memory_allocated() / 2**20)
     eager["s"] = time.perf_counter() - t0
     chunk = make_train_chunk(model, cfg, tile_cfg)
@@ -4197,6 +4250,7 @@ def chunk_vs_steps(card, model, cfg, tile_cfg, state0, cache, cam, bg, label: st
     t0 = time.perf_counter()
     st_c, m_c = chunk(state0, cache, views, stacked, ts, bg, 3)
     torch.cuda.synchronize()
+    binding = binding_launches(N_CHUNK, f"chunks/vs_steps/{label}/chunk")
     chunked = dict(launches=dict(cp.LAUNCHES), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                    s=time.perf_counter() - t0)
     m_e = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
@@ -4218,7 +4272,8 @@ def chunk_vs_steps(card, model, cfg, tile_cfg, state0, cache, cam, bg, label: st
             and res["eager_launches"] == want and res["chunk_launches"] == want
             and set(m_c) == set(m_e) and m_c["loss"].shape == (N_CHUNK,)):
         raise AssertionError(f"chunks/vs_steps/{label}: {res}")
-    return dict(chunk=chunk, state=st_c, launches=chunked["launches"])
+    return dict(chunk=chunk, state=st_c,
+                launches=dict(chunked["launches"], binding_segment_sum=binding))
 
 
 def chunk_blocks(card, step, chunk, state, cache, cam, bg, label: str) -> dict:
@@ -4285,8 +4340,7 @@ def chunk_fit(card) -> dict:
     `1`: the same events at the same iterations, the logged losses at rtol
     1e-4, `alive` and `binding` equal, and every parameter leaf within 1e-2
     of its largest move over the run; steps/s of both. Returns rows 1 and
-    2's launches of both runs."""
-    from gaussianavatars_torch.ops import composite_pairs as cp
+    2's and the binding segment sum's launches of both runs."""
     from gaussianavatars_torch.tools import train_synthetic as ts
     from gaussianavatars_torch.training.checkpoint import flatten_state
 
@@ -4313,7 +4367,7 @@ def chunk_fit(card) -> dict:
                 captures=harness.chunk_captures)
     finally:
         ts.train = train
-    launches = dict(cp.LAUNCHES)
+    launches = launch_counts()
     chunked, single = runs[50]["leaves"], runs[1]["leaves"]
     worst = {}
     for k, v in single.items():
@@ -4341,7 +4395,8 @@ def chunk_fit(card) -> dict:
 
 
 def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
-    """Phase 19. Returns rows 1 and 2's launches on its paths."""
+    """Phase 19. Returns rows 1 and 2's and the binding segment sum's launches on its
+    paths."""
     from gaussianavatars_torch.config import Config
     from gaussianavatars_torch.ops import composite_pairs as cp
     from gaussianavatars_torch.training.trainer import (
@@ -4352,7 +4407,7 @@ def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
     cfg, gt, bg, state0 = setup
     step_syncs(model, cfg, tile_cfg, setup, cam)
     cache = (torch.clamp(gt, 0.0, 1.0)[None] * 255).to(torch.uint8)
-    launches = dict.fromkeys(cp.LAUNCHES, 0)
+    launches = dict.fromkeys(launch_counts(), 0)
 
     def add(run):
         for k, v in run.items():
@@ -4372,7 +4427,8 @@ def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
     out = {}
     _busy, counts, ops = kernel_busy_ms(
         lambda: out.update(r=chunk(st, cache, views, stacked, ts, bg, 3)), N_CHUNK_PROFILED)
-    add(cp.LAUNCHES)
+    binding_launches(N_CHUNK_PROFILED, "chunks/trace")
+    add(launch_counts())
     st = out["r"][0]
     traced = dict(replays=N_CHUNK_PROFILED, compositor_kernels_per_step=counts,
                   kernels_per_step=ops, captures=chunk.captures,
@@ -4384,7 +4440,8 @@ def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
     # (c) no host synchronisation while a chunk replays; one to read it.
     reset_launches()
     syncs = sync_count(lambda: out.update(r=chunk(st, cache, views, stacked, ts, bg, 3)))
-    add(cp.LAUNCHES)
+    binding_launches(N_CHUNK_PROFILED, "chunks/syncs")
+    add(launch_counts())
     st, m = out["r"]
     read = sync_count(lambda: float(m["loss"][-1]))
     log("chunks/syncs", syncs_in_chunk=syncs, syncs_to_read=read, steps=N_CHUNK_PROFILED)
@@ -4409,7 +4466,7 @@ def phase_chunks(card, model, params, aux, cam, tile_cfg, setup) -> dict:
         rates[label] = chunk_blocks(card, make_train_step(model, c, tile_cfg), ch, st0,
                                     cache, cam, bg, label)
         ch.drop()
-        add(cp.LAUNCHES)
+        add(launch_counts())
 
     # (e) the fit, chunked against single steps.
     fit = chunk_fit(card)
@@ -4792,6 +4849,113 @@ def phase_frames(card, model, params, aux, fl, cam, tile_cfg, setup, harness) ->
     return launches
 
 
+# Binding layouts of phase 22: (slots, faces, live Gaussians a face), every
+# padding slot on face 0 as in the fixed-capacity state.
+BINDING_LAYOUTS = {
+    "base_train": (98_304, 10_010, 9),
+    "innov_train": (114_688, 10_010, 11),
+    "initial_state": (131_072, 10_010, 1),
+}
+BINDING_WIDTHS = (3, 4, 1)   # the frames' centre, orientation and scaling
+ATOMIC_OPCODES = ("ATOM", "ATOMS", "ATOMG", "RED")
+
+
+def binding_bound(cap: int, n_faces: int) -> dict:
+    """The segment sum's least time: each gradient row read once, the index
+    (perm, offsets) read once, each face row written once, at 3.35 TB/s."""
+    cols = sum(BINDING_WIDTHS)
+    nbytes = 4 * (cap * cols + cap + n_faces + 1 + n_faces * cols)
+    return dict(bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes")
+
+
+def phase_binding_gather(card, built) -> dict:
+    """Phase 22 (see the module's docstring); the kernels line's entry."""
+    from gaussianavatars_torch import cuda_build
+    from gaussianavatars_torch.ops import binding_gather as bg
+
+    dev = torch.device("cuda")
+    rep = {k: v for k, v in cuda_build.ptxas_report(built["binding_segment_sum"]["log"]).items()
+           if "binding_segment_sum_kernel" in k}
+    sass = cuda_build.library_sass("binding_segment_sum")
+    atomics = sum(1 for line in sass.splitlines()
+                  if any(f" {op}." in line or f" {op} " in line for op in ATOMIC_OPCODES))
+    log("binding_gather/ptxas", kernels=rep, atomic_instructions=atomics)
+    if len(rep) != 1 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                            for r in rep.values()) or atomics:
+        raise AssertionError(f"binding_segment_sum: missing, spills or atomics: {rep}, "
+                             f"{atomics} atomic instructions")
+    out = {}
+    for name, (cap, n_faces, per_face) in BINDING_LAYOUTS.items():
+        idx = torch.arange(cap, device=dev)
+        binding = torch.where(idx < n_faces * per_face, idx % n_faces, 0)
+        g = torch.Generator().manual_seed(22)
+        grads = [torch.randn((cap, w), generator=g).to(dev) for w in BINDING_WIDTHS]
+        index = bg.build_face_index(binding, n_faces)
+        runs = index.offsets[1:] - index.offsets[:-1]
+        got = bg.segment_sum(grads, index)
+        plain = bg.segment_sum_reference(grads, index)
+        parent = [torch.zeros_like(a).index_put_((binding,), x, accumulate=True)
+                  for a, x in zip(got, grads)]
+        short = runs <= bg.SLICE
+        # Every face against its sum in float64, within the kernel's own
+        # rounding: S = ceil(n / SLICE) slices of at most SLICE terms, then
+        # S partial sums, so at most (SLICE + S) · 2^-24 · Σ|g|.
+        slices = (runs + bg.SLICE - 1) // bg.SLICE
+        err, face0, within = [], [], True
+        for a, x in zip(got, grads):
+            exact = torch.zeros(a.shape, dtype=torch.float64, device=dev).index_add_(
+                0, binding, x.double())
+            abs_sum = torch.zeros_like(exact).index_add_(0, binding, x.double().abs())
+            e = (a.double() - exact).abs()
+            bound = (bg.SLICE + slices[:, None]) * 2.0 ** -24 * abs_sum
+            within = within and bool((e <= bound).all())
+            err.append(float(e.max()))
+            face0.append([float(e[0].max()), float(bound[0].min())])
+        res = dict(slots=cap, faces=n_faces, face0_run=int(runs[0]),
+                   longest_short_run=int(runs[short].max()),
+                   equal_plain=all(torch.equal(a, p) for a, p in zip(got, plain)),
+                   short_runs_equal_index_put=all(torch.equal(a[short], p[short])
+                                                  for a, p in zip(got, parent)),
+                   face0_vs_index_put=[float((a[0] - p[0]).abs().max())
+                                       for a, p in zip(got, parent)],
+                   max_err_vs_float64=err, face0_err_and_bound=face0,
+                   within_rounding_bound=within)
+        res.update(binding_bound(cap, n_faces))
+
+        def kernel():
+            bg.segment_sum(grads, index)
+
+        def index_and_kernel():
+            bg.segment_sum(grads, bg.build_face_index(binding, n_faces))
+
+        def parent_path():
+            for a, x in zip(got, grads):
+                torch.zeros_like(a).index_put_((binding,), x, accumulate=True)
+
+        res.update(
+            kernel_ms=graph_ms(kernel, N_KERNEL_REPS),
+            wrapper_ms=cuda_ms(kernel, N_KERNEL_REPS),
+            index_ms=graph_ms(lambda: bg.build_face_index(binding, n_faces), N_KERNEL_REPS),
+            backward_ms=graph_ms(index_and_kernel, N_KERNEL_REPS),
+            library_ms=graph_ms(parent_path, N_KERNEL_REPS),
+            plain_ms=cuda_ms(lambda: bg.segment_sum_reference(grads, index), 3))
+        res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
+        log(f"binding_gather/{name}", **res, card=card["nvidia_smi"],
+            note="device ms a call, a CUDA graph of 50 calls (plain_ms and wrapper_ms: CUDA "
+                 "events around eager calls); library_ms: index_put_ with accumulate on the "
+                 "three tables, the path the kernel replaces")
+        if not (res["equal_plain"] and res["short_runs_equal_index_put"] and within
+                and res["bound_share"] <= cuda_build.MAX_BOUND_SHARE):
+            raise AssertionError(f"binding_gather/{name}: {res}")
+        out[name] = res
+    base = out["base_train"]
+    return dict(name="binding_segment_sum", route="cuda",
+                source="gaussianavatars_torch/csrc/binding_segment_sum.cu", replaces=None,
+                max_abs_err=max(max(r["max_err_vs_float64"]) for r in out.values()),
+                ms=base["wrapper_ms"], plain_ms=base["plain_ms"], bound_ms=base["bound_ms"],
+                bound_by="bytes", library_ms=base["library_ms"])
+
+
 def parse_args(argv=None):
     import argparse
 
@@ -4813,6 +4977,8 @@ def parse_args(argv=None):
     ap.add_argument("--flame_only", action="store_true",
                     help="phases 1, 2, 16's FLAME-bound run (on phase 12's dataset, written "
                          "and not fitted) and 21: the real-FLAME import")
+    ap.add_argument("--binding_only", action="store_true",
+                    help="phases 1, 2 and 22 alone: the binding gathers' segment sum")
     return ap.parse_args(argv)
 
 
@@ -4930,6 +5096,12 @@ def main(argv=None) -> int:
         return frames_only(card)
     if args.flame_only:
         return flame_only(card)
+    if args.binding_only:
+        phase_binding_gather(card, built)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     against = build_against(args.against) if args.against else []
     torch.set_grad_enabled(False)
 
@@ -5048,7 +5220,8 @@ def main(argv=None) -> int:
     ev1.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    path_launches = dict(cp.LAUNCHES)
+    path_launches = launch_counts()
+    binding_launches(0, "slice")   # frames build no index and sum nothing
     launches = path_launches["composite_pairs_fwd"]
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     img_diff = float((first - last).abs().max())
@@ -5160,6 +5333,9 @@ def main(argv=None) -> int:
     # --- 21. the real-FLAME import: landmarks, root centring, project_gaussians --
     phase_flame_import(card, FLAME_NPZ, (model, params, aux, fl, cam, n_g))
 
+    # --- 22. the binding gathers' segment sum ------------------------------------
+    binding_kernel = phase_binding_gather(card, built)
+
     # Launches per entry point over the main paths: serving, training,
     # the A/B (float32 and amp), amp training, the loop, the replay, the
     # innovations' loop and step, the CLI, phase 17's sorted paths
@@ -5167,7 +5343,9 @@ def main(argv=None) -> int:
     # steps, the two viewer tools), phase 18's (the 1x1 step in this
     # process and the four ranks' bands), phase 19's (chunks and eager
     # steps, float32, amp and the innovations) and phase 20's (captured and
-    # eager frames of serving, both FPS tools and eval).
+    # eager frames of serving, both FPS tools and eval). The binding segment
+    # sum's are counted on the training paths of phases 6, 10, 12, 15 and
+    # 19, once a step.
     for run in (train["entry_launches"], ab_launches, train_amp["entry_launches"],
                 loop_res["launches"], replay_launches, innov_loop["launches"],
                 innov_step["launches"], cli_launches, table_launches, sharded_launches,
@@ -5200,6 +5378,7 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    kernels.append(dict(binding_kernel, launches=path_launches["binding_segment_sum"]))
     log("seconds", script_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

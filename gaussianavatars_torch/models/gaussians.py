@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.binding_gather import binding_gather
 from ..ops.knn import mean_sq_dist_3nn
 from ..ops.quaternion import quat_mul, quat_normalize, quat_rotate
 from ..ops.sh import num_sh_coeffs, rgb_to_sh0
@@ -80,18 +81,19 @@ def world_gaussians(
     aux: GaussianAux,
     frames: Optional[FaceFrames] = None,
 ) -> WorldGaussians:
-    """Activate parameters and (if bound) compose triangle-local → world."""
+    """Activate parameters and (if bound) compose triangle-local → world.
+    The face frames are read by `ops/binding_gather` (one segment sum
+    kernel as their backward)."""
     scales = torch.exp(params.log_scales)
     quats = quat_normalize(params.quats)
     opacity = torch.sigmoid(params.logit_opacity[:, 0])
     if frames is None:
         means = params.means
     else:
-        b = aux.binding
-        fs = frames.scaling[b]          # [N, 1]
-        fq = frames.orien_quat[b]       # [N, 4]
+        fs, fq, center = binding_gather(aux.binding, frames.scaling, frames.orien_quat,
+                                        frames.center)   # [N, 1], [N, 4], [N, 3]
         scales = scales * fs
-        means = quat_rotate(fq, params.means) * fs + frames.center[b]
+        means = quat_rotate(fq, params.means) * fs + center
         quats = quat_mul(fq, quats)
     return WorldGaussians(
         means=means, scales=scales, quats=quats, opacity=opacity,

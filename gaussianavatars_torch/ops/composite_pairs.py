@@ -45,6 +45,7 @@ import functools
 import torch
 
 from .. import cuda_build
+from ..utils import profiling
 from .rasterize_dense import ALPHA_CUTOFF, ALPHA_MAX, T_EPS
 
 STOP_NEVER = 0x3FFFFFFF
@@ -56,12 +57,12 @@ _BWD_IMPL = "v3"
 IMPLS = ("v2", "v3", "v4")
 
 # Kernel launches per C entry point, for callers to check which kernel ran.
-LAUNCHES = dict.fromkeys((
+LAUNCHES = profiling.counter("composite_pairs", (
     "composite_pairs_fwd", "composite_pairs_fwd_v2",
     "composite_pairs_bwd", "composite_pairs_bwd_amp",
     "composite_pairs_bwd_v2", "composite_pairs_bwd_v2_amp",
     "composite_pairs_bwd_v4", "composite_pairs_bwd_v4_amp",
-), 0)
+))
 
 
 def fwd_entry(impl: str) -> tuple[str, str]:

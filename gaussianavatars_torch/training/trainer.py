@@ -55,6 +55,7 @@ from ..models.binding import face_frames
 from ..models.densify import add_densification_stats
 from ..models.flame.flame_model import FlameModel, FlameParams
 from ..models.gaussians import GaussianAux, GaussianParams, world_gaussians
+from ..ops.binding_gather import binding_gather
 from ..ops.projection import project_from_params
 from ..ops.rasterize_sorted import rasterize_sorted
 from ..ops.rasterize_tiled import (
@@ -252,7 +253,7 @@ def binding_regularisers(model: FlameModel, cfg: Config, state: TrainState,
     reg_terms = {}
     nvis = torch.clamp_min(visible.sum(), 1)
     zero = torch.zeros((), dtype=torch.float32, device=visible.device)
-    fs = frames.scaling[state.aux.binding]            # [N, 1]
+    (fs,) = binding_gather(state.aux.binding, frames.scaling)   # [N, 1]
     if o.metric_xyz:
         xyz_excess = safe_norm(torch.relu(params.means * fs - o.threshold_xyz), dim=1)
     else:
@@ -621,9 +622,10 @@ class TrainChunk:
     shapes, the ground truth cache, the stage clock's state), so one
     private memory pool is alive at a time; a chunk with another key drops
     it and captures anew, as does `drop()`. A capture that fails raises: a chunk never falls back
-    to eager steps on the card. The compositor kernels' launch counts
-    (`ops/composite_pairs.LAUNCHES`) grow by their launches a step for
-    every replay, so they count steps as eager steps do. The call's host
+    to eager steps on the card. The engagement counts
+    (`utils/profiling.counter`: the compositor's and the binding segment
+    sum's launches, the binding index's builds) grow by their counts a
+    step for every replay, so they count steps as eager steps do. The call's host
     phases are the spans `chunk/fill`, `chunk/replay` and `chunk/rows`."""
 
     def __init__(self, model: Optional[FlameModel], cfg: Config, tile_cfg: TileConfig,

@@ -19,9 +19,10 @@ The pieces they share:
     initialisation (kernel libraries, cached grids, autograd's streams)
     happens outside it;
   * `Captured`: `torch.cuda.graph` with its own memory pool, its static
-    outputs, and the compositor kernels' launch counts
-    (`ops/composite_pairs.LAUNCHES`) grown by a replay's launches at every
-    replay, so that they count frames and steps as eager calls do;
+    outputs, and the engagement counts (`utils/profiling.counter`: the
+    kernels' launches, the binding index's builds) grown by a replay's
+    counts at every replay, so that they count frames and steps as eager
+    calls do;
   * `copy_in`: static input buffers filled in place before a replay;
   * `GraphSlot`: one graph for one key, dropped on a key change, so that
     one private memory pool is alive a user at a time;
@@ -43,7 +44,6 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops import composite_pairs
 from ..training.optim import tree_map
 from . import profiling
 
@@ -98,17 +98,17 @@ class Captured:
 
     `outputs` is what fn returned during the capture: static tensors that
     every `replay` rewrites. The capture itself launches nothing, so the
-    compositor launch counts it recorded are taken back and added once a
-    replay instead. The capture refuses an unsafe CUDA call (a host read,
-    a synchronisation) made by this thread only ("thread_local"): other
-    threads of the process make CUDA calls while it runs (NCCL's watchdog
-    querying its collectives' events, the loop's prefetch workers copying
-    ground truth to the card), which the default global mode would turn
-    into a failed capture."""
+    engagement counts it recorded (`utils/profiling.counters`) are taken
+    back and added once a replay instead. The capture refuses an unsafe
+    CUDA call (a host read, a synchronisation) made by this thread only
+    ("thread_local"): other threads of the process make CUDA calls while
+    it runs (NCCL's watchdog querying its collectives' events, the loop's
+    prefetch workers copying ground truth to the card), which the default
+    global mode would turn into a failed capture."""
 
     def __init__(self, key, fn: Callable, kind: str = "graph"):
-        launches = composite_pairs.LAUNCHES
-        before = dict(launches)
+        counts = profiling.counters()
+        before = {name: dict(c) for name, c in list(counts.items())}
         self.key = key
         # The stage clock's ring, which the graph's stamps write, lives as
         # long as the graph.
@@ -118,15 +118,21 @@ class Captured:
             with profiling.setup_span("graphs/capture", kind=kind), \
                     torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 self.outputs = fn()
-            self.per_replay = {k: launches[k] - before[k] for k in launches}
+            self.per_replay = {
+                name: {k: v - before.get(name, {}).get(k, 0) for k, v in c.items()}
+                for name, c in list(counts.items())}
         finally:
-            launches.update(before)
+            for name, c in list(counts.items()):
+                c.update({k: before.get(name, {}).get(k, 0) for k in c})
 
     def replay(self, n: int = 1) -> None:
         for _ in range(n):
             self.graph.replay()
-        for name, k in self.per_replay.items():
-            composite_pairs.LAUNCHES[name] += k * n
+        counts = profiling.counters()
+        for name, delta in self.per_replay.items():
+            for k, v in delta.items():
+                if v:
+                    profiling.count(counts[name], k, v * n)
 
 
 class GraphSlot:

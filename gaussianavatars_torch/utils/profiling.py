@@ -29,6 +29,12 @@ the device:
     kernel build and load, the FLAME model's set-up, the tier probe,
     warm-ups and captures, and counts of captures by graph kind and of
     re-captures by the key field that changed.
+  * `counter(name, keys)`, `count(counts, key)`, `probe(name, read)` —
+    engagement counts, always on: a module's counts by key (kernel
+    launches, index builds), which every replay of a captured graph grows
+    by what its capture counted (`utils/graphs.Captured`), and readings
+    that `setup_report()` takes on demand, off the hot path; it reports
+    both.
   * `trace(log_dir)` — `torch.profiler` around a region, writing a Chrome
     trace (`trace.json`) into `log_dir`; CUDA activity is recorded when a
     card is present. `trace_events(prof)` lists a profile's events.
@@ -500,16 +506,52 @@ def count_capture(kind: str, changed: Optional[list]) -> None:
         _SETUP.recaptures[kind][field] += 1
 
 
+_COUNTERS: dict = {}        # name → a module's counts by key
+_PROBES: dict = {}          # name → a reading taken by setup_report
+_COUNT_LOCK = threading.Lock()
+
+
+def counter(name: str, keys) -> dict:
+    """The counts `name`: a dict of ints by key, zero at first, that its
+    module keeps and adds to with `count`. `setup_report` reports every
+    such dict, and a replay of a captured graph adds to each what its
+    capture counted (`utils/graphs.Captured`), so the counts count the
+    replayed work as they count eager calls."""
+    return _COUNTERS.setdefault(name, dict.fromkeys(keys, 0))
+
+
+def counters() -> dict:
+    """Every dict of `counter`, by name."""
+    return _COUNTERS
+
+
+def count(counts: dict, key: str, n: int = 1) -> None:
+    """Add `n` to `counts[key]` (a dict of `counter`)."""
+    with _COUNT_LOCK:
+        counts[key] += n
+
+
+def probe(name: str, read) -> None:
+    """Register `read()`, a reading that `setup_report` takes when it is
+    called and reports under `name` (None: nothing to read). A reading
+    may read the device, which synchronises it."""
+    _PROBES[name] = read
+
+
 def setup_report() -> dict:
     """The set-up spans (name, start_s on the `time.perf_counter` clock,
     seconds, depth, parent and attributes; open ones have seconds None),
-    captures by kind and re-captures by kind and changed key field."""
+    captures by kind and re-captures by kind and changed key field; the
+    engagement counts by name (`counter`) and the readings by name
+    (`probe`), taken now."""
     spans = [dict({k: v for k, v in s.items() if k != "end_s"},
                   seconds=None if s["end_s"] is None else s["end_s"] - s["start_s"])
              for s in list(_SETUP.spans)]
     return dict(spans=spans, captures=dict(_SETUP.captures),
                 recaptures={k: dict(v) for k, v in _SETUP.recaptures.items()},
-                dropped=_SETUP.dropped)
+                dropped=_SETUP.dropped,
+                counts={k: dict(v) for k, v in list(_COUNTERS.items())},
+                probes={k: read() for k, read in list(_PROBES.items())})
 
 
 def trace_events(prof) -> list:

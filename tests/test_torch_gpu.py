@@ -14,6 +14,7 @@ import torch
 from gaussianavatars_torch.config import Config
 from gaussianavatars_torch.data.cameras import look_at_camera
 from gaussianavatars_torch.models.flame.flame_model import zero_params
+from gaussianavatars_torch.ops import binding_gather as tbg
 from gaussianavatars_torch.ops import composite_pairs as tcp
 from gaussianavatars_torch.ops.projection import project_from_params
 from gaussianavatars_torch.ops.rasterize_sorted import depth_key, sort_gather
@@ -777,3 +778,75 @@ def test_stage_clock_chunks_keep_their_bits(cuda_device):
             "train/geometry_bwd", "train/adam"} == set(step["spans"])
     assert step["spans"]["sort_gather/bwd"]["parent"] == "train/image_bwd"
     _outer_adds_up(step, "train/step")
+
+
+# Binding layouts of the segment-sum kernel: (slots, faces, live Gaussians a
+# face), every padding slot on face 0 as in the fixed-capacity state. The
+# benchmark's base-train and innov-train avatars (face 0's run 8,223 and
+# 4,589) and a fit's initial state (10,010 live of 131,072: a run of
+# 121,063).
+BINDING_LAYOUTS = {
+    "base_train": (98_304, 10_010, 9),
+    "innov_train": (114_688, 10_010, 11),
+    "initial_state": (131_072, 10_010, 1),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(BINDING_LAYOUTS))
+def test_binding_segment_sum_matches_plain_and_index_put(layout, cuda_device):
+    """The kernel against its plain version (the same additions in the same
+    order: bit for bit), against the backward it replaces,
+    `index_put_(accumulate=True)` on the three tables, and against the
+    exact sums, with random gradients on every slot, padding included.
+    Faces with runs of at most 32 entries match `index_put_` bit for bit.
+    Every face is within the kernel's own rounding of the sums taken in
+    float64: a face of n entries is summed in S = ceil(n / 32) slices of at
+    most 32 terms, then S partial sums, so its error is at most
+    (32 + S) · 2^-24 · Σ|g| over its entries."""
+    cap, n_faces, per_face = BINDING_LAYOUTS[layout]
+    idx = torch.arange(cap, device=cuda_device)
+    binding = torch.where(idx < n_faces * per_face, idx % n_faces, 0)
+    g = torch.Generator().manual_seed(31)
+    grads = [torch.randn((cap, w), generator=g).to(cuda_device) for w in (3, 4, 1)]
+    index = tbg.build_face_index(binding, n_faces)
+    runs = index.offsets[1:] - index.offsets[:-1]
+    assert int(runs[0]) == cap - n_faces * per_face + per_face
+    before = tbg.LAUNCHES["binding_segment_sum"]
+    got = tbg.segment_sum(grads, index)
+    torch.cuda.synchronize()
+    assert tbg.LAUNCHES["binding_segment_sum"] == before + 1
+    short = runs <= tbg.SLICE
+    assert not bool(short[0]) and bool(short[1:].all())
+    slices = (runs + tbg.SLICE - 1) // tbg.SLICE
+    for a, p, x in zip(got, tbg.segment_sum_reference(grads, index), grads):
+        assert torch.equal(a, p)
+        want = torch.zeros_like(a).index_put_((binding,), x, accumulate=True)
+        assert torch.equal(a[short], want[short])
+        exact = torch.zeros(a.shape, dtype=torch.float64, device=cuda_device).index_add_(
+            0, binding, x.double())
+        abs_sum = torch.zeros_like(exact).index_add_(0, binding, x.double().abs())
+        bound = (tbg.SLICE + slices[:, None]) * 2.0 ** -24 * abs_sum
+        assert bool(((a.double() - exact).abs() <= bound).all())
+
+
+def test_chunk_launches_the_segment_sum_once_a_step(cuda_device):
+    """A chunk of 12 (3 eager warm-up steps, a capture, 9 replays), then one
+    of 5 that only replays: the kernel and the index build once a step (the
+    capture holds the build, so a replay builds the index of the binding it
+    is given)."""
+    from gaussianavatars_torch.training.trainer import make_train_chunk
+
+    model, cfg, tile, state, cache, _c, stacked, views, ts = _chunk_case(cuda_device, 17)
+    bg = torch.zeros(3, device=cuda_device)
+    chunk = make_train_chunk(model, cfg, tile)
+    launches, builds = tbg.LAUNCHES["binding_segment_sum"], tbg.INDEX["builds"]
+    sc, _m = chunk(state, cache, views[:12], stacked, ts[:12], bg, 3)
+    assert tbg.LAUNCHES["binding_segment_sum"] - launches == 12
+    assert tbg.INDEX["builds"] - builds == 12
+    tail = dataclasses.replace(stacked, **{f: getattr(stacked, f)[12:] for f in
+                                           ("world_view", "proj", "full_proj", "camera_center")})
+    chunk(sc, cache, views[12:], tail, ts[12:], bg, 3)
+    torch.cuda.synchronize()
+    assert chunk.captures == 1
+    assert tbg.LAUNCHES["binding_segment_sum"] - launches == 17
+    assert tbg.INDEX["builds"] - builds == 17
