@@ -11,7 +11,10 @@ The same pipeline as the JAX package's `ops/sort_binning.py`:
   4. Segment starts/counts per tile by `searchsorted`.
 
 The backward's `reduce_expansion` sums the expansion's gradients back to
-one row per Gaussian.
+one row per Gaussian. `count_plan` counts a training step's binning: the
+expansion slots on the host (`COUNTS`), the live pairs and the tiles the
+tier budgets dropped on the device (`PAIRS`), so that a captured step
+counts them at every replay with no host read.
 
 PyTorch has no multi-operand sort: each sort orders one key with
 `torch.sort(stable=True)` and gathers the payload columns by the returned
@@ -28,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .projection import Projected
 from .rasterize_dense import ALPHA_CUTOFF
 
@@ -172,6 +176,20 @@ class SortPlan(NamedTuple):
     max_footprint: torch.Tensor   # [] largest clipped bbox tile count
     pos: torch.Tensor             # [M] i32 column-major destination per sorted row
     gidx_fp: torch.Tensor         # [N] original Gaussian index per fp row
+
+
+# The binning of training steps (`count_plan`): plans counted and their
+# expansion slots (host counts, grown by a replay as by its capture), and
+# on the device their live pairs and the bbox tiles their budgets dropped.
+COUNTS = profiling.counter("sort_binning", ("plans", "expansion_slots"))
+PAIRS = profiling.device_counter("sort_binning_pairs", ("live_pairs", "budget_overflow"))
+
+
+def count_plan(plan: SortPlan) -> None:
+    """Count one binned frame of a training step: `COUNTS` and `PAIRS`."""
+    profiling.count(COUNTS, "plans")
+    profiling.count(COUNTS, "expansion_slots", plan.pos.shape[0])
+    PAIRS.add(plan.total, plan.budget_overflow)
 
 
 def bbox_tiles(

@@ -65,6 +65,11 @@ under `gauss_shard`, after a 15-float gather), one world sum (the
 gradients, the statistics, the metrics and the contrastive thumbnail) and
 one world maximum (the radii and the budget flags).
 
+The step is the span `sharded/step`, a row of the stage clock
+(`utils/profiling.annotate`), and its stages the `sharded/*` spans inside
+it: `sharded/screen_reduce` (step 6) and `sharded/reduce` (the world sum
+and maximum) hold the collectives.
+
 The JAX step is one `jax.jit` a step, its collectives inside. Its
 counterpart here is `ShardedStep`'s captured form: on the card, over NCCL
 and on the sorted pipeline, each rank captures its step once in a CUDA
@@ -276,9 +281,14 @@ def make_sharded_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: 
              sh_degree: int):
         """The step of one camera row: (new state, metrics). `ts` is an int
         or a 0-dim int64 tensor on the device (the same bits); `gt` is the
-        row's [H_pad, W, 3]. It reads nothing on the host. Its `sharded/*`
-        spans are ranges of a profile only: the step is no row of the
-        stage clock, so they stamp nothing in its replays."""
+        row's [H_pad, W, 3]. It reads nothing on the host. It runs in the
+        span `sharded/step`, a row of the stage clock (the module's
+        docstring), so that a replay stamps its stages as an eager call
+        does."""
+        with annotate("sharded/step", row=True):
+            return step_body(state, cam, ts, gt, bg, sh_degree)
+
+    def step_body(state, cam, ts, gt, bg, sh_degree):
         gt_full = gt_to_float(gt[:H])
         dev = gt_full.device
         params = _leaves(state.params)

@@ -100,7 +100,32 @@ def probe_tile_config(model: Optional[FlameModel], params: GaussianParams, aux: 
                                   table)
 
 
-def _probe_tile_config(model, params, aux, flame_params, camera, tile_h, tile_w, table):
+@torch.inference_mode()
+def probe_tile_config_views(model: Optional[FlameModel], params: GaussianParams,
+                            aux: GaussianAux, views, tile_h: int = 32,
+                            tile_w: int = 32) -> TileConfig:
+    """Tier budgets that cover every view of `views` ((flame_params or None,
+    camera) pairs): `probe_tiers` of the views' footprints sorted from the
+    largest and taken rank by rank at their maximum. A Gaussian of
+    footprint rank k in any view needs at most that maximum's k-th value,
+    which its tier covers, so no probed view drops a tile. A set-up span
+    (`render/probe_tile_config`, with the number of views)."""
+    with setup_span("render/probe_tile_config", views=0) as span:
+        top = None
+        for fp, camera in views:
+            ntiles = _footprints(model, params, aux, fp, camera, tile_h, tile_w)[0]
+            ranked = torch.sort(ntiles, descending=True).values
+            top = ranked if top is None else torch.maximum(top, ranked)
+            span["views"] += 1
+        if top is None:
+            raise ValueError("no view to probe")
+        spec = probe_tiers(top)
+        return TileConfig(tile_h=tile_h, tile_w=tile_w, base_budget=spec.base,
+                          tiers=spec.tiers)
+
+
+def _footprints(model, params, aux, flame_params, camera, tile_h, tile_w):
+    """(masked bbox tile counts [N], projection, screen opacity) of one view."""
     frames = None
     if model is not None:
         frames = face_frames(model(flame_params)[0], model.faces)
@@ -110,7 +135,11 @@ def _probe_tile_config(model, params, aux, flame_params, camera, tile_h, tile_w,
     _tx, _ty, _bw, ntiles, _nty, _ntx = bbox_tiles(
         proj, camera.height, camera.width, tile_h, tile_w, opacity=opac
     )
-    ntiles = torch.where(proj.mask, ntiles, torch.zeros_like(ntiles))
+    return torch.where(proj.mask, ntiles, torch.zeros_like(ntiles)), proj, opac
+
+
+def _probe_tile_config(model, params, aux, flame_params, camera, tile_h, tile_w, table):
+    ntiles, proj, opac = _footprints(model, params, aux, flame_params, camera, tile_h, tile_w)
     spec = probe_tiers(ntiles)
     cfg = TileConfig(tile_h=tile_h, tile_w=tile_w, base_budget=spec.base, tiers=spec.tiers)
     if table:

@@ -34,7 +34,9 @@ JAX step's `use_flame=False` branches do. Off the sorted pipeline
 the image stage bins once from the detached projection with the screen
 opacity and composites the padded table (`rasterize_tiled.rasterize_binned`),
 as the JAX step's table branch does; its `overflow` and `budget_overflow`
-come from the table. The step is the span `train/step`, a row of the
+come from the table. On the sorted pipeline each step counts its binning
+(`ops/sort_binning.count_plan`: expansion slots, and on the device its
+live pairs and dropped tiles). The step is the span `train/step`, a row of the
 stage clock (`utils/profiling.annotate`), and each stage a span inside it
 (`train/*`; the innovations' `train/region_map`, `train/color_net` and
 `train/contrastive` inside `train/image_fwd`, the thumbnail cache's
@@ -61,6 +63,7 @@ from ..ops.rasterize_sorted import rasterize_sorted
 from ..ops.rasterize_tiled import (
     TileConfig, bin_gaussians, composite_tiles, rasterize_binned, view_colors,
 )
+from ..ops.sort_binning import count_plan
 from ..utils.graphs import GraphSlot, copy_in, graph_key, warm_up
 from ..utils.profiling import annotate
 from . import innovations as inn
@@ -405,6 +408,7 @@ def make_train_step(model: Optional[FlameModel], cfg: Config, tile_cfg: TileConf
                 proj._replace(mean2d=mean2d, conic=conic), colors, opac,
                 h, w, bg_color, tile_cfg.tile_h, tile_cfg.tile_w,
                 tile_cfg.tier_spec(mean2d.shape[0]), amp=o.use_amp)
+            count_plan(plan)
             return img, plan
         img, _alpha = rasterize_binned(mean2d, conic, colors, opac, binned, h, w, bg_color,
                                        tile_cfg, compositor=step_compositor)

@@ -34,7 +34,10 @@ the device:
     launches, index builds), which every replay of a captured graph grows
     by what its capture counted (`utils/graphs.Captured`), and readings
     that `setup_report()` takes on demand, off the hot path; it reports
-    both.
+    both. `device_counter(name, keys)` keeps counts that only the device
+    knows (the binning's live pairs): summed on the device with no host
+    read, so a captured graph adds them at every replay, and read as a
+    probe.
   * `trace(log_dir)` — `torch.profiler` around a region, writing a Chrome
     trace (`trace.json`) into `log_dir`; CUDA activity is recorded when a
     card is present. `trace_events(prof)` lists a profile's events.
@@ -508,6 +511,7 @@ def count_capture(kind: str, changed: Optional[list]) -> None:
 
 _COUNTERS: dict = {}        # name → a module's counts by key
 _PROBES: dict = {}          # name → a reading taken by setup_report
+_DEVICE_COUNTERS: dict = {}  # name → a DeviceCounter
 _COUNT_LOCK = threading.Lock()
 
 
@@ -529,6 +533,47 @@ def count(counts: dict, key: str, n: int = 1) -> None:
     """Add `n` to `counts[key]` (a dict of `counter`)."""
     with _COUNT_LOCK:
         counts[key] += n
+
+
+class DeviceCounter:
+    """Counts summed on the device (`device_counter`): one int64 total a key
+    on each device counted on. `add(*values)`, one 0-dim tensor a key, sums
+    them into the totals with a few kernels on the current stream and reads
+    nothing on the host, so that a captured graph adds its values at every
+    replay. The totals are made at a device's first `add`, which must come
+    before any capture. `read()` the totals by key, summed over the devices
+    (it reads them back)."""
+
+    def __init__(self, keys):
+        self.keys = tuple(keys)
+        self.totals: dict = {}
+
+    def add(self, *values: torch.Tensor) -> None:
+        if len(values) != len(self.keys):
+            raise ValueError(f"{len(values)} values for the keys {self.keys}")
+        x = torch.stack([v.reshape(()).to(torch.int64) for v in values])
+        total = self.totals.get(x.device)
+        if total is None:
+            if x.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a device counter's first add cannot be captured: its "
+                                   "totals would live in the graph's memory pool")
+            total = self.totals[x.device] = torch.zeros_like(x)
+        total.add_(x)
+
+    def read(self) -> Optional[dict]:
+        if not self.totals:
+            return None
+        totals = [t.tolist() for t in self.totals.values()]
+        return {k: sum(t[i] for t in totals) for i, k in enumerate(self.keys)}
+
+
+def device_counter(name: str, keys) -> DeviceCounter:
+    """The device counts `name` (`DeviceCounter`), read by `setup_report`
+    among the probes; None there until a count was added."""
+    if name not in _DEVICE_COUNTERS:
+        _DEVICE_COUNTERS[name] = DeviceCounter(keys)
+        probe(name, _DEVICE_COUNTERS[name].read)
+    return _DEVICE_COUNTERS[name]
 
 
 def probe(name: str, read) -> None:

@@ -850,3 +850,153 @@ def test_chunk_launches_the_segment_sum_once_a_step(cuda_device):
     assert chunk.captures == 1
     assert tbg.LAUNCHES["binding_segment_sum"] - launches == 17
     assert tbg.INDEX["builds"] - builds == 17
+
+
+def _long_list_case(cuda_device):
+    """An unbound scene whose tile lists run to thousands of pairs: 32,768
+    Gaussians of low opacity in a slab before the camera, each over a few
+    of the 64 tiles of a 256×256 view; two views of it and a uint8 cache."""
+    from gaussianavatars_torch.models.gaussians import init_from_points
+    from gaussianavatars_torch.render import probe_tile_config_views
+
+    n = 32_768
+    rng = np.random.RandomState(11)
+    pts = (rng.rand(n, 3).astype(np.float32) - 0.5) * np.array([1.6, 1.6, 0.4], np.float32)
+    params, aux = init_from_points(pts, rng.uniform(0, 1, (n, 3)), capacity=n,
+                                   init_scale=np.full(n, 0.08), device=cuda_device)
+    g = torch.Generator().manual_seed(12)
+    params = dataclasses.replace(
+        params, logit_opacity=torch.full_like(params.logit_opacity, -3.0),
+        log_scales=params.log_scales + (torch.rand((n, 3), generator=g) - 0.5).to(cuda_device),
+        quats=torch.randn((n, 4), generator=g).to(cuda_device))
+    cams = [look_at_camera(eye=np.array([dx, 0.0, -2.0]), target=np.zeros(3), fovy=0.9,
+                           width=256, height=256, device=cuda_device) for dx in (0.0, 0.05)]
+    tile = probe_tile_config_views(None, params, aux, [(None, c) for c in cams])
+    cache = torch.randint(0, 256, (2, 256, 256, 3), generator=g,
+                          dtype=torch.uint8).to(cuda_device)
+    return params, aux, cams, tile, cache
+
+
+def test_unbound_chunk_at_long_tile_lists_matches_eager_steps(cuda_device):
+    """An unbound chunk of 8 steps (3 eager, a capture, 5 replays) whose
+    tiles hold thousands of pairs equals 8 `make_train_step` calls on the
+    same views bit for bit, every state leaf and loss; no step drops a
+    tile, and the binning's device counts add up the steps' live pairs."""
+    from gaussianavatars_torch.data.pipeline import gt_to_float
+    from gaussianavatars_torch.ops import sort_binning
+    from gaussianavatars_torch.ops.rasterize_sorted import rasterize_sorted
+    from gaussianavatars_torch.training.checkpoint import flatten_state
+    from gaussianavatars_torch.training.trainer import make_train_chunk, stack_cameras
+
+    params, aux, cams, tile, cache = _long_list_case(cuda_device)
+    cfg = Config()
+    state = init_train_state(params, aux, cfg)
+    with torch.no_grad():
+        proj = project_from_params(params.means, torch.exp(params.log_scales), params.quats,
+                                   cams[0], alive=aux.alive)
+        opac = torch.where(proj.mask, torch.sigmoid(params.logit_opacity[:, 0]),
+                           torch.zeros(()).to(cuda_device))
+        _img, _a, plan = rasterize_sorted(proj, torch.ones_like(params.means), opac, 256, 256,
+                                          torch.zeros(3, device=cuda_device), tile.tile_h,
+                                          tile.tile_w, tile.tier_spec(params.capacity))
+    assert int(plan.counts.max()) >= 2_000 and int(plan.budget_overflow) == 0
+    k, bg = 8, torch.zeros(3, device=cuda_device)
+    views = [i % 2 for i in range(k)]
+    step = make_train_step(None, cfg, tile)
+    st, losses = state, []
+    for v in views:
+        out = step(st, gt_to_float(cache[v]), cams[v], 0, bg, 3)
+        st = out.state
+        losses.append(out.metrics["loss"])
+    chunk = make_train_chunk(None, cfg, tile)
+    plans0 = sort_binning.COUNTS["plans"]
+    pairs0 = sort_binning.PAIRS.read()["live_pairs"]
+    sc, m = chunk(state, cache, views, stack_cameras([cams[v] for v in views]), [0] * k, bg, 3)
+    torch.cuda.synchronize()
+    assert chunk.captures == 1 and int(m["budget_overflow"].max()) == 0
+    got, want = flatten_state(sc), flatten_state(st)
+    for name, v in want.items():
+        assert torch.equal(got[name], v), name
+    assert torch.equal(m["loss"], torch.stack(losses))
+    assert sort_binning.COUNTS["plans"] - plans0 == k
+    live = sort_binning.PAIRS.read()["live_pairs"] - pairs0
+    assert live > k * 2_000 * 16
+
+
+def _sharded_clock_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank of `test_sharded_step_rows_on_four_cards`: two fresh runs of
+    seven steps of a 2×2 sharded step (3 eager, a capture, 3 replays), the
+    stage clock switched on after the fourth step in the second; the final
+    state's digest and, with the clock, the stage report's rows."""
+    import json
+    import os
+
+    from gaussianavatars_torch.parallel import distributed as pdist
+    from gaussianavatars_torch.parallel.mesh import make_rank_mesh
+    from gaussianavatars_torch.parallel.sharded import (
+        camera_batch, make_sharded_train_step, pad_gt_for_mesh, padded_height, state_digest,
+    )
+    from gaussianavatars_torch.utils import profiling
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    pdist.initialize(init, world, rank, backend="nccl", device="cuda")
+    dev = pdist.rank_device("cuda")
+    mesh = make_rank_mesh(2, 2)
+    out = {}
+    for clock in (False, True):
+        model, params, aux, fl, cam, _n = build_scene(per_face=1, width=160, height=96,
+                                                      device=dev)
+        tile = probe_tile_config(model, params, aux, fl, cam)
+        cfg = Config()
+        state = init_train_state(params, aux, cfg, num_timesteps=1, n_expr=fl.expr.shape[1],
+                                 n_shape=fl.shape.shape[0], num_verts=model.num_verts)
+        step = make_sharded_train_step(model, cfg, tile, mesh, cam)
+        gt = torch.rand((2, cam.height, cam.width, 3),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+        gt = pad_gt_for_mesh(gt, padded_height(cam.height, tile.tile_h, mesh.tile))
+        row, row_gt = pdist.make_local_batch(mesh, camera_batch([cam, cam]), gt)
+        bg = torch.zeros(3, device=dev)
+        for i in range(7):
+            if clock and i == 4:
+                profiling.enable_stage_clock(dev, rows=64)
+            state, _m = step(state, row, row_gt, bg, 3)
+        if clock:
+            rep = profiling.stage_report()
+            profiling.disable_stage_clock()
+            kind = rep["kinds"]["sharded/step"]
+            out["rows"], out["units"] = rep["rows"], kind["units"]
+            out["spans"] = {k: v["mean_ms"] for k, v in kind["spans"].items()}
+        out[f"digest_{clock}"] = state_digest(state)
+        out["captures"] = step.captures
+        step.drop()
+    pdist.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def test_sharded_step_rows_on_four_cards(cuda_device, tmp_path):
+    """The sharded step is a row of the stage clock on a 2×2 NCCL mesh of
+    four cards: with the clock on, every replay writes a complete row on
+    every rank, with the collective stages `sharded/screen_reduce` and
+    `sharded/reduce` among its spans, and the state keeps its bits."""
+    import json
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from gaussianavatars_torch import cuda_build
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    cuda_build.build()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        init = f"tcp://localhost:{s.getsockname()[1]}"
+    mp.spawn(_sharded_clock_rank, args=(4, init, str(tmp_path)), nprocs=4, join=True)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(4)]
+    for out in ranks:
+        assert out["digest_False"] == out["digest_True"] == ranks[0]["digest_False"]
+        assert out["rows"] == 3 and out["units"] == 3
+        assert {"sharded/step", "sharded/geometry_fwd", "sharded/band", "sharded/image",
+                "sharded/screen_reduce", "sharded/reduce", "sharded/adam"} <= set(out["spans"])
+        assert out["spans"]["sharded/screen_reduce"] > 0 and out["spans"]["sharded/reduce"] > 0
